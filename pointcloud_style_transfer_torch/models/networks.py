@@ -1,0 +1,211 @@
+"""Networks: time embedding, PointNet++ style encoder, noise predictor
+(counterpart of ``pointcloud_style_transfer_tpu/models/networks.py``).
+
+Channels-last throughout, like the JAX package: a 1x1 conv + BN is a
+``Dense`` + ``BatchNorm`` over the trailing feature axis. Parameters stay
+float32 and each ``Dense`` computes in the module's compute dtype (bf16 when
+``Config.use_amp``), as a Flax ``Dense(dtype=bf16)`` with float32 params does;
+BatchNorm normalises in float32 and returns the compute dtype.
+
+Parameter counts at the default widths: style encoder 675,136, noise
+predictor 1,874,691, total 2,549,827.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import farthest_point_sample, index_points, query_ball_point
+
+
+def time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal timestep embedding [B] -> [B, dim] float32."""
+    half = dim // 2
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=t.device)
+                      * -(math.log(10000.0) / (half - 1)))
+    args = t.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with float32 parameters that computes in
+    ``compute_dtype``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """BatchNorm over the trailing (channel) axis of [..., C]; normalises in
+    float32 and returns ``compute_dtype``. Flax momentum 0.9 is torch 0.1."""
+
+    def __init__(self, num_features: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x.reshape(-1, x.shape[-1]).float())
+        return y.reshape(x.shape).to(self.compute_dtype)
+
+
+class SetAbstraction(nn.Module):
+    """PointNet++ set abstraction: FPS -> ball query -> group (centered) ->
+    per-point Dense+BN+ReLU -> max-pool over neighbours. ``group_all`` pools
+    every point into one group."""
+
+    def __init__(self, npoint: Optional[int], radius: Optional[float],
+                 nsample: Optional[int], in_channels: int, mlp: Sequence[int],
+                 group_all: bool = False,
+                 compute_dtype: torch.dtype = torch.float32,
+                 use_kernels: bool = True):
+        super().__init__()
+        self.npoint, self.radius, self.nsample = npoint, radius, nsample
+        self.group_all = group_all
+        self.use_kernels = use_kernels
+        chans = [in_channels, *mlp]
+        self.linears = nn.ModuleList(
+            Dense(a, b, compute_dtype) for a, b in zip(chans[:-1], chans[1:]))
+        self.bns = nn.ModuleList(BatchNorm(c, compute_dtype) for c in mlp)
+
+    def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
+                fps_start: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        B = xyz.shape[0]
+        if self.group_all:
+            new_xyz = xyz.new_zeros((B, 1, 3))
+            grouped = xyz[:, None]
+            if points is not None:
+                grouped = torch.cat([grouped, points[:, None]], dim=-1)
+        else:
+            centroid_idx = farthest_point_sample(
+                xyz, self.npoint, start=fps_start, generator=generator,
+                use_kernel=self.use_kernels)
+            new_xyz = index_points(xyz, centroid_idx)  # [B, S, 3]
+            group_idx = query_ball_point(self.radius, self.nsample, xyz,
+                                         new_xyz, use_kernel=self.use_kernels)
+            grouped = index_points(xyz, group_idx) - new_xyz[:, :, None, :]
+            if points is not None:
+                grouped = torch.cat([grouped, index_points(points, group_idx)],
+                                    dim=-1)
+        x = grouped
+        for lin, bn in zip(self.linears, self.bns):
+            x = F.relu(bn(lin(x)))
+        return new_xyz, x.max(dim=2).values  # [B, S, C']
+
+
+class PointNet2Encoder(nn.Module):
+    """SA(512, r .2, ns 32) -> SA(128, r .4, ns 64) -> SA(group all) ->
+    [B, feature_dim]."""
+
+    def __init__(self, feature_dim: int = 256,
+                 compute_dtype: torch.dtype = torch.float32,
+                 use_kernels: bool = True):
+        super().__init__()
+        kw = dict(compute_dtype=compute_dtype, use_kernels=use_kernels)
+        self.sa1 = SetAbstraction(512, 0.2, 32, 3, (64, 64, 128), **kw)
+        self.sa2 = SetAbstraction(128, 0.4, 64, 3 + 128, (128, 128, 256), **kw)
+        self.sa3 = SetAbstraction(None, None, None, 3 + 256,
+                                  (256, 512, feature_dim), group_all=True, **kw)
+
+    def forward(self, xyz: torch.Tensor,
+                fps_starts: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``fps_starts`` [2, B]: the start indices of the two FPS calls
+        (drawn from ``generator`` when not given)."""
+        s1, s2 = (None, None) if fps_starts is None else fps_starts
+        l1_xyz, l1_points = self.sa1(xyz, None, s1, generator)
+        l2_xyz, l2_points = self.sa2(l1_xyz, l1_points, s2, generator)
+        _, global_feat = self.sa3(l2_xyz, l2_points)
+        return global_feat.reshape(xyz.shape[0], -1)
+
+
+class StyleEncoder(nn.Module):
+    """PointNet2Encoder + MLP head -> [B, feature_dim]."""
+
+    def __init__(self, feature_dim: int = 256,
+                 compute_dtype: torch.dtype = torch.float32,
+                 use_kernels: bool = True):
+        super().__init__()
+        self.encoder = PointNet2Encoder(feature_dim, compute_dtype, use_kernels)
+        self.fc1 = Dense(feature_dim, 512, compute_dtype)
+        self.fc2 = Dense(512, feature_dim, compute_dtype)
+        self.dropout = nn.Dropout(0.1)
+
+    def forward(self, points: torch.Tensor,
+                fps_starts: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        feat = self.encoder(points, fps_starts, generator)
+        x = self.dropout(F.relu(self.fc1(feat)))
+        return F.relu(self.fc2(x))
+
+
+class NoisePredictor(nn.Module):
+    """Per-point residual MLP denoiser conditioned on time + style (no
+    cross-point mixing)."""
+
+    def __init__(self, feature_dim: int = 256, time_embed_dim: int = 128,
+                 num_blocks: int = 6,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        F_ = feature_dim
+        self.time_embed_dim = time_embed_dim
+        self.point_encoder = nn.ModuleList([
+            Dense(3, 128, compute_dtype), Dense(128, 256, compute_dtype),
+            Dense(256, F_, compute_dtype)])
+        self.time_proj = Dense(time_embed_dim, F_, compute_dtype)
+        self.style_proj = Dense(F_, F_, compute_dtype)
+        self.blocks = nn.ModuleList(
+            nn.ModuleList([Dense(F_, 2 * F_, compute_dtype),
+                           Dense(2 * F_, F_, compute_dtype)])
+            for _ in range(num_blocks))
+        self.dropout = nn.Dropout(0.1)
+        self.output_mlp = nn.ModuleList([
+            Dense(F_, 256, compute_dtype), Dense(256, 128, compute_dtype),
+            Dense(128, 3, compute_dtype)])
+
+    def forward(self, noisy_points: torch.Tensor, t: torch.Tensor,
+                style_feat: torch.Tensor) -> torch.Tensor:
+        pe0, pe1, pe2 = self.point_encoder
+        x = pe2(F.relu(pe1(F.relu(pe0(noisy_points)))))
+        t_feat = self.time_proj(time_embedding(t, self.time_embed_dim))
+        s_feat = self.style_proj(style_feat)
+        x = x + t_feat[:, None, :] + s_feat[:, None, :]
+        for fc1, fc2 in self.blocks:
+            x = self.dropout(fc2(F.relu(fc1(x)))) + x
+        o0, o1, o2 = self.output_mlp
+        return o2(F.relu(o1(F.relu(o0(x)))))
+
+
+class DiffusionNet(nn.Module):
+    """StyleEncoder + NoisePredictor: the learned parts of the model."""
+
+    def __init__(self, feature_dim: int = 256, time_embed_dim: int = 128,
+                 compute_dtype: torch.dtype = torch.float32,
+                 use_kernels: bool = True):
+        super().__init__()
+        self.style_encoder = StyleEncoder(feature_dim, compute_dtype,
+                                          use_kernels)
+        self.noise_predictor = NoisePredictor(feature_dim, time_embed_dim,
+                                              compute_dtype=compute_dtype)
+
+    def encode_style(self, cond_points: torch.Tensor,
+                     fps_starts: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        return self.style_encoder(cond_points, fps_starts, generator)
+
+    def predict_noise(self, noisy_points: torch.Tensor, t: torch.Tensor,
+                      style_feat: torch.Tensor) -> torch.Tensor:
+        return self.noise_predictor(noisy_points, t, style_feat)

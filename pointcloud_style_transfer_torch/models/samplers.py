@@ -1,0 +1,176 @@
+"""CFG-guided DDIM style transfer (counterpart of
+``pointcloud_style_transfer_tpu/models/samplers.py::guided_sample_loop``).
+
+The style is encoded once from the voxel-downsampled condition cloud; each of
+the ``num_inference_steps`` steps then runs the denoiser on the cond/uncond
+batch, combines with the guidance scale, and takes a DDIM step with the
+content anchor and the tanh constraint. When the cloud is larger than
+``global_points`` (hierarchical branch) the denoiser sees a voxel
+downsample of the current state, the CFG combine runs at coarse resolution,
+and the unselected points get the inverse-distance (k=3) interpolation of the
+coarse noise through the brute-force kNN kernel.
+
+Random draws, in the order they are taken from ``generator`` when not passed
+in: the condition cloud's voxel priorities, the two FPS start indices, the
+initial noise, then each step's voxel priorities.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..ops import (complement_indices, index_points, knn, voxel_downsample,
+                   voxel_downsample_partition)
+from ..ops.distance import UNPORTED_KNN_BACKENDS
+from .diffusion import DiffusionSchedule, ddim_step, ddim_timesteps
+from .model import PointCloudDiffusionModel
+
+
+def resolve_sampler_knn_backend(cfg: Config) -> str:
+    """The upsampling kNN's backend: ``"pallas"`` (the brute-force kernel)
+    for ``"auto"`` and ``"pallas"``, ``"jnp"`` (its plain version) for
+    ``"jnp"`` or ``use_pallas=False``. On the TPU ``"auto"`` means the kd-grid;
+    here it means the brute kernel until the grid is ported. The other JAX
+    backends raise ``NotImplementedError``."""
+    if not cfg.use_pallas:
+        return "jnp"
+    if cfg.knn_backend in UNPORTED_KNN_BACKENDS:
+        raise NotImplementedError(
+            f"knn_backend {cfg.knn_backend!r} is not ported yet: "
+            f"{UNPORTED_KNN_BACKENDS[cfg.knn_backend]}")
+    if cfg.knn_backend in ("auto", "pallas"):
+        return "pallas"
+    if cfg.knn_backend == "jnp":
+        return "jnp"
+    raise ValueError(f"unknown knn_backend: {cfg.knn_backend!r}")
+
+
+def _upsample_unknown(x: torch.Tensor, idx: torch.Tensor,
+                      coarse_vals: torch.Tensor, knn_backend: str,
+                      unknown: Optional[torch.Tensor] = None,
+                      ref_xyz: Optional[torch.Tensor] = None,
+                      unknown_xyz: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Place the exact coarse values at their points and interpolate ONLY the
+    remaining (unknown) points from their k=3 nearest coarse points with
+    weights 1/(sqrt(d)+1e-8), normalised. Returns [B, N, C].
+
+    ``unknown`` (the complement of ``idx``), ``ref_xyz`` (x at ``idx``) and
+    ``unknown_xyz`` (x at ``unknown``) are recomputed when not given."""
+    B, N, _ = x.shape
+    if unknown is None:
+        unknown = complement_indices(idx, N)
+    q_unknown = index_points(x, unknown) if unknown_xyz is None else unknown_xyz
+    if ref_xyz is None:
+        ref_xyz = index_points(x, idx)
+    k = min(3, idx.shape[1])
+    if unknown.shape[1] == 0:
+        empty = coarse_vals.new_zeros((B, 0) + tuple(coarse_vals.shape[2:]))
+        return _unpermute_assemble(idx, unknown, coarse_vals, empty, N)
+    sq_d, nbr = knn(q_unknown, ref_xyz, k, backend=knn_backend)
+    dist = torch.sqrt(torch.clamp(sq_d, min=0.0))
+    w = 1.0 / (dist + 1e-8)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    vals = torch.sum(index_points(coarse_vals, nbr) * w[..., None], dim=2)
+    return _unpermute_assemble(idx, unknown, coarse_vals, vals, N)
+
+
+def _unpermute_assemble(idx: torch.Tensor, unknown: torch.Tensor,
+                        coarse_vals: torch.Tensor, vals: torch.Tensor,
+                        N: int) -> torch.Tensor:
+    """idx and unknown partition 0..N-1, so [coarse_vals; vals] is the field
+    in permuted order: scatter it back to point order (the TPU's
+    inverse-permutation sort, done as the scatter it stands for)."""
+    perm = torch.cat([idx.long().clamp(0, N - 1), unknown.long()], dim=1)
+    vals_all = torch.cat([coarse_vals, vals], dim=1)
+    out = torch.empty_like(vals_all)
+    return out.scatter_(1, perm[..., None].expand_as(vals_all), vals_all)
+
+
+def _step_schedule(num_timesteps: int, num_inference_steps: int
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    ts = ddim_timesteps(num_timesteps, num_inference_steps)
+    t_prev = np.concatenate([ts[1:], [-1]])
+    # t_prev is -1 (alpha_prev = 1) whenever t == 0
+    t_prev = np.where(ts > 0, t_prev, -1)
+    return ts, t_prev
+
+
+@torch.no_grad()
+def guided_sample_loop(model: PointCloudDiffusionModel,
+                       schedule: DiffusionSchedule,
+                       source_points: torch.Tensor,
+                       condition_points: torch.Tensor,
+                       num_inference_steps: int = 50,
+                       guidance_scale: float = 7.5,
+                       use_hierarchical: Optional[bool] = None,
+                       x_init: Optional[torch.Tensor] = None,
+                       cond_priority: Optional[torch.Tensor] = None,
+                       step_priorities: Optional[torch.Tensor] = None,
+                       fps_starts: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """CFG style transfer of ``source_points`` [B, N, 3] toward the style of
+    ``condition_points`` [B, Nc, 3], on the model's device. Returns
+    [B, N, 3] float32.
+
+    Draws that may be passed in: ``x_init`` [B, N, 3] initial noise,
+    ``cond_priority`` [B, Nc] condition-cloud voxel priorities,
+    ``step_priorities`` [steps, B, N] per-step voxel priorities,
+    ``fps_starts`` [2, B] the encoder's FPS start indices. The rest come
+    from ``generator``. The hierarchical branch runs when N > global_points
+    unless ``use_hierarchical`` says otherwise."""
+    cfg = model.config
+    device = model.device
+    schedule = schedule.to(device)
+    source_points = source_points.to(device=device, dtype=torch.float32)
+    condition_points = condition_points.to(device=device, dtype=torch.float32)
+    B, N, _ = source_points.shape
+    M = cfg.global_points
+    if use_hierarchical is None:
+        use_hierarchical = N > M
+    knn_backend = resolve_sampler_knn_backend(cfg)
+
+    cond_ds, _ = voxel_downsample(condition_points, M, priority=cond_priority,
+                                  generator=generator)
+    style = model.encode_style(cond_ds, fps_starts, generator)
+    style_in = torch.cat([style, torch.zeros_like(style)], dim=0)  # [2B, F]
+
+    if x_init is None:
+        x = torch.randn(source_points.shape, generator=generator,
+                        device=device, dtype=torch.float32)
+    else:
+        x = x_init.to(device=device, dtype=torch.float32)
+    ts, t_prev = _step_schedule(schedule.num_timesteps, num_inference_steps)
+
+    for s, (t, tp) in enumerate(zip(ts.tolist(), t_prev.tolist())):
+        t_in = torch.full((2 * B,), t, dtype=torch.int64, device=device)
+        if use_hierarchical:
+            x_coarse, x_idx, x_unk, x_unk_xyz = voxel_downsample_partition(
+                x, M, priority=None if step_priorities is None
+                else step_priorities[s], generator=generator)
+            x2 = torch.cat([x_coarse, x_coarse], dim=0)
+            noise_coarse = model.predict_noise(x2, t_in, style_in).float()
+            nc_cond, nc_unc = noise_coarse.chunk(2)
+            # CFG combine at coarse resolution: interpolation is linear, so
+            # combine-then-upsample equals upsample-then-combine
+            guided_coarse = nc_unc + guidance_scale * (nc_cond - nc_unc)
+            final_noise = _upsample_unknown(x, x_idx, guided_coarse,
+                                            knn_backend, unknown=x_unk,
+                                            ref_xyz=x_coarse,
+                                            unknown_xyz=x_unk_xyz)
+        else:
+            x2 = torch.cat([x, x], dim=0)
+            pred = model.predict_noise(x2, t_in, style_in).float()
+            nc, nu = pred.chunk(2)
+            final_noise = nu + guidance_scale * (nc - nu)
+
+        x = ddim_step(schedule, x, final_noise, t, tp,
+                      source_points=source_points,
+                      content_anchor=cfg.content_anchor,
+                      target_range=cfg.target_range)
+    return x

@@ -1,0 +1,12 @@
+"""Point-cloud primitives: plain PyTorch code plus the CUDA kernels in
+``ops/kernels``."""
+
+from .distance import knn
+from .sampling import (complement_indices, farthest_point_sample,
+                       index_points, query_ball_point)
+from .voxel import voxel_downsample, voxel_downsample_partition
+
+__all__ = [
+    "knn", "index_points", "complement_indices", "farthest_point_sample",
+    "query_ball_point", "voxel_downsample", "voxel_downsample_partition",
+]

@@ -1,0 +1,16 @@
+"""Hand-written CUDA kernels (``csrc/``), each beside its plain PyTorch
+version. A wrapper launches its kernel for CUDA tensors and takes the plain
+version only for CPU tensors; nothing here imports a compiler or builds on
+import."""
+
+from ._common import LAUNCH_COUNTS, build_all, reset_launch_counts
+from .ball_query import ball_query_cuda, ball_query_kernel, ball_query_plain
+from .fps import farthest_point_sample_kernel, fps_cuda, fps_plain
+from .knn import knn_topk, knn_topk_cuda, knn_topk_plain
+
+__all__ = [
+    "LAUNCH_COUNTS", "build_all", "reset_launch_counts",
+    "ball_query_cuda", "ball_query_kernel", "ball_query_plain",
+    "farthest_point_sample_kernel", "fps_cuda", "fps_plain",
+    "knn_topk", "knn_topk_cuda", "knn_topk_plain",
+]

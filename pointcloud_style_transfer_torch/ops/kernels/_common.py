@@ -1,0 +1,151 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with ``nvcc``
+for ``sm_90a`` into ``build/torch_kernels/<name>-<hash>/lib<name>.so`` at the
+root of the checkout (the hash covers the source and the flags, so an edited
+source builds anew) and loaded with ``ctypes``. Nothing is built on import:
+the first launch builds its library, and ``build_all`` builds every library
+at once, one ``nvcc`` process per source, all started together.
+
+Every wrapper adds one to its entry of ``LAUNCH_COUNTS`` after each launch of
+its kernel, so a run can show that a path really went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# csrc/<name>.cu -> (C entry point, its argtypes)
+_VP, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "knn_topk": ("pcst_knn_topk", [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP]),
+    "fps": ("pcst_fps", [_VP, _VP, _VP, _INT, _INT, _INT, _VP]),
+    "ball_query": ("pcst_ball_query",
+                   [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _FLT, _VP]),
+}
+KERNEL_SOURCES = tuple(SIGNATURES)
+
+LAUNCH_COUNTS: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    LAUNCH_COUNTS[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[name] = 0
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from PATH, else from $CUDA_HOME or the toolkit's default
+    install location."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_ROOT / f"{name}-{digest[:16]}" / f"lib{name}.so"
+
+
+def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path]:
+    out = library_path(name)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".so.tmp{os.getpid()}")
+    log = out.with_suffix(".log")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+    return proc, tmp, out
+
+
+def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
+    """Build every missing library in parallel; returns name -> .so path.
+    Raises with nvcc's log if any build fails."""
+    pending = {n: _start_build(n) for n in names if not library_path(n).exists()}
+    errors = []
+    for name, (proc, tmp, out) in pending.items():
+        if proc.wait() != 0:
+            errors.append(f"{name}:\n{out.with_suffix('.log').read_text()}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("nvcc failed for " + "\n".join(errors))
+    return {n: library_path(n) for n in names}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use, with its
+    entry point's argtypes declared."""
+    with _lock:
+        if name not in _libs:
+            path = build_all([name])[name]
+            lib = ctypes.CDLL(str(path))
+            fn_name, argtypes = SIGNATURES[name]
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            lib.pcst_error_string.argtypes = [ctypes.c_int]
+            lib.pcst_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call library ``name``'s entry point on ``device``'s current stream
+    (appended as the last argument), raise on a launch error, count it."""
+    lib = load_library(name)
+    fn = getattr(lib, SIGNATURES[name][0])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        msg = lib.pcst_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
+    count_launch(name)
+
+
+def check_points(x: torch.Tensor, what: str) -> None:
+    """A kernel input: a contiguous float32 [B, N, 3] CUDA tensor."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} must be a CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"{what} must be float32, got {x.dtype}")
+    if x.dim() != 3 or x.shape[-1] != 3:
+        raise ValueError(f"{what} must be [B, N, 3], got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def pairwise_sq_dist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """[S, 3] x [N, 3] -> [S, N] squared distances in the kernels' form,
+    (dx*dx + dy*dy) + dz*dz with each op rounded on its own — the same bits
+    the kernels and the TPU kernels produce."""
+    dx = q[:, None, 0] - r[None, :, 0]
+    dy = q[:, None, 1] - r[None, :, 1]
+    dz = q[:, None, 2] - r[None, :, 2]
+    return (dx * dx + dy * dy) + dz * dz
