@@ -9,9 +9,11 @@ Two fields read differently on the GPU:
 * ``use_pallas`` — True runs the hand-written CUDA kernels
   (``ops/kernels/``) on CUDA tensors; False runs their plain PyTorch versions
   everywhere, as False selects the jnp paths in the JAX package.
-* ``knn_backend`` — ``"auto"`` and ``"pallas"`` select the exact brute-force
-  kNN kernel; ``"jnp"`` its plain version. ``"grid"``, ``"pallas_f32packed"``
-  and ``"pallas_pruned"`` are not ported yet and raise.
+* ``knn_backend`` — ``"auto"`` and ``"grid"`` select the kd-grid (the
+  slot-run kernels with the brute-force kernel as exact fallback), as on the
+  TPU; ``"pallas"`` the exact brute-force kNN kernel; ``"jnp"`` its plain
+  version. ``"pallas_f32packed"`` and ``"pallas_pruned"`` are not ported yet
+  and raise.
 """
 
 from __future__ import annotations
@@ -85,7 +87,7 @@ class Config:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"  # used when use_amp is True
     use_pallas: bool = True  # hand-written kernels on CUDA tensors
-    knn_backend: str = "auto"  # auto | jnp | pallas (grid etc. not ported)
+    knn_backend: str = "auto"  # auto (= grid) | grid | pallas | jnp
     target_range: float = 1.8  # geometric constraint / normalization range
     use_augmentation: bool = False
     augmentation_rotation_range: float = 0.05

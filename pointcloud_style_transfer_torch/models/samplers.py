@@ -8,7 +8,10 @@ content anchor and the tanh constraint. When the cloud is larger than
 ``global_points`` (hierarchical branch) the denoiser sees a voxel
 downsample of the current state, the CFG combine runs at coarse resolution,
 and the unselected points get the inverse-distance (k=3) interpolation of the
-coarse noise through the brute-force kNN kernel.
+coarse noise: with ``knn_backend="auto"`` or ``"grid"`` through the kd-grid
+(``ops/grid_knn.py``, the slot-run interpolation kernel with the brute-force
+kernel as its exact fallback), as on the TPU; with ``"pallas"`` through the
+brute-force kernel alone.
 
 Random draws, in the order they are taken from ``generator`` when not passed
 in: the condition cloud's voxel priorities, the two FPS start indices, the
@@ -23,29 +26,29 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..ops import (complement_indices, index_points, knn, voxel_downsample,
-                   voxel_downsample_partition)
+from ..ops import (complement_indices, grid_knn, index_points, knn,
+                   voxel_downsample, voxel_downsample_partition)
 from ..ops.distance import UNPORTED_KNN_BACKENDS
 from .diffusion import DiffusionSchedule, ddim_step, ddim_timesteps
 from .model import PointCloudDiffusionModel
 
 
 def resolve_sampler_knn_backend(cfg: Config) -> str:
-    """The upsampling kNN's backend: ``"pallas"`` (the brute-force kernel)
-    for ``"auto"`` and ``"pallas"``, ``"jnp"`` (its plain version) for
-    ``"jnp"`` or ``use_pallas=False``. On the TPU ``"auto"`` means the kd-grid;
-    here it means the brute kernel until the grid is ported. The other JAX
-    backends raise ``NotImplementedError``."""
+    """The upsampling kNN's backend: ``"grid"`` (the kd-grid and its
+    kernels) for ``"auto"`` and ``"grid"``, ``"pallas"`` (the brute-force
+    kernel) for ``"pallas"``, ``"jnp"`` (its plain version) for ``"jnp"`` or
+    ``use_pallas=False``. The JAX backends not ported yet raise
+    ``NotImplementedError``."""
     if not cfg.use_pallas:
         return "jnp"
     if cfg.knn_backend in UNPORTED_KNN_BACKENDS:
         raise NotImplementedError(
             f"knn_backend {cfg.knn_backend!r} is not ported yet: "
             f"{UNPORTED_KNN_BACKENDS[cfg.knn_backend]}")
-    if cfg.knn_backend in ("auto", "pallas"):
-        return "pallas"
-    if cfg.knn_backend == "jnp":
-        return "jnp"
+    if cfg.knn_backend in ("auto", "grid"):
+        return "grid"
+    if cfg.knn_backend in ("pallas", "jnp"):
+        return cfg.knn_backend
     raise ValueError(f"unknown knn_backend: {cfg.knn_backend!r}")
 
 
@@ -60,7 +63,8 @@ def _upsample_unknown(x: torch.Tensor, idx: torch.Tensor,
     weights 1/(sqrt(d)+1e-8), normalised. Returns [B, N, C].
 
     ``unknown`` (the complement of ``idx``), ``ref_xyz`` (x at ``idx``) and
-    ``unknown_xyz`` (x at ``unknown``) are recomputed when not given."""
+    ``unknown_xyz`` (x at ``unknown``) are recomputed when not given. The
+    grid backend runs cloud by cloud."""
     B, N, _ = x.shape
     if unknown is None:
         unknown = complement_indices(idx, N)
@@ -71,12 +75,36 @@ def _upsample_unknown(x: torch.Tensor, idx: torch.Tensor,
     if unknown.shape[1] == 0:
         empty = coarse_vals.new_zeros((B, 0) + tuple(coarse_vals.shape[2:]))
         return _unpermute_assemble(idx, unknown, coarse_vals, empty, N)
+    if knn_backend == "grid":
+        return torch.stack([
+            _grid_upsample_one(idx[b], unknown[b], coarse_vals[b],
+                               q_unknown[b], ref_xyz[b], k, N)
+            for b in range(B)])
     sq_d, nbr = knn(q_unknown, ref_xyz, k, backend=knn_backend)
     dist = torch.sqrt(torch.clamp(sq_d, min=0.0))
     w = 1.0 / (dist + 1e-8)
     w = w / torch.sum(w, dim=-1, keepdim=True)
     vals = torch.sum(index_points(coarse_vals, nbr) * w[..., None], dim=2)
     return _unpermute_assemble(idx, unknown, coarse_vals, vals, N)
+
+
+def _grid_upsample_one(idx: torch.Tensor, unknown: torch.Tensor,
+                       coarse_vals: torch.Tensor, q_unknown: torch.Tensor,
+                       ref_xyz: torch.Tensor, k: int, N: int) -> torch.Tensor:
+    """One cloud's field [N, C] through the grid: the interpolation comes in
+    the grid's layout order with its query-id map, so the assembly writes
+    layout row j to point ``unknown[qid[j]]`` directly (the TPU's composed
+    inverse-permutation sort, done as the scatter it stands for)."""
+    v_lay, qid = grid_knn.grid_knn_interpolate_layout(q_unknown, ref_xyz,
+                                                      coarse_vals, k)
+    Nu = unknown.shape[0]
+    qid = qid.long()
+    # padding rows (qid == Nu) go to the dropped slot N
+    dest = torch.where(qid < Nu, unknown.long()[qid.clamp(max=Nu - 1)], N)
+    out = coarse_vals.new_empty((N + 1, coarse_vals.shape[1]))
+    out[idx.long().clamp(0, N - 1)] = coarse_vals
+    out.index_copy_(0, dest, v_lay.to(coarse_vals.dtype))
+    return out[:N]
 
 
 def _unpermute_assemble(idx: torch.Tensor, unknown: torch.Tensor,

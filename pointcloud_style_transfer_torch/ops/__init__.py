@@ -1,12 +1,13 @@
 """Point-cloud primitives: plain PyTorch code plus the CUDA kernels in
 ``ops/kernels``."""
 
+from . import grid_knn
 from .distance import knn
 from .sampling import (complement_indices, farthest_point_sample,
                        index_points, query_ball_point)
 from .voxel import voxel_downsample, voxel_downsample_partition
 
 __all__ = [
-    "knn", "index_points", "complement_indices", "farthest_point_sample",
+    "grid_knn", "knn", "index_points", "complement_indices", "farthest_point_sample",
     "query_ball_point", "voxel_downsample", "voxel_downsample_partition",
 ]

@@ -11,12 +11,12 @@ from __future__ import annotations
 
 import torch
 
+from .grid_knn import grid_knn
 from .kernels import knn_topk, knn_topk_plain
 
 # Backends of the JAX package that this port does not have yet, with the
 # ROADMAP item that ports each.
 UNPORTED_KNN_BACKENDS = {
-    "grid": "ROADMAP queue 1 item 8 (kd-grid kNN + _grid_interp_kernel)",
     "pallas_f32packed": "ROADMAP queue 2 item 7 (_topk_f32packed_kernel)",
     "pallas_pruned": "ROADMAP queue 2 item 9 (_pruned_topk_kernel)",
 }
@@ -29,8 +29,10 @@ def knn(query: torch.Tensor, ref: torch.Tensor, k: int,
     to the lowest ref index.
 
     ``backend="pallas"`` runs the brute-force kernel on CUDA tensors (its
-    plain version on CPU tensors); ``"jnp"`` runs the plain version
-    everywhere (``Config.use_pallas=False``)."""
+    plain version on CPU tensors); ``"grid"`` the kd-grid (``grid_knn``:
+    the slot-run kernel, the brute-force kernel for the rows it cannot
+    prove exact); ``"jnp"`` the brute plain version everywhere
+    (``Config.use_pallas=False``)."""
     if backend in UNPORTED_KNN_BACKENDS:
         raise NotImplementedError(
             f"knn backend {backend!r} is not ported yet: "
@@ -39,6 +41,8 @@ def knn(query: torch.Tensor, ref: torch.Tensor, k: int,
     ref = ref.float().contiguous()
     if backend == "pallas":
         return knn_topk(query, ref, k)
+    if backend == "grid":
+        return grid_knn(query, ref, k)
     if backend == "jnp":
         return knn_topk_plain(query, ref, k)
     raise ValueError(f"unknown knn backend: {backend!r}")

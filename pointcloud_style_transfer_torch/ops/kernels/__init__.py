@@ -6,11 +6,15 @@ import."""
 from ._common import LAUNCH_COUNTS, build_all, reset_launch_counts
 from .ball_query import ball_query_cuda, ball_query_kernel, ball_query_plain
 from .fps import farthest_point_sample_kernel, fps_cuda, fps_plain
+from .grid import (grid_interp, grid_interp_cuda, grid_interp_plain,
+                   grid_topk, grid_topk_cuda, grid_topk_plain)
 from .knn import knn_topk, knn_topk_cuda, knn_topk_plain
 
 __all__ = [
     "LAUNCH_COUNTS", "build_all", "reset_launch_counts",
     "ball_query_cuda", "ball_query_kernel", "ball_query_plain",
     "farthest_point_sample_kernel", "fps_cuda", "fps_plain",
+    "grid_interp", "grid_interp_cuda", "grid_interp_plain",
+    "grid_topk", "grid_topk_cuda", "grid_topk_plain",
     "knn_topk", "knn_topk_cuda", "knn_topk_plain",
 ]

@@ -1,14 +1,16 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with ``nvcc``
-for ``sm_90a`` into ``build/torch_kernels/<name>-<hash>/lib<name>.so`` at the
-root of the checkout (the hash covers the source and the flags, so an edited
-source builds anew) and loaded with ``ctypes``. Nothing is built on import:
-the first launch builds its library, and ``build_all`` builds every library
-at once, one ``nvcc`` process per source, all started together.
+Each ``csrc/<source>.cu`` has a plain C interface with one or more entry
+points. It is compiled with ``nvcc`` for ``sm_90a`` into
+``build/torch_kernels/<source>-<hash>/lib<source>.so`` at the root of the
+checkout (the hash covers the source and the flags, so an edited source builds
+anew; a source includes no header of its own, so the hash covers all its code)
+and loaded with ``ctypes``. Nothing is built on import: the first launch builds
+its library, and ``build_all`` builds every library at once, one ``nvcc``
+process per source, all started together.
 
-Every wrapper adds one to its entry of ``LAUNCH_COUNTS`` after each launch of
-its kernel, so a run can show that a path really went through the kernels.
+Every wrapper adds one to its kernel's entry of ``LAUNCH_COUNTS`` after each
+launch, so a run can show that a path really went through the kernels.
 """
 
 from __future__ import annotations
@@ -28,17 +30,32 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# csrc/<name>.cu -> (C entry point, its argtypes)
+# csrc/<source>.cu -> {C entry point: its argtypes}
 _VP, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "knn_topk": ("pcst_knn_topk", [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP]),
-    "fps": ("pcst_fps", [_VP, _VP, _VP, _INT, _INT, _INT, _VP]),
-    "ball_query": ("pcst_ball_query",
-                   [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _FLT, _VP]),
+    "knn_topk": {"pcst_knn_topk": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                                   _VP]},
+    "fps": {"pcst_fps": [_VP, _VP, _VP, _INT, _INT, _INT, _VP]},
+    "ball_query": {"pcst_ball_query": [_VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                                       _FLT, _VP]},
+    "grid_fused": {
+        "pcst_grid_interp": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
+                             _INT, _INT, _INT, _INT, _FLT, _VP],
+        "pcst_grid_topk": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
+                           _INT, _INT, _VP],
+    },
 }
 KERNEL_SOURCES = tuple(SIGNATURES)
+# kernel (its LAUNCH_COUNTS key) -> (source, C entry point)
+KERNELS = {
+    "knn_topk": ("knn_topk", "pcst_knn_topk"),
+    "fps": ("fps", "pcst_fps"),
+    "ball_query": ("ball_query", "pcst_ball_query"),
+    "grid_interp": ("grid_fused", "pcst_grid_interp"),
+    "grid_topk": ("grid_fused", "pcst_grid_topk"),
+}
 
-LAUNCH_COUNTS: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
+LAUNCH_COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -100,15 +117,15 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use, with its
-    entry point's argtypes declared."""
+    entry points' argtypes declared."""
     with _lock:
         if name not in _libs:
             path = build_all([name])[name]
             lib = ctypes.CDLL(str(path))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.pcst_error_string.argtypes = [ctypes.c_int]
             lib.pcst_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
@@ -116,10 +133,11 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 def launch(name: str, device: torch.device, *args) -> None:
-    """Call library ``name``'s entry point on ``device``'s current stream
+    """Call kernel ``name``'s entry point on ``device``'s current stream
     (appended as the last argument), raise on a launch error, count it."""
-    lib = load_library(name)
-    fn = getattr(lib, SIGNATURES[name][0])
+    source, fn_name = KERNELS[name]
+    lib = load_library(source)
+    fn = getattr(lib, fn_name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
@@ -142,10 +160,12 @@ def check_points(x: torch.Tensor, what: str) -> None:
 
 
 def pairwise_sq_dist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """[S, 3] x [N, 3] -> [S, N] squared distances in the kernels' form,
-    (dx*dx + dy*dy) + dz*dz with each op rounded on its own — the same bits
-    the kernels and the TPU kernels produce."""
-    dx = q[:, None, 0] - r[None, :, 0]
-    dy = q[:, None, 1] - r[None, :, 1]
-    dz = q[:, None, 2] - r[None, :, 2]
+    """[..., S, 3] x [..., N, 3] -> [..., S, N] squared distances in the
+    kernels' form, (dx*dx + dy*dy) + dz*dz with each op rounded on its own —
+    the same bits the CUDA kernels produce. (XLA on the CPU contracts the TPU
+    kernels' form into FMAs, so the JAX package's interpret-mode kernels
+    differ from it in the last bit on some pairs.)"""
+    dx = q[..., :, None, 0] - r[..., None, :, 0]
+    dy = q[..., :, None, 1] - r[..., None, :, 1]
+    dz = q[..., :, None, 2] - r[..., None, :, 2]
     return (dx * dx + dy * dy) + dz * dz

@@ -4,15 +4,20 @@ Needs a GPU with the CUDA toolkit (the kernels are built from ``csrc/`` on
 first use); skipped without one. The file needs no JAX, so on a GPU machine
 without it run ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 --noconftest -q``. Indices must be identical, kNN distances within 1e-6
-relative (same float32 arithmetic, no FMA).
+relative (same float32 arithmetic, no FMA). The grid kernels' distances
+and positions are identical to their plain versions' (on rows with k
+candidates), their interpolated values within rtol 1e-6 and
+atol 1e-6 * max|v|.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from pointcloud_style_transfer_torch.ops import grid_knn, knn
 from pointcloud_style_transfer_torch.ops.kernels import (
     LAUNCH_COUNTS, ball_query_cuda, ball_query_plain, fps_cuda, fps_plain,
+    grid_interp_cuda, grid_interp_plain, grid_topk_cuda, grid_topk_plain,
     knn_topk, knn_topk_cuda, knn_topk_plain)
 
 pytestmark = pytest.mark.cuda
@@ -88,3 +93,88 @@ def test_wrappers_reject_bad_inputs(cuda):
         fps_cuda(x, 4, torch.zeros(1, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError):
         ball_query_cuda(0.1, 4, x[:, ::2], x)
+
+
+def grid_inputs(rng, cuda, m, nq, grid_shape, slot_cap, C=3):
+    """Slot tables from the grid's own layout pass over a cloud with exact
+    duplicates and queries on refs, plus a tile without candidates and one
+    with a single candidate."""
+    r = torch.from_numpy(points(rng, 1, m)[0]).to(cuda)
+    q = torch.from_numpy(points(rng, 1, nq)[0]).to(cuda)
+    q[: nq // 10] = r[: nq // 10]
+    s = grid_knn._build_struct(r, grid_shape)
+    sl = grid_knn._layout_slots(s, q, grid_shape, 128, slot_cap)
+    st, en = sl.st.clone(), sl.en.clone()
+    en[-1] = st[-1]
+    en[-2] = st[-2]
+    en[-2, 0] += 1
+    vals = torch.from_numpy(rng.standard_normal((s.M_pad, C)).astype(
+        np.float32)).to(cuda)
+    return sl.q_pad, s.refs_pad, vals, st, en
+
+
+@pytest.mark.parametrize("grid_shape,slot_cap,k,C", [
+    ((16, 12, 8), 384, 3, 3),  # y-run slots, the sampler's config
+    ((4, 4, 5), 128, 3, 2),    # windowed z-runs
+    ((16, 12, 8), 384, 1, 3),
+    ((16, 12, 8), 384, 8, 4)])
+def test_grid_kernels_match_plain(rng, cuda, grid_shape, slot_cap, k, C):
+    q, refs, vals, st, en = grid_inputs(rng, cuda, 6500, 9000, grid_shape,
+                                        slot_cap, C)
+    before = dict(LAUNCH_COUNTS)
+    v, d = grid_interp_cuda(q, refs, vals, st, en, k)
+    d_t, i_t = grid_topk_cuda(q, refs, st, en, k)
+    assert LAUNCH_COUNTS["grid_interp"] == before["grid_interp"] + 1
+    assert LAUNCH_COUNTS["grid_topk"] == before["grid_topk"] + 1
+    v_p, d_p = grid_interp_plain(q, refs, vals, st, en, k)
+    d_tp, i_tp = grid_topk_plain(q, refs, st, en, k)
+    assert torch.equal(d, d_p) and torch.equal(d_t, d_tp)
+    full = d_p[:, -1] < 1e29
+    assert full.any() and not full.all()
+    assert torch.equal(i_t[full], i_tp[full])
+    assert torch.isfinite(v).all()
+    tol = 1e-6 * v_p[full].abs().max().item()
+    assert ((v - v_p)[full].abs() <= tol + 1e-6 * v_p[full].abs()).all()
+
+
+def test_grid_paths_launch_kernels(rng, cuda):
+    r = torch.from_numpy(points(rng, 1, 6500)).to(cuda)
+    q = torch.from_numpy(points(rng, 1, 9000)).to(cuda)
+    v = torch.randn((6500, 3), device=cuda)
+    before = dict(LAUNCH_COUNTS)
+    v_lay, qid = grid_knn.grid_knn_interpolate_layout(q[0], r[0], v)
+    assert LAUNCH_COUNTS["grid_interp"] == before["grid_interp"] + 1
+    d_g, i_g = knn(q, r, 3, backend="grid")
+    assert LAUNCH_COUNTS["grid_topk"] == before["grid_topk"] + 1
+    d_b, i_b = knn_topk(q, r, 3)
+    assert torch.equal(d_g, d_b)
+    real = qid < 9000
+    assert torch.equal(torch.sort(qid[real].long()).values,
+                       torch.arange(9000, device=cuda))
+
+
+def test_grid_wrappers_reject_bad_inputs(cuda):
+    q = torch.zeros((256, 3), device=cuda)
+    refs = torch.zeros((128, 3), device=cuda)
+    vals = torch.zeros((128, 3), device=cuda)
+    st = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    grid_topk_cuda(q, refs, st, st, 3)  # accepted
+    with pytest.raises(ValueError):
+        grid_topk_cuda(q.double(), refs, st, st, 3)
+    with pytest.raises(ValueError):
+        grid_topk_cuda(q, refs, st, st, 9)
+    with pytest.raises(ValueError):
+        grid_topk_cuda(q, refs, st.long(), st, 3)
+    with pytest.raises(ValueError):
+        grid_topk_cuda(q, refs.cpu(), st, st, 3)
+    with pytest.raises(ValueError):
+        grid_topk_cuda(q[:255], refs, st, st, 3)  # not 2 equal tiles
+    with pytest.raises(ValueError):
+        grid_topk_cuda(torch.zeros((2050, 3), device=cuda), refs, st, st,
+                       3)  # 1025 queries a tile
+    with pytest.raises(ValueError):
+        grid_topk_cuda(q, refs, st, st[:, :2], 3)
+    with pytest.raises(ValueError):
+        grid_interp_cuda(q, refs, vals[:64], st, st, 3)
+    with pytest.raises(ValueError):
+        grid_interp_cuda(q, refs, vals.t(), st, st, 3)

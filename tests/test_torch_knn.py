@@ -61,7 +61,9 @@ def test_knn_dispatch(rng):
     for got in (knn(qt, rt, 3, backend="pallas"), knn(qt, rt, 3, backend="jnp"),
                 knn_topk(qt, rt, 3), knn(qt.double(), rt, 3)):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    for backend in ("grid", "pallas_f32packed", "pallas_pruned"):
+    got = knn(qt, rt, 3, backend="grid")  # too few refs: brute force
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for backend in ("pallas_f32packed", "pallas_pruned"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             knn(qt, rt, 3, backend=backend)
     with pytest.raises(ValueError):

@@ -29,49 +29,19 @@ import pytest
 import torch
 
 from pointcloud_style_transfer_torch.config import Config
-from pointcloud_style_transfer_torch.convert import flax_to_torch
-from pointcloud_style_transfer_torch.models import (PointCloudDiffusionModel,
-                                                    guided_sample_loop,
+from pointcloud_style_transfer_torch.models import (guided_sample_loop,
                                                     make_schedule)
 from pointcloud_style_transfer_torch.models import samplers as tsamp
 from pointcloud_style_transfer_torch.models.diffusion import ddim_step
 from pointcloud_style_transfer_torch.ops import voxel_downsample_partition
-from pointcloud_style_transfer_tpu.config import Config as JaxConfig
-from pointcloud_style_transfer_tpu.models import PointCloudDiffusionModel as JaxModel
 from pointcloud_style_transfer_tpu.models import diffusion as jdiff
 from pointcloud_style_transfer_tpu.models import samplers as jsamp
 from pointcloud_style_transfer_tpu.ops import voxel as jvox
-from pointcloud_style_transfer_tpu.ops.distance import chamfer_distance_l2
 from pointcloud_style_transfer_tpu.ops.pallas import distance_topk
 
-from torch_parity import perturbed, pin_jax_encoder
+from torch_parity import chamfer, models, pin_jax_encoder, sampler_draws
 
 STEPS, SCALE = 50, 7.5
-
-
-def models(key, rng, **cfg_kw):
-    """The same (perturbed) weights in a JAX model and a port model."""
-    jmodel = JaxModel(JaxConfig(**cfg_kw))
-    variables = jmodel.init(key, example_points=256)
-    variables = {"params": perturbed(variables["params"], rng),
-                 "batch_stats": perturbed(variables["batch_stats"], rng)}
-    tmodel = PointCloudDiffusionModel(Config(**cfg_kw), device="cpu")
-    tmodel.net.load_state_dict(flax_to_torch(variables))
-    return jmodel, variables, tmodel
-
-
-def sampler_draws(key, steps, n_cond, n, m):
-    """The voxel priorities JAX's guided_sample_loop draws from ``key``."""
-    k_cond, _, _, k_steps = jax.random.split(key, 4)
-    uniform = lambda k, size: np.array(  # noqa: E731
-        jax.random.uniform(jax.random.split(k, 1)[0], (size,)))[None]
-    cond = uniform(k_cond, n_cond) if n_cond > m else None
-    step_keys = jax.random.split(k_steps, steps)
-    return cond, np.stack([uniform(k, n) for k in step_keys])
-
-
-def chamfer(a, b):
-    return float(chamfer_distance_l2(jnp.asarray(a), jnp.asarray(b))[0])
 
 
 @pytest.mark.parametrize("use_amp,max_chamfer,atol", [
@@ -187,10 +157,14 @@ def test_hierarchical_50_steps_float32(rng, key, monkeypatch):
 
 
 def test_knn_backend_resolution():
-    assert tsamp.resolve_sampler_knn_backend(Config()) == "pallas"
-    assert tsamp.resolve_sampler_knn_backend(Config(knn_backend="pallas")) == "pallas"
-    assert tsamp.resolve_sampler_knn_backend(Config(knn_backend="jnp")) == "jnp"
-    assert tsamp.resolve_sampler_knn_backend(Config(use_pallas=False)) == "jnp"
-    for b in ("grid", "pallas_f32packed", "pallas_pruned"):
+    resolve = tsamp.resolve_sampler_knn_backend
+    assert resolve(Config()) == "grid"  # "auto" is the kd-grid, as on the TPU
+    assert resolve(Config(knn_backend="grid")) == "grid"
+    assert resolve(Config(knn_backend="pallas")) == "pallas"
+    assert resolve(Config(knn_backend="jnp")) == "jnp"
+    assert resolve(Config(use_pallas=False)) == "jnp"
+    with pytest.raises(ValueError):
+        resolve(Config(knn_backend="nope"))
+    for b in ("pallas_f32packed", "pallas_pruned"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsamp.resolve_sampler_knn_backend(Config(knn_backend=b))
