@@ -7,8 +7,12 @@ Phases, each printing one line per result:
 1. build — compile every CUDA kernel from ``csrc/`` (one nvcc per source, in
    parallel); the card's name and power limit.
 2. kernels — each kernel against its plain PyTorch version on the card at
-   the main path's shapes (numpy-seeded inputs with exact duplicate points,
-   to force ties): identical indices, kNN distances within 1e-6 relative;
+   the main paths' shapes (numpy-seeded inputs with exact duplicate points,
+   to force ties): identical indices, kNN distances within 1e-6 relative,
+   also at k = 9 and 16; the row minimum at the compare CLI's 120,000 x
+   120,000 and the Chamfer loss's 30,000 x 30,000, identical values with a
+   NaN row; ``MinSqDist`` launching the k=1 kNN under grad and the row
+   minimum without, its gradients on the card within 1e-6 of the CPU's;
    the kd-grid's slot-run kernels on slot tables from the grid's own layout
    pass (90,000 queries, 30,000 refs): distances and positions identical,
    values within rtol 1e-6, atol 1e-6 * max|v|; the grid's interpolation
@@ -27,6 +31,20 @@ Phases, each printing one line per result:
    per cloud), the per-step unsafe counts, seconds per cloud for the grid
    and for the brute-force kNN (``knn_backend="pallas"``), and a profiler
    breakdown of one grid cloud.
+5. train — ``Config()`` defaults, nothing cut: four synthetic 120,000-point
+   scene pairs through ``cli.preprocess`` (3 train, 1 val), then 2 epochs of
+   ``cli.train`` (6 mini-steps, 2 optimizer steps, 2 validations, 2
+   checkpoints): parameters and EMA move only on the 3rd and 6th mini-step,
+   finite loss terms, launches per mini-step (2 kNN for the Chamfer's
+   gradient, 2 FPS, 2 ball query, no row minimum), ms per mini-step and per
+   optimizer step, peak memory; a resumed trainer starts at epoch 2 with
+   the same state; a profiled mini-step; one float32 mini-step at 4,096
+   points on the card and on the CPU with the same draws (loss and
+   gradients at the CPU tests' tolerances).
+6. eval — ``cli.inference`` from the trained ``best_model`` directory (the
+   grid path), ``cli.compare --json`` of its output against the val pair's
+   reference (4 row-min launches, the JAX package's JSON keys), and the
+   metrics suite on the output.
 
 Then one JSON line with every kernel's numbers, the ``nvidia-smi`` name and
 power-limit line, and the final JSON line. Without a card (or without the
@@ -35,6 +53,8 @@ package beside it) it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -45,23 +65,35 @@ import time
 import numpy as np
 import torch
 
+from pointcloud_style_transfer_torch.cli.compare import main as compare_main
 from pointcloud_style_transfer_torch.cli.inference import (DiffusionInference,
                                                            main as cli_main)
+from pointcloud_style_transfer_torch.cli.preprocess import \
+    main as preprocess_main
+from pointcloud_style_transfer_torch.cli.train import main as train_main
 from pointcloud_style_transfer_torch.config import Config
-from pointcloud_style_transfer_torch.data import normalize_point_cloud
+from pointcloud_style_transfer_torch.data import (create_dataloaders,
+                                                  normalize_point_cloud)
+from pointcloud_style_transfer_torch.data.synthetic import lidar_scene_pair
+from pointcloud_style_transfer_torch.evaluation import metrics
 from pointcloud_style_transfer_torch.models import (DiffusionNet,
                                                     PointCloudDiffusionModel,
                                                     guided_sample_loop,
                                                     make_schedule)
-from pointcloud_style_transfer_torch.ops import grid_knn, index_points, knn
+from pointcloud_style_transfer_torch.ops import (chamfer_distance, grid_knn,
+                                                 index_points, knn,
+                                                 min_sq_dist)
 from pointcloud_style_transfer_torch.ops.kernels import (
     LAUNCH_COUNTS, ball_query_cuda, ball_query_plain, build_all, fps_cuda,
     fps_plain, grid_interp_cuda, grid_interp_plain, grid_topk_cuda,
-    grid_topk_plain, knn_topk_cuda, knn_topk_plain, reset_launch_counts)
+    grid_topk_plain, knn_topk_cuda, knn_topk_plain, reset_launch_counts,
+    rowmin_cuda, rowmin_plain)
 from pointcloud_style_transfer_torch.ops.kernels._common import (
     BUILD_ROOT, library_path, pairwise_sq_dist)
 from pointcloud_style_transfer_torch.ops.kernels.ball_query import \
     radius_sq_f32
+from pointcloud_style_transfer_torch.training import (DiffusionTrainer,
+                                                      compute_losses)
 from pointcloud_style_transfer_torch.utils.checkpoint import (
     save_checkpoint, split_state_dict)
 
@@ -257,8 +289,124 @@ def phase_kernels(rng: np.random.Generator, dev: torch.device) -> dict:
                 shape=f"{s}x{n} r={radius} ns={ns}", max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
+    records["rowmin"] = phase_rowmin(rng, dev)
+    phase_min_sq_dist(rng, dev)
+    phase_knn_large_k(query[:, :M_POINTS].contiguous(), ref)
     records.update(phase_grid_kernels(rng, query, ref))
     return records
+
+
+def phase_rowmin(rng: np.random.Generator, dev: torch.device) -> dict:
+    """The row minimum at the compare CLI's shape (120,000 x 120,000) and
+    the Chamfer loss's (30,000 x 30,000): values identical to the plain
+    version, with exact duplicates, zero distances and one NaN query row."""
+    record = {}
+    for n in (N_POINTS, M_POINTS):
+        a = normalize_point_cloud(make_cloud(rng, n))[0]
+        b = normalize_point_cloud(make_cloud(rng, n))[0]
+        a[:500] = b[rng.choice(n, 500)]
+        a[777, 1] = np.nan
+        q = torch.from_numpy(a)[None].to(dev)
+        r = torch.from_numpy(b)[None].to(dev)
+        got = rowmin_cuda(q, r)
+        want = rowmin_plain(q, r)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        if (not torch.equal(torch.isnan(got), nan) or int(nan.sum()) != 1
+                or not torch.equal(got[~nan], want[~nan])):
+            fail(f"rowmin {n}x{n}: values differ from the plain version")
+        ms = cuda_ms(lambda: rowmin_cuda(q, r), reps=10)
+        plain_ms = cuda_ms(lambda: rowmin_plain(q, r), reps=1, warmup=0)
+
+        def library():
+            for s in range(0, n, 8192):
+                torch.cdist(q[0, s:s + 8192], r[0]).amin(dim=1)
+        lib_ms = cuda_ms(library, reps=3)
+        b_ms, b_by = bound_ms(2 * n * 12 + n * 4, 8.0 * n * n)
+        print(f"[kernels] rowmin {n}x{n}: values identical (NaN row kept); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library (chunked "
+              f"cdist + amin) {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if n == N_POINTS:
+            record = dict(
+                name="rowmin", route="cuda",
+                source="pointcloud_style_transfer_torch/csrc/rowmin.cu",
+                replaces="pointcloud_style_transfer_tpu/ops/pallas/"
+                         "distance_topk.py:152",
+                shape=f"{n}x{n}", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return record
+
+
+def phase_min_sq_dist(rng: np.random.Generator, dev: torch.device) -> None:
+    """``MinSqDist``: the squared Chamfer at the loss's 30,000 x 30,000 runs
+    the k=1 kNN once per direction under grad and the row minimum without;
+    its gradients on the card against the CPU's plain path at 8,192 points
+    (the card's scatter-add into the refs uses atomics)."""
+    a = normalize_point_cloud(make_cloud(rng, M_POINTS))[0]
+    b = normalize_point_cloud(make_cloud(rng, M_POINTS))[0]
+    p = torch.from_numpy(a)[None].to(dev).requires_grad_()
+    t = torch.from_numpy(b)[None].to(dev)
+    reset_launch_counts()
+    loss = chamfer_distance(p, t).mean()
+    torch.cuda.synchronize()
+    with_grad = dict(LAUNCH_COUNTS)
+    loss.backward()
+    reset_launch_counts()
+    with torch.no_grad():
+        chamfer_distance(p, t)
+    torch.cuda.synchronize()
+    without = dict(LAUNCH_COUNTS)
+    if (with_grad["knn_topk"], with_grad["rowmin"]) != (2, 0) or (
+            without["knn_topk"], without["rowmin"]) != (0, 2):
+        fail(f"MinSqDist launches: under grad {with_grad}, without {without}")
+    if not torch.isfinite(p.grad).all():
+        fail("MinSqDist: non-finite gradient")
+
+    n = 8192
+    q_np = normalize_point_cloud(make_cloud(rng, n))[0]
+    r_np = normalize_point_cloud(make_cloud(rng, n))[0]
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, (1, n)).astype(np.float32))
+    res = []
+    for device in ("cpu", dev):
+        q = torch.from_numpy(q_np)[None].to(device).requires_grad_()
+        r = torch.from_numpy(r_np)[None].to(device).requires_grad_()
+        val = torch.sum(w.to(device) * min_sq_dist(q, r))
+        val.backward()
+        res.append((val.item(), q.grad.cpu(), r.grad.cpu()))
+    (v_c, dq_c, dr_c), (v_g, dq_g, dr_g) = res
+    errs = []
+    for got, want in ((dq_g, dq_c), (dr_g, dr_c)):
+        tol = 1e-6 * want.abs().max() + 1e-6 * want.abs()
+        if not ((got - want).abs() <= tol).all():
+            fail("MinSqDist: card gradients differ from the CPU's beyond 1e-6")
+        errs.append((got - want).abs().max().item())
+    if abs(v_g - v_c) > 1e-6 * abs(v_c):
+        fail(f"MinSqDist: card value {v_g} vs CPU {v_c}")
+    print(f"[kernels] MinSqDist {M_POINTS}x{M_POINTS} Chamfer: under grad "
+          f"knn_topk {with_grad['knn_topk']} / rowmin {with_grad['rowmin']}, "
+          f"without grad knn_topk {without['knn_topk']} / rowmin "
+          f"{without['rowmin']}; {n}x{n} card vs CPU: value rel err "
+          f"{abs(v_g - v_c) / abs(v_c):.3g}, max |dq| err {errs[0]:.3g}, "
+          f"max |dr| err {errs[1]:.3g}")
+
+
+def phase_knn_large_k(query: torch.Tensor, ref: torch.Tensor) -> None:
+    """The kNN kernel at k = 9 (``uniformity_score``'s k + 1) and at its cap
+    k = 16, against the plain version."""
+    nq, m = query.shape[1], ref.shape[1]
+    for k in (9, 16):
+        d, i = knn_topk_cuda(query, ref, k)
+        d_p, i_p = knn_topk_plain(query, ref, k)
+        torch.cuda.synchronize()
+        check_equal(f"knn_topk k={k}", i, i_p)
+        rel = ((d - d_p).abs() / d_p.abs().clamp(min=1e-30)).max().item()
+        if rel > 1e-6:
+            fail(f"knn_topk k={k}: distances differ by {rel:.3g} relative")
+        ms = cuda_ms(lambda: knn_topk_cuda(query, ref, k), reps=10)
+        b_ms, b_by = bound_ms((nq + m) * 12 + nq * k * 8, 8.0 * nq * m)
+        print(f"[kernels] knn_topk {nq}x{m} k={k}: indices identical, max rel "
+              f"d err {rel:.3g}; kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})")
 
 
 def phase_grid_kernels(rng: np.random.Generator, query: torch.Tensor,
@@ -521,7 +669,7 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
         patched = sum(u > 0 for u in unsafe)
         last_tier = grid_knn._fallback_caps(4096, N_POINTS - M_POINTS)[-1]
         expected = {"knn_topk": patched, "fps": 2, "ball_query": 2,
-                    "grid_interp": STEPS, "grid_topk": 0}
+                    "grid_interp": STEPS, "grid_topk": 0, "rowmin": 0}
         if len(unsafe) != STEPS or counts != expected:
             fail(f"launch counts {counts} != {expected} ({len(unsafe)} grid "
                  "passes recorded)")
@@ -579,6 +727,310 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
     return counts
 
 
+# each training mini-step's launches (the Chamfer's two k=1 kNN, the
+# style encoder's FPS and ball query)
+TRAIN_STEP_LAUNCHES = {"knn_topk": 2, "fps": 2, "ball_query": 2,
+                       "grid_interp": 0, "grid_topk": 0, "rowmin": 0}
+
+
+def flat(tensors: dict) -> torch.Tensor:
+    return torch.cat([v.detach().reshape(-1) for v in tensors.values()])
+
+
+def phase_train(rng: np.random.Generator, dev: torch.device, card: str,
+                work: str) -> dict:
+    """The training path at ``Config()`` defaults through the CLIs a user
+    calls; each mini-step is timed and its launches counted (set to 0 just
+    before it, read just after). Returns the run's paths."""
+    raw = os.path.join(work, "raw")
+    for i in range(4):
+        for side, cloud in zip(("sim", "real"), lidar_scene_pair(rng, N_POINTS)):
+            os.makedirs(os.path.join(raw, side), exist_ok=True)
+            np.save(os.path.join(raw, side, f"scene_{i}.npy"), cloud)
+    processed = os.path.join(work, "processed")
+    t0 = time.perf_counter()
+    rc = preprocess_main(["--sim_dir", os.path.join(raw, "sim"),
+                          "--real_dir", os.path.join(raw, "real"),
+                          "--output_dir", processed,
+                          "--total_points", str(N_POINTS),
+                          "--global_points", str(M_POINTS),
+                          "--device", "cuda"])
+    pre_s = time.perf_counter() - t0
+    split = {d: sorted(os.listdir(os.path.join(processed, d)))
+             for d in ("train", "val")}
+    if rc != 0 or [len(split["train"]), len(split["val"])] != [3, 1]:
+        fail(f"preprocess CLI: rc {rc}, files {split}")
+    print(f"[train] cli.preprocess: 4 synthetic {N_POINTS}-point scene pairs "
+          f"-> 3 train, 1 val in {pre_s:.2f} s (host numpy)")
+
+    steps, trainers = [], []
+    orig = DiffusionTrainer.train_step
+
+    def instrumented(self, sim, real, lr, draws=None):
+        if self not in trainers:
+            trainers.append(self)
+        p0, e0 = flat(self.params), flat(self.ema_params)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = orig(self, sim, real, lr, draws)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append(dict(
+            ms=ms, counts=dict(LAUNCH_COUNTS), emit=out[1],
+            terms={k: v.item() for k, v in out[0].items()},
+            params=not torch.equal(p0, flat(self.params)),
+            ema=not torch.equal(e0, flat(self.ema_params))))
+        return out
+
+    args = ["--experiment_name", "smoke", "--data_dir", processed,
+            "--num_epochs", "2", "--val_interval", "1"]
+    cwd = os.getcwd()
+    DiffusionTrainer.train_step = instrumented
+    os.chdir(work)  # the default checkpoint/log/result dirs are relative
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = train_main(args + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cfg = Config().replace(experiment_name="smoke",
+                               processed_data_dir=processed, num_epochs=2,
+                               val_interval=1)
+        resumed = DiffusionTrainer(cfg, resume=True, device=dev)
+    finally:
+        DiffusionTrainer.train_step = orig
+        os.chdir(cwd)
+    if rc != 0 or len(trainers) != 1:
+        fail(f"train CLI: rc {rc}, {len(trainers)} trainers")
+    pattern = [False, False, True, False, False, True]
+    for key in ("emit", "params", "ema"):
+        got = [st[key] for st in steps]
+        if got != pattern:
+            fail(f"train: {key} per mini-step {got}, expected {pattern}")
+    for i, st in enumerate(steps):
+        if st["counts"] != TRAIN_STEP_LAUNCHES:
+            fail(f"train: mini-step {i + 1} launches {st['counts']}, "
+                 f"expected {TRAIN_STEP_LAUNCHES}")
+        if not all(np.isfinite(v) for v in st["terms"].values()):
+            fail(f"train: mini-step {i + 1} loss terms {st['terms']}")
+    base = os.path.join(work, "checkpoints", "smoke")
+    ckpts = sorted(os.listdir(base))
+    if ckpts != ["best_model", "ckpt_epoch_0000", "ckpt_epoch_0001"]:
+        fail(f"train: checkpoints {ckpts}")
+    trained = trainers[0]
+    same = (torch.equal(flat(resumed.params), flat(trained.params))
+            and torch.equal(flat(resumed.ema_params), flat(trained.ema_params))
+            and resumed.optimizer.state_dict()["count"] == 2)
+    if resumed.start_epoch != 2 or not same:
+        fail(f"resume: start epoch {resumed.start_epoch}, same state {same}")
+    ms = [st["ms"] for st in steps]
+    warm = ms[1:]
+    print(f"[train] cli.train, Config() defaults ({cfg.total_points} points, "
+          f"{cfg.global_points} coarse, feature_dim {cfg.feature_dim}, "
+          f"{'bf16' if cfg.use_amp else 'float32'}, B={cfg.batch_size}, "
+          f"accumulation {cfg.gradient_accumulation_steps}): 2 "
+          f"epochs, 6 mini-steps, 2 optimizer steps, 2 validations, "
+          f"checkpoints {ckpts}; {train_s:.2f} s in all; peak memory "
+          f"{peak:.2f} GiB ({card})")
+    print(f"[train] per mini-step: launches {TRAIN_STEP_LAUNCHES} each; "
+          f"params/EMA moved after mini-steps "
+          f"{[i + 1 for i, st in enumerate(steps) if st['params']]}; loss "
+          f"terms {[{k: round(v, 5) for k, v in st['terms'].items()} for st in steps]}")
+    print(f"[train] ms per mini-step (synchronised): "
+          f"{', '.join(f'{t:.2f}' for t in ms)}; warm mean {np.mean(warm):.2f}"
+          f" ms (non-emitting {np.mean([ms[i] for i in (1, 3, 4)]):.2f}, "
+          f"emitting {np.mean([ms[i] for i in (2, 5)]):.2f}); per optimizer "
+          f"step (mini-steps 4-6) {sum(ms[3:6]):.2f} ms")
+    print(f"[train] resumed trainer: start epoch {resumed.start_epoch}, "
+          "params, EMA and optimizer state identical")
+
+    # one mini-step of the resumed trainer under the profiler
+    batch = next(iter(create_dataloaders(cfg)[0]))
+    sim = resumed._to_device(batch["sim_full"])
+    real = resumed._to_device(batch["real_full"])
+    resumed.train_step(sim, real, 1e-4)
+    torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        resumed.train_step(sim, real, 1e-4)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(f"[profile] one training mini-step: wall {wall:.1f} ms (profiled), "
+          f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "
+          f"{sum(r[2] for r in rows)} kernel launches")
+    for key, t, cnt in rows[:12]:
+        print(f"[profile]   {t:9.3f} ms  x{cnt:<5d} {key[:100]}")
+    return {"best": os.path.join(base, "best_model"),
+            "val": os.path.join(processed, "val", split["val"][0])}
+
+
+# the CPU tests' tolerances (tests/test_torch_train_step.py): of each
+# tensor's largest |g|, by part of the network
+GRAD_RTOL = {"noise_predictor.": 2e-5, "style_encoder.fc": 2e-4,
+             "style_encoder.encoder.": 5e-2}
+PRE_BN_BIAS_RATIO = 1e-3
+
+
+def phase_train_reference(rng: np.random.Generator, dev: torch.device) -> None:
+    """One float32 training mini-step's loss and gradients on the card
+    (kernels) and on the CPU (plain versions) with the same weights and
+    draws, at 4,096 points / 1,024 coarse and full width."""
+    n, m = 4096, 1024
+    cfg = Config(total_points=n, global_points=m, use_amp=False)
+    torch.manual_seed(2)
+    net_cpu = DiffusionNet(cfg.feature_dim, cfg.time_embed_dim)
+    net_gpu = DiffusionNet(cfg.feature_dim, cfg.time_embed_dim)
+    net_gpu.load_state_dict(net_cpu.state_dict())
+    sim = torch.from_numpy(normalize_point_cloud(make_cloud(rng, n))[0])[None]
+    real = torch.from_numpy(normalize_point_cloud(make_cloud(rng, n))[0])[None]
+    draws = dict(
+        t=torch.tensor([500]),
+        noise=torch.from_numpy(rng.standard_normal((1, n, 3), np.float32)),
+        cond_priority=torch.from_numpy(rng.random((1, n), np.float32)),
+        noisy_priority=torch.from_numpy(rng.random((1, n), np.float32)),
+        fps_starts=torch.zeros((2, 1), dtype=torch.int64),
+        drop_u=torch.tensor([[0.5]]),
+        style_dropout_mask=torch.from_numpy(rng.random((1, 512)) < 0.9))
+    masks = [torch.from_numpy(rng.random((1, m, cfg.feature_dim)) < 0.9)
+             for _ in range(6)]
+    def step(device, net, cond):
+        model = PointCloudDiffusionModel(cfg, device, net=net)
+        d = {k: v.to(model.device) for k, v in draws.items()}
+        d["noise_dropout_masks"] = [mk.to(model.device) for mk in masks]
+        reset_launch_counts()
+        loss, terms = compute_losses(
+            model, make_schedule(cfg).to(model.device),
+            sim.to(model.device), cond.to(model.device), train=True,
+            cond_drop_prob=cfg.cond_drop_prob,
+            chamfer_weight=cfg.lambda_chamfer, draws=d)
+        params = dict(model.net.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return ({k: v.item() for k, v in terms.items()},
+                {k: g.cpu() for k, g in zip(params, grads)},
+                dict(LAUNCH_COUNTS))
+
+    t_c, g_c, _ = step("cpu", net_cpu, real)
+    t_g, g_g, counts = step(dev, net_gpu, real)
+    # the card's own spread: the condition cloud moved by one ulp
+    _, g_u, _ = step(dev, net_gpu, real * (1 + 2 ** -23))
+
+    def rel(a, b, name):
+        return ((a[name] - b[name]).abs().max() / b[name].abs().max()).item()
+
+    loss_err = max(abs(t_g[k] - t_c[k]) / abs(t_c[k]) for k in t_c)
+    # worst err / max |g| by part: card vs CPU, and the card's own spread.
+    # The Chamfer's argmins and the PointNet++ max-pools are discrete, so a
+    # one-ulp move of the inputs already moves the gradients; the card is
+    # held to the CPU tests' tolerance or to 3x that spread.
+    worst, spread = {}, {}
+    for name in g_c:
+        if ".linears." in name and name.endswith(".bias"):
+            weight = name[:-len("bias")] + "weight"
+            ratio = max(g_c[name].abs().max(), g_g[name].abs().max()).item() \
+                / g_c[weight].abs().max().item()
+            part, own = "pre-BN bias", 0.0
+        else:
+            ratio = rel(g_g, g_c, name)
+            part = next(p for p in GRAD_RTOL if name.startswith(p))
+            own = rel(g_u, g_g, name)
+        worst[part] = max(worst.get(part, 0.0), ratio)
+        spread[part] = max(spread.get(part, 0.0), own)
+    limits = {part: max(GRAD_RTOL.get(part, PRE_BN_BIAS_RATIO),
+                        3 * spread[part]) for part in worst}
+    print(f"[train reference] float32 mini-step at {n} points / {m} coarse, "
+          f"same weights and draws: card (launches {counts}) vs CPU loss "
+          f"terms max rel err {loss_err:.3g}; worst gradient err / max |g| "
+          f"by part (card vs CPU / card's own spread for a one-ulp move of "
+          f"the condition cloud / limit): " + ", ".join(
+              f"{k} {worst[k]:.3g} / {spread[k]:.3g} / {limits[k]:.3g}"
+              for k in worst))
+    if counts != TRAIN_STEP_LAUNCHES:
+        fail(f"train reference: card launches {counts}")
+    bad = [k for k in worst if not worst[k] <= limits[k]]
+    if loss_err > 1e-5 or bad:
+        fail(f"train reference: loss terms {t_g} vs CPU {t_c}; gradients "
+             f"beyond tolerance in {bad}")
+
+
+def phase_eval(dev: torch.device, card: str, work: str,
+               paths: dict) -> int:
+    """``cli.inference`` from the trained ``best_model`` directory, then
+    ``cli.compare --json`` of its output against the val pair's reference
+    and the metrics suite. Returns the compare call's row-min launches."""
+    with np.load(paths["val"]) as z:
+        src, ref = z["sim_full"], z["real_full"]
+    src_path, ref_path, out_path = (os.path.join(work, f) for f in
+                                    ("eval_src.npy", "eval_ref.npy",
+                                     "eval_out.npy"))
+    np.save(src_path, src)
+    np.save(ref_path, ref)
+    reset_launch_counts()
+    grid_knn.UNSAFE_COUNTS.clear()
+    t0 = time.perf_counter()
+    rc = cli_main(["--checkpoint", paths["best"], "--source", src_path,
+                   "--reference", ref_path, "--output", out_path,
+                   "--num_steps", str(STEPS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    counts = dict(LAUNCH_COUNTS)
+    patched = sum(u > 0 for u in grid_knn.UNSAFE_COUNTS)
+    want = {"knn_topk": patched, "fps": 2, "ball_query": 2,
+            "grid_interp": STEPS, "grid_topk": 0, "rowmin": 0}
+    out = np.load(out_path) if rc == 0 else None
+    if rc != 0 or counts != want or out.shape != (N_POINTS, 3) or \
+            not np.isfinite(out).all():
+        fail(f"eval inference: rc {rc}, launches {counts} (expected {want})")
+    print(f"[eval] cli.inference from {os.path.basename(paths['best'])}/: "
+          f"output {out.shape} finite, launches {counts}, {infer_s:.3f} s")
+
+    reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = compare_main([out_path, ref_path, "--json", "--device", "cuda"])
+    torch.cuda.synchronize()
+    compare_s = time.perf_counter() - t0
+    counts = dict(LAUNCH_COUNTS)
+    result = json.loads(buf.getvalue())
+    keys = {"precision", "recall", "f1", "chamfer_distance", "threshold",
+            "generated_points", "reference_points"}
+    want = {k: 0 for k in counts} | {"rowmin": 4}
+    if rc != 0 or set(result) != keys or counts != want or not all(
+            np.isfinite(v) for v in result.values()):
+        fail(f"compare CLI: rc {rc}, keys {sorted(result)}, launches {counts}")
+    print(f"[eval] cli.compare --json {N_POINTS}x{len(ref)}: {result}; "
+          f"launches {counts}; {compare_s:.3f} s incl. file IO ({card})")
+    compare_launches = counts["rowmin"]
+
+    g = torch.from_numpy(out)[None].to(dev)
+    r = torch.from_numpy(ref)[None].to(dev)
+    reset_launch_counts()
+    with torch.no_grad():
+        vals = {"chamfer": metrics.chamfer_distance(g, r).item(),
+                "hausdorff": metrics.hausdorff_distance(g, r).item(),
+                "coverage@0.01": metrics.coverage_score(g, r).item(),
+                "uniformity(k=8)": metrics.uniformity_score(g).item()}
+        p, rec, f1 = metrics.precision_recall_f1(g, r)
+        vals.update({"precision": p.item(), "recall": rec.item(),
+                     "f1": f1.item()})
+    counts = dict(LAUNCH_COUNTS)
+    if counts["rowmin"] != 7 or counts["knn_topk"] != 1 or not all(
+            np.isfinite(v) for v in vals.values()):
+        fail(f"metrics: {vals}, launches {counts}")
+    print(f"[eval] metrics on the output: {vals}; launches {counts} "
+          "(uniformity: one k=9 kNN)")
+    return compare_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -592,6 +1044,11 @@ def main() -> int:
     records = phase_kernels(rng, dev)
     phase_reference(rng, dev)
     counts = phase_main_path(rng, dev, card)
+    with tempfile.TemporaryDirectory() as work:
+        paths = phase_train(rng, dev, card, work)
+        phase_train_reference(rng, dev)
+        records["rowmin"]["launches"] = phase_eval(dev, card, work, paths)
+        records["rowmin"]["path"] = "cli.compare"
     for name, rec in records.items():
         rec.setdefault("launches", counts[name])
     print(json.dumps({"kernels": list(records.values())}))

@@ -80,7 +80,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Hierarchical point-cloud style transfer inference")
     parser.add_argument("--checkpoint", type=str, required=True,
-                        help="port checkpoint (.pt)")
+                        help="port checkpoint: a .pt file or a training "
+                             "checkpoint directory (e.g. best_model/)")
     parser.add_argument("--source", type=str, required=True)
     parser.add_argument("--reference", type=str, required=True)
     parser.add_argument("--output", type=str, required=True)

@@ -1,0 +1,49 @@
+"""Train CLI (counterpart of ``pointcloud_style_transfer_tpu/cli/train.py``):
+``Config()`` with the flags given, the processed dataset's train/val
+batchers, and ``DiffusionTrainer`` on ``--device`` (default ``cuda``).
+
+    python -m pointcloud_style_transfer_torch.cli.train \\
+        --data_dir datasets/processed --num_epochs 2 [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from ..config import Config
+from ..data import create_dataloaders
+from ..device import resolve_device
+from ..training import DiffusionTrainer
+from ._common import add_config_overrides, apply_overrides
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Train the point-cloud style-transfer diffusion model")
+    add_config_overrides(parser)
+    parser.add_argument("--no_resume", action="store_true",
+                        help="start fresh even if checkpoints exist")
+    parser.add_argument("--learning_rate", type=float, default=None)
+    parser.add_argument("--use_hierarchical", type=int, default=None,
+                        choices=(0, 1))
+    parser.add_argument("--val_interval", type=int, default=None)
+    args = parser.parse_args(argv)
+
+    config = apply_overrides(Config(), args)
+    if args.learning_rate is not None:
+        config = config.replace(learning_rate=args.learning_rate)
+    if args.use_hierarchical is not None:
+        config = config.replace(use_hierarchical=bool(args.use_hierarchical))
+    if args.val_interval is not None:
+        config = config.replace(val_interval=args.val_interval)
+
+    device = resolve_device(args.device)
+    train_loader, val_loader = create_dataloaders(config)
+    trainer = DiffusionTrainer(config, resume=not args.no_resume,
+                               device=device)
+    trainer.train(train_loader, val_loader)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -96,6 +96,14 @@ class Config:
     augmentation_scale_max: float = 1.02
     content_anchor: float = 0.1
 
+    def make_dirs(self) -> None:
+        """Create the output directories (explicit, so that building a
+        Config has no side effects)."""
+        exp_ckpt = os.path.join(self.checkpoint_dir, self.experiment_name)
+        for d in (self.log_dir, self.result_dir, self.processed_data_dir,
+                  exp_ckpt):
+            os.makedirs(d, exist_ok=True)
+
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 

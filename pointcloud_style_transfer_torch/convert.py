@@ -1,4 +1,4 @@
-"""Flax variables -> the port's state dicts.
+"""Flax variables and JAX train states -> the port's state dicts.
 
 The JAX package's ``model.init`` gives ``{"params", "batch_stats"}`` nested
 by module name (``Dense_i``, ``BatchNorm_i``, ``SetAbstraction_i``, ...).
@@ -16,11 +16,16 @@ Flax numbers Dense layers in call order. NoisePredictor: 0-2 point encoder,
 3 time projection, 4 style projection, 5-16 the six residual blocks (two
 each), 17-19 output MLP. StyleEncoder: ``PointNet2Encoder_0`` with
 ``SetAbstraction_0..2``, then head ``Dense_0`` and ``Dense_1``.
+
+A tree shaped like the params (EMA shadow, Adam moments, accumulated
+gradients) maps through ``params_to_torch``; ``train_state_to_torch`` carries
+a whole JAX train state across, so both packages can start from the same
+state, mid-accumulation included.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -36,10 +41,12 @@ def _dense(p: Mapping) -> StateDict:
     return {"weight": _t(p["kernel"]).T.contiguous(), "bias": _t(p["bias"])}
 
 
-def _batchnorm(p: Mapping, s: Mapping) -> StateDict:
-    return {"weight": _t(p["scale"]), "bias": _t(p["bias"]),
-            "running_mean": _t(s["mean"]), "running_var": _t(s["var"]),
-            "num_batches_tracked": torch.tensor(0, dtype=torch.int64)}
+def _batchnorm(p: Mapping, s: Optional[Mapping]) -> StateDict:
+    sd = {"weight": _t(p["scale"]), "bias": _t(p["bias"])}
+    if s is not None:
+        sd.update(running_mean=_t(s["mean"]), running_var=_t(s["var"]),
+                  num_batches_tracked=torch.tensor(0, dtype=torch.int64))
+    return sd
 
 
 def _prefixed(prefix: str, sd: StateDict) -> StateDict:
@@ -58,20 +65,23 @@ def noise_predictor_state(params: Mapping, num_blocks: int = 6) -> StateDict:
     return sd
 
 
-def style_encoder_state(params: Mapping, batch_stats: Mapping) -> StateDict:
-    """State dict of ``StyleEncoder`` from its Flax params and batch stats."""
+def style_encoder_state(params: Mapping,
+                        batch_stats: Optional[Mapping] = None) -> StateDict:
+    """State dict of ``StyleEncoder`` from its Flax params and batch stats
+    (without ``batch_stats``: its parameters only)."""
     enc_p = params["PointNet2Encoder_0"]
-    enc_s = batch_stats["PointNet2Encoder_0"]
     sd: StateDict = {}
     for i in range(3):
         sa_p = enc_p[f"SetAbstraction_{i}"]
-        sa_s = enc_s[f"SetAbstraction_{i}"]
+        sa_s = (None if batch_stats is None else
+                batch_stats["PointNet2Encoder_0"][f"SetAbstraction_{i}"])
         n_layers = sum(1 for k in sa_p if k.startswith("Dense_"))
         for j in range(n_layers):
             base = f"encoder.sa{i + 1}"
             sd.update(_prefixed(f"{base}.linears.{j}", _dense(sa_p[f"Dense_{j}"])))
             sd.update(_prefixed(f"{base}.bns.{j}", _batchnorm(
-                sa_p[f"BatchNorm_{j}"], sa_s[f"BatchNorm_{j}"])))
+                sa_p[f"BatchNorm_{j}"],
+                None if sa_s is None else sa_s[f"BatchNorm_{j}"])))
     sd.update(_prefixed("fc1", _dense(params["Dense_0"])))
     sd.update(_prefixed("fc2", _dense(params["Dense_1"])))
     return sd
@@ -87,3 +97,38 @@ def flax_to_torch(variables: Mapping) -> StateDict:
     sd.update(_prefixed("noise_predictor",
                         noise_predictor_state(params["noise_predictor"])))
     return sd
+
+
+def params_to_torch(params: Mapping) -> StateDict:
+    """``DiffusionNet``'s parameters (no buffers) from a tree shaped like the
+    Flax params: the params themselves, the EMA shadow, an Adam moment or
+    the accumulated gradients."""
+    sd = _prefixed("style_encoder", style_encoder_state(
+        params["style_encoder"]))
+    sd.update(_prefixed("noise_predictor",
+                        noise_predictor_state(params["noise_predictor"])))
+    return sd
+
+
+def train_state_to_torch(state: Mapping) -> Dict[str, Any]:
+    """The JAX trainer's state ``{params, batch_stats, opt_state,
+    ema_params}`` in the port's layout: ``DiffusionTrainer.state()``'s, with
+    optax's ``MultiStepsState`` as ``opt_state`` (``mini_step``,
+    ``gradient_step``, Adam's ``count``, ``mu``, ``nu`` and ``acc_grads``).
+    """
+    opt = state["opt_state"]
+    adam = next(s for s in opt.inner_opt_state if hasattr(s, "mu"))
+    return {
+        "params": params_to_torch(state["params"]),
+        "batch_stats": {k: v for k, v in flax_to_torch(
+            {"params": state["params"],
+             "batch_stats": state["batch_stats"]}).items()
+            if "running" in k or "num_batches" in k},
+        "ema_params": params_to_torch(state["ema_params"]),
+        "opt_state": {"mini_step": int(opt.mini_step),
+                      "gradient_step": int(opt.gradient_step),
+                      "count": int(adam.count),
+                      "mu": params_to_torch(adam.mu),
+                      "nu": params_to_torch(adam.nu),
+                      "acc_grads": params_to_torch(opt.acc_grads)},
+    }

@@ -117,7 +117,7 @@ void launch(const float* q, const float* r, float* d, int* i, int batch,
 }  // namespace
 
 // query [batch, nq, 3] f32, ref [batch, m, 3] f32 -> d_out [batch, nq, k] f32,
-// i_out [batch, nq, k] i32, all contiguous. 1 <= k <= 8. Returns the CUDA
+// i_out [batch, nq, k] i32, all contiguous. 1 <= k <= 16. Returns the CUDA
 // error code of the launch (0 on success).
 extern "C" int pcst_knn_topk(const void* query, const void* ref, void* d_out,
                              void* i_out, int batch, int nq, int m, int k,
@@ -136,6 +136,14 @@ extern "C" int pcst_knn_topk(const void* query, const void* ref, void* d_out,
     case 6: launch<6>(q, r, d, i, batch, nq, m, s); break;
     case 7: launch<7>(q, r, d, i, batch, nq, m, s); break;
     case 8: launch<8>(q, r, d, i, batch, nq, m, s); break;
+    case 9: launch<9>(q, r, d, i, batch, nq, m, s); break;
+    case 10: launch<10>(q, r, d, i, batch, nq, m, s); break;
+    case 11: launch<11>(q, r, d, i, batch, nq, m, s); break;
+    case 12: launch<12>(q, r, d, i, batch, nq, m, s); break;
+    case 13: launch<13>(q, r, d, i, batch, nq, m, s); break;
+    case 14: launch<14>(q, r, d, i, batch, nq, m, s); break;
+    case 15: launch<15>(q, r, d, i, batch, nq, m, s); break;
+    case 16: launch<16>(q, r, d, i, batch, nq, m, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,3 +1,12 @@
-from .preprocessing import denormalize_point_cloud, normalize_point_cloud
+from .dataset import (Batcher, HierarchicalPointCloudDataset, collate,
+                      create_dataloaders)
+from .preprocessing import (PointCloudPreprocessor, consistent_upsample,
+                            denormalize_point_cloud, normalize_point_cloud,
+                            voxel_grid_downsample)
 
-__all__ = ["denormalize_point_cloud", "normalize_point_cloud"]
+__all__ = [
+    "Batcher", "HierarchicalPointCloudDataset", "collate",
+    "create_dataloaders", "PointCloudPreprocessor", "consistent_upsample",
+    "denormalize_point_cloud", "normalize_point_cloud",
+    "voxel_grid_downsample",
+]

@@ -1,15 +1,15 @@
 """PointCloudDiffusionModel: config + the DiffusionNet on one device
-(counterpart of ``pointcloud_style_transfer_tpu/models/model.py``; the
-training forward with condition drop arrives with the trainer)."""
+(counterpart of ``pointcloud_style_transfer_tpu/models/model.py``)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..config import Config
 from ..device import resolve_device
+from ..ops import voxel_downsample
 from .networks import DiffusionNet
 
 
@@ -47,3 +47,57 @@ class PointCloudDiffusionModel:
     def predict_noise(self, noisy_points: torch.Tensor, t: torch.Tensor,
                       style_feat: torch.Tensor) -> torch.Tensor:
         return self.net.predict_noise(noisy_points, t, style_feat)
+
+    def forward(self, noisy_points: torch.Tensor, t: torch.Tensor,
+                condition_points: torch.Tensor, *,
+                cond_drop_prob: float = 0.0, use_hierarchical: bool = True,
+                train: bool = False,
+                cond_priority: Optional[torch.Tensor] = None,
+                noisy_priority: Optional[torch.Tensor] = None,
+                fps_starts: Optional[torch.Tensor] = None,
+                drop_u: Optional[torch.Tensor] = None,
+                style_dropout_mask: Optional[torch.Tensor] = None,
+                noise_dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                           Optional[Dict[str, torch.Tensor]]]:
+        """The training forward (JAX ``PointCloudDiffusionModel.forward``):
+        returns (predicted noise, coarse indices [B, M] | None, the updated
+        batch stats by buffer name | None).
+
+        1. voxel-downsample the condition cloud when it has more than
+           ``global_points`` (hierarchical);
+        2. the style encoder (train mode: batch statistics, dropout; the
+           running stats are updated in place);
+        3. condition drop: ``keep = u > cond_drop_prob`` zeroes whole style
+           rows;
+        4. hierarchical and more than ``global_points`` noisy points: predict
+           the noise of a voxel downsample and return its indices; else
+           predict at full resolution.
+
+        Every draw may be passed in, else it comes from ``generator`` in this
+        order: ``cond_priority`` [B, Nc], ``fps_starts`` [2, B],
+        ``style_dropout_mask`` [B, 512], ``drop_u`` [B, 1],
+        ``noisy_priority`` [B, N], ``noise_dropout_masks`` (one
+        [B, M, feature_dim] per residual block)."""
+        M = self.config.global_points
+        cond = condition_points
+        if use_hierarchical and cond.shape[1] > M:
+            cond, _ = voxel_downsample(cond, M, priority=cond_priority,
+                                       generator=generator)
+        style = self.net.encode_style(cond, fps_starts, generator, train,
+                                      style_dropout_mask)
+        if cond_drop_prob > 0:
+            if drop_u is None:
+                drop_u = torch.rand((style.shape[0], 1), generator=generator,
+                                    device=style.device)
+            keep = drop_u.to(style.device) > cond_drop_prob
+            style = style * keep.to(style.dtype)
+        idx = None
+        if use_hierarchical and noisy_points.shape[1] > M:
+            noisy_points, idx = voxel_downsample(
+                noisy_points, M, priority=noisy_priority, generator=generator)
+        pred = self.net.predict_noise(noisy_points, t, style, train,
+                                      noise_dropout_masks, generator)
+        updates = dict(self.net.named_buffers()) if train else None
+        return pred, idx, updates

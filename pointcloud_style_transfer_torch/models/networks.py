@@ -7,6 +7,14 @@ float32 and each ``Dense`` computes in the module's compute dtype (bf16 when
 ``Config.use_amp``), as a Flax ``Dense(dtype=bf16)`` with float32 params does;
 BatchNorm normalises in float32 and returns the compute dtype.
 
+Train mode is an argument (``train=True``), as in Flax, not the module's
+``training`` flag: BatchNorm then normalises with the batch's statistics and
+updates its running ones in place, and dropout draws (or is given) its keep
+masks. Both follow Flax's arithmetic, which ``nn.BatchNorm1d`` and
+``F.dropout`` do not: the biased "fast" variance max(0, E[x^2] - E[x]^2)
+stored as is (torch stores the unbiased two-pass one), and ``x / 0.9``
+where kept (torch multiplies by 1/0.9, which rounds differently).
+
 Parameter counts at the default widths: style encoder 675,136, noise
 predictor 1,874,691, total 2,549,827.
 """
@@ -46,18 +54,49 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+KEEP_PROB = 0.9  # Flax Dropout(0.1)'s keep probability
+BN_MOMENTUM = 0.9  # Flax BatchNorm momentum: ra = m * ra + (1 - m) * stat
+
+
 class BatchNorm(nn.BatchNorm1d):
-    """BatchNorm over the trailing (channel) axis of [..., C]; normalises in
-    float32 and returns ``compute_dtype``. Flax momentum 0.9 is torch 0.1."""
+    """Flax's BatchNorm over the trailing (channel) axis of [..., C]
+    (``flax/linen/normalization.py``): in float32, ``(x - mean) *
+    (rsqrt(var + 1e-5) * scale) + bias``, returned in ``compute_dtype``.
+    ``train=True`` normalises with the batch's mean and biased fast variance
+    and updates the running stats in place; otherwise it reads them. An
+    ``nn.BatchNorm1d`` only for its state-dict names."""
 
     def __init__(self, num_features: int,
                  compute_dtype: torch.dtype = torch.float32):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+        super().__init__(num_features, eps=1e-5, momentum=1 - BN_MOMENTUM)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = super().forward(x.reshape(-1, x.shape[-1]).float())
-        return y.reshape(x.shape).to(self.compute_dtype)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            flat = xf.reshape(-1, x.shape[-1])
+            mean = flat.mean(dim=0)
+            var = ((flat * flat).mean(dim=0) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(self.compute_dtype)
+
+
+def dropout(x: torch.Tensor, train: bool, keep: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Flax ``Dropout(0.1)``: in train mode ``where(keep, x / 0.9, 0)``; the
+    keep mask (``rand < 0.9``) is drawn from ``generator`` unless given."""
+    if not train:
+        return x
+    if keep is None:
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < KEEP_PROB
+    return torch.where(keep.to(x.device), x / KEEP_PROB, torch.zeros_like(x))
 
 
 class SetAbstraction(nn.Module):
@@ -81,7 +120,8 @@ class SetAbstraction(nn.Module):
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
                 fps_start: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                train: bool = False):
         B = xyz.shape[0]
         if self.group_all:
             new_xyz = xyz.new_zeros((B, 1, 3))
@@ -101,7 +141,7 @@ class SetAbstraction(nn.Module):
                                     dim=-1)
         x = grouped
         for lin, bn in zip(self.linears, self.bns):
-            x = F.relu(bn(lin(x)))
+            x = F.relu(bn(lin(x), train))
         return new_xyz, x.max(dim=2).values  # [B, S, C']
 
 
@@ -121,13 +161,14 @@ class PointNet2Encoder(nn.Module):
 
     def forward(self, xyz: torch.Tensor,
                 fps_starts: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> torch.Tensor:
         """``fps_starts`` [2, B]: the start indices of the two FPS calls
         (drawn from ``generator`` when not given)."""
         s1, s2 = (None, None) if fps_starts is None else fps_starts
-        l1_xyz, l1_points = self.sa1(xyz, None, s1, generator)
-        l2_xyz, l2_points = self.sa2(l1_xyz, l1_points, s2, generator)
-        _, global_feat = self.sa3(l2_xyz, l2_points)
+        l1_xyz, l1_points = self.sa1(xyz, None, s1, generator, train)
+        l2_xyz, l2_points = self.sa2(l1_xyz, l1_points, s2, generator, train)
+        _, global_feat = self.sa3(l2_xyz, l2_points, train=train)
         return global_feat.reshape(xyz.shape[0], -1)
 
 
@@ -141,13 +182,15 @@ class StyleEncoder(nn.Module):
         self.encoder = PointNet2Encoder(feature_dim, compute_dtype, use_kernels)
         self.fc1 = Dense(feature_dim, 512, compute_dtype)
         self.fc2 = Dense(512, feature_dim, compute_dtype)
-        self.dropout = nn.Dropout(0.1)
 
     def forward(self, points: torch.Tensor,
                 fps_starts: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        feat = self.encoder(points, fps_starts, generator)
-        x = self.dropout(F.relu(self.fc1(feat)))
+                generator: Optional[torch.Generator] = None,
+                train: bool = False,
+                dropout_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``dropout_mask`` [B, 512]: the head's keep mask in train mode."""
+        feat = self.encoder(points, fps_starts, generator, train)
+        x = dropout(F.relu(self.fc1(feat)), train, dropout_mask, generator)
         return F.relu(self.fc2(x))
 
 
@@ -170,20 +213,24 @@ class NoisePredictor(nn.Module):
             nn.ModuleList([Dense(F_, 2 * F_, compute_dtype),
                            Dense(2 * F_, F_, compute_dtype)])
             for _ in range(num_blocks))
-        self.dropout = nn.Dropout(0.1)
         self.output_mlp = nn.ModuleList([
             Dense(F_, 256, compute_dtype), Dense(256, 128, compute_dtype),
             Dense(128, 3, compute_dtype)])
 
     def forward(self, noisy_points: torch.Tensor, t: torch.Tensor,
-                style_feat: torch.Tensor) -> torch.Tensor:
+                style_feat: torch.Tensor, train: bool = False,
+                dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``dropout_masks``: one [B, N, feature_dim] keep mask per residual
+        block in train mode (drawn from ``generator`` when not given)."""
+        masks = dropout_masks or [None] * len(self.blocks)
         pe0, pe1, pe2 = self.point_encoder
         x = pe2(F.relu(pe1(F.relu(pe0(noisy_points)))))
         t_feat = self.time_proj(time_embedding(t, self.time_embed_dim))
         s_feat = self.style_proj(style_feat)
         x = x + t_feat[:, None, :] + s_feat[:, None, :]
-        for fc1, fc2 in self.blocks:
-            x = self.dropout(fc2(F.relu(fc1(x)))) + x
+        for (fc1, fc2), keep in zip(self.blocks, masks):
+            x = dropout(fc2(F.relu(fc1(x))), train, keep, generator) + x
         o0, o1, o2 = self.output_mlp
         return o2(F.relu(o1(F.relu(o0(x)))))
 
@@ -202,10 +249,17 @@ class DiffusionNet(nn.Module):
 
     def encode_style(self, cond_points: torch.Tensor,
                      fps_starts: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None
+                     generator: Optional[torch.Generator] = None,
+                     train: bool = False,
+                     dropout_mask: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
-        return self.style_encoder(cond_points, fps_starts, generator)
+        return self.style_encoder(cond_points, fps_starts, generator, train,
+                                  dropout_mask)
 
     def predict_noise(self, noisy_points: torch.Tensor, t: torch.Tensor,
-                      style_feat: torch.Tensor) -> torch.Tensor:
-        return self.noise_predictor(noisy_points, t, style_feat)
+                      style_feat: torch.Tensor, train: bool = False,
+                      dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        return self.noise_predictor(noisy_points, t, style_feat, train,
+                                    dropout_masks, generator)

@@ -1,10 +1,14 @@
-"""k nearest neighbours, dispatched between the CUDA kernel and its plain
-version (counterpart of ``pointcloud_style_transfer_tpu/ops/distance.py::knn``).
+"""Point-distance primitives (counterpart of
+``pointcloud_style_transfer_tpu/ops/distance.py``): the matmul-expansion
+``square_distance``, the row minimum ``min_sq_dist`` with its custom gradient
+(``MinSqDist``), the squared training Chamfer and the unsquared evaluation
+Chamfer, and ``knn``.
 
-The plain version computes distances in the squared-difference form that the
-kernel (and the TPU's ``_topk_kernel``) uses, not the matmul expansion of
-the JAX package's ``knn_jnp``: it is the kernel's oracle, so it must select
-the same neighbours at near-ties.
+The row minimum and ``knn`` dispatch between the CUDA kernels and their
+plain versions. The plain versions compute distances in the squared-difference
+form that the kernels (and the TPU's kernels) use, not the matmul expansion of
+the JAX package's ``knn_jnp``/``min_sq_dist_jnp``: they are the kernels'
+oracles, so they must select the same neighbours at near-ties.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from .grid_knn import grid_knn
-from .kernels import knn_topk, knn_topk_plain
+from .kernels import knn_topk, knn_topk_plain, rowmin_kernel, rowmin_plain
 
 # Backends of the JAX package that this port does not have yet, with the
 # ROADMAP item that ports each.
@@ -20,6 +24,83 @@ UNPORTED_KNN_BACKENDS = {
     "pallas_f32packed": "ROADMAP queue 2 item 7 (_topk_f32packed_kernel)",
     "pallas_pruned": "ROADMAP queue 2 item 9 (_pruned_topk_kernel)",
 }
+
+
+def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """[..., N, C] x [..., M, C] -> [..., N, M] squared distances through the
+    matmul expansion |s|^2 - 2 s.d + |d|^2, in float32 (may be slightly
+    negative from rounding; callers clamp)."""
+    src = src.float()
+    dst = dst.float()
+    d = -2.0 * torch.einsum("...nc,...mc->...nm", src, dst)
+    d = d + torch.sum(src ** 2, dim=-1)[..., :, None]
+    return d + torch.sum(dst ** 2, dim=-1)[..., None, :]
+
+
+class MinSqDist(torch.autograd.Function):
+    """The custom VJP of ``pallas_min_sq_dist``.
+
+    Forward: without a gradient to compute, the row-min kernel, as the JAX
+    primal runs it; with one, the k=1 kNN kernel, whose argmin (ties to the
+    lowest index) is saved, as ``_min_sq_dist_fwd`` does. Backward
+    (``_min_sq_dist_bwd``): dq = 2 (q - r[argmin]) g, and -dq scatter-added
+    into the refs. The gather and the scatter stay ``torch.gather`` /
+    ``index_add_``, as JAX computes them outside any Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, query: torch.Tensor, ref: torch.Tensor,
+                grad_enabled: bool) -> torch.Tensor:
+        q = query.float().contiguous()
+        r = ref.float().contiguous()
+        if not (grad_enabled and any(ctx.needs_input_grad[:2])):
+            return rowmin_kernel(q, r)
+        d, idx = knn_topk(q, r, 1)
+        ctx.save_for_backward(q, r, idx[..., 0].long())
+        ctx.dtypes = (query.dtype, ref.dtype)
+        return d[..., 0].clamp_min(0.0)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        q, r, idx = ctx.saved_tensors
+        B, M, _ = r.shape
+        sel = torch.gather(r, 1, idx[..., None].expand(-1, -1, 3))
+        dq = 2.0 * (q - sel) * g[..., None]
+        flat = (idx + torch.arange(B, device=idx.device)[:, None] * M)
+        dr = torch.zeros_like(r).view(B * M, 3).index_add_(
+            0, flat.reshape(-1), -dq.reshape(-1, 3)).view(B, M, 3)
+        return dq.to(ctx.dtypes[0]), dr.to(ctx.dtypes[1]), None
+
+
+def min_sq_dist(query: torch.Tensor, ref: torch.Tensor,
+                backend: str = "pallas") -> torch.Tensor:
+    """Per-query min squared distance: query [B, N, 3], ref [B, M, 3] ->
+    [B, N] float32, >= 0. ``backend="pallas"`` is ``MinSqDist`` (the kernels
+    on CUDA tensors, their plain versions on CPU tensors); ``"jnp"`` the
+    plain row minimum everywhere, differentiated by autograd
+    (``Config.use_pallas=False``)."""
+    if backend == "pallas":
+        return MinSqDist.apply(query, ref, torch.is_grad_enabled())
+    if backend == "jnp":
+        return rowmin_plain(query, ref)
+    raise ValueError(f"unknown min_sq_dist backend: {backend!r}")
+
+
+def chamfer_distance(pred: torch.Tensor, target: torch.Tensor,
+                     backend: str = "pallas") -> torch.Tensor:
+    """[B] bidirectional squared-L2 Chamfer (the training loss's):
+    mean_n min_m |p_n - t_m|^2 + mean_m min_n |t_m - p_n|^2."""
+    d_pt = min_sq_dist(pred, target, backend)
+    d_tp = min_sq_dist(target, pred, backend)
+    return d_pt.mean(dim=1) + d_tp.mean(dim=1)
+
+
+def chamfer_distance_l2(pred: torch.Tensor, target: torch.Tensor,
+                        backend: str = "pallas") -> torch.Tensor:
+    """[B] evaluation Chamfer: *unsquared* L2, averaged over both directions
+    and divided by 2."""
+    d_pt = torch.sqrt(min_sq_dist(pred, target, backend))
+    d_tp = torch.sqrt(min_sq_dist(target, pred, backend))
+    return (d_pt.mean(dim=1) + d_tp.mean(dim=1)) / 2.0
 
 
 def knn(query: torch.Tensor, ref: torch.Tensor, k: int,

@@ -9,6 +9,7 @@ from .fps import farthest_point_sample_kernel, fps_cuda, fps_plain
 from .grid import (grid_interp, grid_interp_cuda, grid_interp_plain,
                    grid_topk, grid_topk_cuda, grid_topk_plain)
 from .knn import knn_topk, knn_topk_cuda, knn_topk_plain
+from .rowmin import rowmin_cuda, rowmin_kernel, rowmin_plain
 
 __all__ = [
     "LAUNCH_COUNTS", "build_all", "reset_launch_counts",
@@ -17,4 +18,5 @@ __all__ = [
     "grid_interp", "grid_interp_cuda", "grid_interp_plain",
     "grid_topk", "grid_topk_cuda", "grid_topk_plain",
     "knn_topk", "knn_topk_cuda", "knn_topk_plain",
+    "rowmin_cuda", "rowmin_kernel", "rowmin_plain",
 ]

@@ -38,6 +38,7 @@ SIGNATURES = {
     "fps": {"pcst_fps": [_VP, _VP, _VP, _INT, _INT, _INT, _VP]},
     "ball_query": {"pcst_ball_query": [_VP, _VP, _VP, _INT, _INT, _INT, _INT,
                                        _FLT, _VP]},
+    "rowmin": {"pcst_rowmin": [_VP, _VP, _VP, _INT, _INT, _INT, _VP]},
     "grid_fused": {
         "pcst_grid_interp": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
                              _INT, _INT, _INT, _INT, _FLT, _VP],
@@ -53,6 +54,7 @@ KERNELS = {
     "ball_query": ("ball_query", "pcst_ball_query"),
     "grid_interp": ("grid_fused", "pcst_grid_interp"),
     "grid_topk": ("grid_fused", "pcst_grid_topk"),
+    "rowmin": ("rowmin", "pcst_rowmin"),
 }
 
 LAUNCH_COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -19,7 +19,7 @@ import torch
 
 from ._common import check_points, launch, pairwise_sq_dist
 
-MAX_K = 8  # the kernel is instantiated for 1 <= k <= 8
+MAX_K = 16  # the kernel is instantiated for 1 <= k <= 16
 _BIG = 1e30  # the running top-k's initial distance, as on the TPU
 _CHUNK_ELEMS = 1 << 23  # plain version: distance-matrix elements per chunk
 

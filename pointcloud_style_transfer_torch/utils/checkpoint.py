@@ -1,20 +1,30 @@
-"""Port checkpoints: one ``.pt`` file holding the config and the weights.
+"""Port checkpoints.
 
-Payload (a dict; tensors on the CPU, readable with ``weights_only=True``):
+Two forms, both read by ``load_for_inference``:
 
-* ``config``: ``Config.to_dict()`` — inference rebuilds the model from it;
-* ``params``: the DiffusionNet's parameters, by state-dict name;
-* ``batch_stats``: its BatchNorm buffers (running mean / var / count);
-* ``ema_params``: optional EMA shadow of ``params``, preferred for inference.
+* **a training checkpoint directory** (``CheckpointManager``), the JAX
+  package's directory contract with a ``.pt`` payload:
+  ``{checkpoint_dir}/{experiment_name}/ckpt_epoch_{epoch:04d}/`` holding
+  ``state.pt`` (``params``, ``batch_stats``, ``opt_state``, ``ema_params``)
+  and ``meta.json`` (``epoch``, ``config``, ``best_val_loss``), plus a
+  ``best_model/`` copy updated on improvement; ``load_latest`` finds the
+  newest epoch and returns the next one to run;
+* **a single ``.pt`` file** (``save_checkpoint``): ``config``, ``params``,
+  ``batch_stats`` and optional ``ema_params``.
 
-``flax_to_torch`` (``convert.py``) turns JAX variables into the same names.
-Reading the JAX package's orbax checkpoints is not ported yet.
+Tensors are stored on the CPU by state-dict name and read with
+``weights_only=True``. ``convert.py`` turns JAX variables and train states
+into the same names. Reading the JAX package's orbax checkpoints is not
+ported: orbax needs JAX.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, Optional, Tuple
+import re
+import shutil
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -23,12 +33,26 @@ from ..device import resolve_device
 
 StateDict = Dict[str, torch.Tensor]
 
+_EPOCH_RE = re.compile(r"ckpt_epoch_(\d+)$")
+STATE_FILE, META_FILE = "state.pt", "meta.json"
+
 
 def split_state_dict(net: torch.nn.Module) -> Tuple[StateDict, StateDict]:
     """(params, batch_stats) of a module: its parameters and its buffers."""
     params = {k: v.detach().cpu() for k, v in net.named_parameters()}
     stats = {k: v.detach().cpu() for k, v in net.named_buffers()}
     return params, stats
+
+
+def to_cpu(tree: Any) -> Any:
+    """A copy of nested dicts/lists of tensors with every tensor on the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return tree
 
 
 def save_checkpoint(path: str, config: Config, params: StateDict,
@@ -44,14 +68,87 @@ def load_checkpoint(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+class CheckpointManager:
+    """The training checkpoint directories of one experiment."""
+
+    def __init__(self, checkpoint_dir: str, experiment_name: str,
+                 max_to_keep: Optional[int] = None):
+        self.base_dir = os.path.abspath(
+            os.path.join(checkpoint_dir, experiment_name))
+        os.makedirs(self.base_dir, exist_ok=True)
+        self.max_to_keep = max_to_keep
+
+    def epoch_dir(self, epoch: int) -> str:
+        return os.path.join(self.base_dir, f"ckpt_epoch_{epoch:04d}")
+
+    @property
+    def best_dir(self) -> str:
+        return os.path.join(self.base_dir, "best_model")
+
+    def list_epochs(self):
+        out = []
+        for name in os.listdir(self.base_dir):
+            m = _EPOCH_RE.match(name)
+            if m and os.path.isdir(os.path.join(self.base_dir, name)):
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def save(self, state: Dict[str, Any], epoch: int, config: Config,
+             is_best: bool = False, best_val_loss: float = float("inf")
+             ) -> str:
+        """``state``: nested dicts of tensors (params, batch_stats,
+        opt_state, ema_params); written to the CPU."""
+        path = self.epoch_dir(epoch)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.makedirs(path)
+        torch.save(to_cpu(state), os.path.join(path, STATE_FILE))
+        meta = {"epoch": epoch, "config": config.to_dict(),
+                "best_val_loss": best_val_loss}
+        with open(os.path.join(path, META_FILE), "w") as f:
+            json.dump(meta, f, indent=2)
+        if is_best:
+            if os.path.exists(self.best_dir):
+                shutil.rmtree(self.best_dir)
+            shutil.copytree(path, self.best_dir)
+        if self.max_to_keep:
+            for old in self.list_epochs()[:-self.max_to_keep]:
+                shutil.rmtree(self.epoch_dir(old), ignore_errors=True)
+        return path
+
+    @staticmethod
+    def restore(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """(state, meta) of one checkpoint directory, tensors on the CPU."""
+        state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                           weights_only=True)
+        with open(os.path.join(path, META_FILE)) as f:
+            meta = json.load(f)
+        return state, meta
+
+    def load_latest(self) -> Tuple[Optional[Dict[str, Any]], Dict[str, Any],
+                                   int]:
+        """(state | None, meta, next_epoch) of the newest checkpoint;
+        next_epoch is 0 when there is none."""
+        epochs = self.list_epochs()
+        if not epochs:
+            return None, {}, 0
+        state, meta = self.restore(self.epoch_dir(epochs[-1]))
+        return state, meta, epochs[-1] + 1
+
+
 def load_for_inference(path: str, device: str | torch.device | None = None):
-    """Rebuild (config, model) from a port checkpoint on ``device`` (default
-    ``cuda``). EMA weights are preferred, falling back to the raw params."""
+    """Rebuild (config, model) on ``device`` (default ``cuda``) from a
+    training checkpoint directory or a single ``.pt`` file. EMA weights are
+    preferred, falling back to the raw params."""
     from ..models import PointCloudDiffusionModel
 
     device = resolve_device(device)
-    ckpt = load_checkpoint(path)
-    config = Config.from_dict(ckpt["config"])
+    if os.path.isdir(path):
+        ckpt, meta = CheckpointManager.restore(path)
+        config = Config.from_dict(meta["config"])
+    else:
+        ckpt = load_checkpoint(path)
+        config = Config.from_dict(ckpt["config"])
     model = PointCloudDiffusionModel(config, device)
     weights = ckpt.get("ema_params") or ckpt["params"]
     model.net.load_state_dict({**weights, **ckpt["batch_stats"]})

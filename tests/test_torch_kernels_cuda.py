@@ -4,7 +4,11 @@ Needs a GPU with the CUDA toolkit (the kernels are built from ``csrc/`` on
 first use); skipped without one. The file needs no JAX, so on a GPU machine
 without it run ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 --noconftest -q``. Indices must be identical, kNN distances within 1e-6
-relative (same float32 arithmetic, no FMA). The grid kernels' distances
+relative (same float32 arithmetic, no FMA). The row minimum is identical
+to its plain version, NaN rows included; ``MinSqDist``'s gradients on the
+card are within 1e-6 relative of the CPU's (the card's scatter-add into the
+refs uses atomics, so its sums are taken in another order). The grid
+kernels' distances
 and positions are identical to their plain versions' (on rows with k
 candidates), their interpolated values within rtol 1e-6 and
 atol 1e-6 * max|v|.
@@ -14,11 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from pointcloud_style_transfer_torch.ops import grid_knn, knn
+from pointcloud_style_transfer_torch.ops import grid_knn, knn, min_sq_dist
 from pointcloud_style_transfer_torch.ops.kernels import (
     LAUNCH_COUNTS, ball_query_cuda, ball_query_plain, fps_cuda, fps_plain,
     grid_interp_cuda, grid_interp_plain, grid_topk_cuda, grid_topk_plain,
-    knn_topk, knn_topk_cuda, knn_topk_plain)
+    knn_topk, knn_topk_cuda, knn_topk_plain, rowmin_cuda, rowmin_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -43,7 +47,8 @@ def points(rng, b, n, dup_frac=0.1):
 
 
 @pytest.mark.parametrize("b,n,m,k", [(1, 5000, 3000, 3), (2, 1000, 2500, 1),
-                                     (1, 700, 5, 8), (1, 300, 2, 3)])
+                                     (1, 700, 5, 8), (1, 300, 2, 3),
+                                     (1, 3000, 5000, 9), (2, 1500, 2000, 16)])
 def test_knn_kernel_matches_plain(rng, cuda, b, n, m, k):
     r = points(rng, b, m)
     q = points(rng, b, n)
@@ -86,13 +91,64 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         knn_topk_cuda(x.double(), x, 3)
     with pytest.raises(ValueError):
-        knn_topk_cuda(x, x, 9)
+        knn_topk_cuda(x, x, 17)
+    with pytest.raises(ValueError):
+        rowmin_cuda(x, x[:, :0])
+    with pytest.raises(ValueError):
+        rowmin_cuda(x[:, ::2], x)
     with pytest.raises(ValueError):
         knn_topk_cuda(x.cpu(), x, 3)
     with pytest.raises(ValueError):
         fps_cuda(x, 4, torch.zeros(1, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError):
         ball_query_cuda(0.1, 4, x[:, ::2], x)
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 30000, 30000), (2, 1030, 4100),
+                                   (1, 64, 1)])
+def test_rowmin_kernel_identical_to_plain(rng, cuda, b, n, m):
+    r = points(rng, b, m)
+    q = points(rng, b, n)
+    q[:, : n // 5] = r[:, rng.choice(m, n // 5)]  # zero distances
+    q[0, -1, 1] = np.nan  # a NaN query: its row only
+    qt, rt = torch.from_numpy(q).to(cuda), torch.from_numpy(r).to(cuda)
+    before = LAUNCH_COUNTS["rowmin"]
+    d = rowmin_cuda(qt, rt)
+    assert LAUNCH_COUNTS["rowmin"] == before + 1
+    d_p = rowmin_plain(qt, rt)
+    nan = torch.isnan(d_p)
+    assert torch.equal(torch.isnan(d), nan) and nan.sum().item() == 1
+    assert torch.equal(d[~nan], d_p[~nan])
+    assert (d[:, : n // 5] == 0).all()
+
+
+def test_min_sq_dist_kernels_and_grads(rng, cuda):
+    """Under grad the forward is the k=1 kNN kernel (no row minimum);
+    without, the row-min kernel; gradients within 1e-6 of the CPU's."""
+    r = points(rng, 2, 3000)
+    q = points(rng, 2, 2000)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, (2, 2000)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda):
+        qt = torch.from_numpy(q).to(dev).requires_grad_()
+        rt = torch.from_numpy(r).to(dev).requires_grad_()
+        before = dict(LAUNCH_COUNTS)
+        val = torch.sum(w.to(dev) * min_sq_dist(qt, rt))
+        val.backward()
+        grads[str(dev)] = (val.item(), qt.grad.cpu(), rt.grad.cpu())
+        if dev != "cpu":
+            assert LAUNCH_COUNTS["knn_topk"] == before["knn_topk"] + 1
+            assert LAUNCH_COUNTS["rowmin"] == before["rowmin"]
+            with torch.no_grad():
+                d = min_sq_dist(qt, rt)
+            assert LAUNCH_COUNTS["rowmin"] == before["rowmin"] + 1
+            assert LAUNCH_COUNTS["knn_topk"] == before["knn_topk"] + 1
+            assert torch.equal(d, rowmin_plain(qt.detach(), rt.detach()))
+    (v_c, dq_c, dr_c), (v_g, dq_g, dr_g) = grads["cpu"], grads[str(cuda)]
+    assert v_g == pytest.approx(v_c, rel=1e-6)
+    for got, want in ((dq_g, dq_c), (dr_g, dr_c)):
+        tol = 1e-6 * want.abs().max().item()
+        assert ((got - want).abs() <= tol + 1e-6 * want.abs()).all()
 
 
 def grid_inputs(rng, cuda, m, nq, grid_shape, slot_cap, C=3):

@@ -34,6 +34,7 @@ def tie_inputs(rng, b, n, m):
     (1, 64, 2, 3),      # fewer refs than k: (1e30, 0) slots
     (1, 100, 50, 1),
     (1, 80, 90, 5),
+    (1, 300, 4100, 9),  # uniformity_score's k + 1 (the kernel takes k <= 16)
 ])
 def test_knn_plain_matches_pallas(rng, b, n, m, k):
     q, r = tie_inputs(rng, b, n, m)

@@ -103,10 +103,63 @@ def xla_cpu_distances():
     """Make the port's plain kernels (grid and brute kNN) compute distances
     as the JAX kernels do in interpret mode on the CPU, so that parity with
     them can be held bit for bit."""
-    from pointcloud_style_transfer_torch.ops.kernels import grid, knn
-    saved = grid.pairwise_sq_dist, knn.pairwise_sq_dist
-    grid.pairwise_sq_dist = knn.pairwise_sq_dist = xla_cpu_sq_dist
+    from pointcloud_style_transfer_torch.ops.kernels import grid, knn, rowmin
+    mods = (grid, knn, rowmin)
+    saved = [m.pairwise_sq_dist for m in mods]
+    for m in mods:
+        m.pairwise_sq_dist = xla_cpu_sq_dist
     try:
         yield
     finally:
-        grid.pairwise_sq_dist, knn.pairwise_sq_dist = saved
+        for m, f in zip(mods, saved):
+            m.pairwise_sq_dist = f
+
+
+def pallas_vjp_min_sq_dist(monkeypatch):
+    """The JAX package's Chamfer (training loss and metrics) through the
+    TPU row-min kernel and its custom VJP in interpret mode, as on the TPU;
+    on the CPU it would take the jnp matmul expansion, whose gradient
+    through ``jnp.min`` splits ties."""
+    from pointcloud_style_transfer_tpu.evaluation import metrics
+    from pointcloud_style_transfer_tpu.ops import distance
+    from pointcloud_style_transfer_tpu.ops.pallas.distance_topk import \
+        pallas_min_sq_dist
+
+    def min_sq_dist(query, ref, chunk_size=2048, backend=None):
+        return pallas_min_sq_dist(query, ref, True)
+    monkeypatch.setattr(distance, "min_sq_dist", min_sq_dist)
+    monkeypatch.setattr(metrics, "min_sq_dist", min_sq_dist)
+
+
+def blocked_flax_batchnorm_stats(monkeypatch, blocks=64):
+    """Flax BatchNorm's training statistics, the same formula (mean and the
+    biased fast variance max(0, E[x^2] - E[x]^2) over every axis but the
+    last, in float32) with each sum taken over ``blocks`` row blocks first.
+
+    XLA's CPU reduction of the style encoder's 32,768 rows in one pass
+    carries ~3e-5 relative error against float64 (measured), ~50x the
+    port's, and it feeds the whole step; blocked sums bring the reference
+    to the port's accuracy. The optimization barrier keeps XLA from fusing
+    the two stages back into one reduction under jit."""
+    from flax.linen import normalization
+
+    def compute_stats(x, axes, dtype, *args, **kwargs):
+        assert sorted(a % x.ndim for a in axes) == list(range(x.ndim - 1))
+        f = x.astype(jnp.float32).reshape(-1, x.shape[-1])
+        n = f.shape[0]
+        g = f.reshape(blocks, n // blocks, -1) if n % blocks == 0 else f[None]
+        s1, s2 = jax.lax.optimization_barrier((g.sum(1), (g * g).sum(1)))
+        mu, mu2 = s1.sum(0) / n, s2.sum(0) / n
+        return mu, jnp.maximum(0.0, mu2 - mu * mu)
+    monkeypatch.setattr(normalization, "_compute_stats", compute_stats)
+
+
+def port_schedule(jax_schedule):
+    """The JAX schedule's float32 tables as a port schedule, so that both
+    packages noise with the same numbers."""
+    from pointcloud_style_transfer_torch.models.diffusion import \
+        DiffusionSchedule
+    names = ("betas", "alphas", "alphas_cumprod", "alphas_cumprod_prev",
+             "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod")
+    return DiffusionSchedule(**{n: torch.from_numpy(np.array(
+        getattr(jax_schedule, n))) for n in names})
