@@ -18,11 +18,18 @@ Phases, each printing one line per result:
    values within rtol 1e-6, atol 1e-6 * max|v|; the grid's interpolation
    after its fallback against the brute-force interpolation, and
    ``knn(backend="grid")`` (its own path, launch counts read around it)
-   against the brute-force kNN; kernel, plain, library and bound times.
+   against the brute-force kNN; the packed-key kNN kernels (raw keys,
+   decoded indices and recomputed distances identical to the plain
+   versions at 90,000 x 30,000 and on a 2,500-row patch, every departure
+   from the exact kernel a near-tie) and the pruned kNN (both passes
+   identical to the plain version, the result's distances identical to the
+   brute-force kernel's, the tile pairs skipped and evaluated);
+   ``grid_knn(exact=False)``; kernel, plain, library and bound times.
 3. reference — clouds through the sampler on the card (kernels) and on the
    CPU (plain versions) with the same draws, float32, Chamfer-L2 <= 1e-3
    between the two: 4,096 points with the brute-force kNN, and 24,576 points
-   with ``knn_backend="auto"``, where 6,144 coarse points engage the grid.
+   with ``knn_backend="auto"``, where 6,144 coarse points engage the grid;
+   the coarse displacement sampler (``--fast``) at 4,096 points.
 4. main path — a seeded full-width checkpoint (``Config()`` defaults, bf16,
    ``knn_backend="auto"``: the kd-grid), 120,000-point source and condition
    clouds, 50 steps at guidance 7.5 through the inference CLI's ``main``:
@@ -30,7 +37,12 @@ Phases, each printing one line per result:
    brute-force patch for each step with unsafe rows, 2 FPS, 2 ball query
    per cloud), the per-step unsafe counts, seconds per cloud for the grid
    and for the brute-force kNN (``knn_backend="pallas"``), and a profiler
-   breakdown of one grid cloud.
+   breakdown of one grid cloud. Then the other serving paths at the same
+   width, each with its launch counts asserted and its seconds per cloud:
+   ``knn_backend="pallas_f32packed"`` and
+   ``"pallas_pruned"``, ``--fast`` (one ``grid_topk``, at most one brute
+   patch), ``--source_dir`` with 3 clouds at ``--batch_size 2``, and
+   ``ddim_sample_loop`` for 5 steps.
 5. train — ``Config()`` defaults, nothing cut: four synthetic 120,000-point
    scene pairs through ``cli.preprocess`` (3 train, 1 val), then 2 epochs of
    ``cli.train`` (6 mini-steps, 2 optimizer steps, 2 validations, 2
@@ -76,18 +88,20 @@ from pointcloud_style_transfer_torch.data import (create_dataloaders,
                                                   normalize_point_cloud)
 from pointcloud_style_transfer_torch.data.synthetic import lidar_scene_pair
 from pointcloud_style_transfer_torch.evaluation import metrics
-from pointcloud_style_transfer_torch.models import (DiffusionNet,
-                                                    PointCloudDiffusionModel,
-                                                    guided_sample_loop,
-                                                    make_schedule)
-from pointcloud_style_transfer_torch.ops import (chamfer_distance, grid_knn,
-                                                 index_points, knn,
-                                                 min_sq_dist)
+from pointcloud_style_transfer_torch.models import (
+    DiffusionNet, PointCloudDiffusionModel, ddim_sample_loop,
+    guided_sample_loop, guided_sample_loop_coarse, make_schedule)
+from pointcloud_style_transfer_torch.ops import (brute_knn, chamfer_distance,
+                                                 grid_knn, index_points, knn,
+                                                 min_sq_dist, pruned_knn)
 from pointcloud_style_transfer_torch.ops.kernels import (
     LAUNCH_COUNTS, ball_query_cuda, ball_query_plain, build_all, fps_cuda,
     fps_plain, grid_interp_cuda, grid_interp_plain, grid_topk_cuda,
-    grid_topk_plain, knn_topk_cuda, knn_topk_plain, reset_launch_counts,
+    grid_topk_plain, knn_f32packed_keys_cuda, knn_f32packed_keys_plain,
+    knn_intpacked_keys_cuda, knn_intpacked_keys_plain, knn_pruned_pass_cuda,
+    knn_pruned_pass_plain, knn_topk_cuda, knn_topk_plain, reset_launch_counts,
     rowmin_cuda, rowmin_plain)
+from pointcloud_style_transfer_torch.ops.kernels import knn_packed
 from pointcloud_style_transfer_torch.ops.kernels._common import (
     BUILD_ROOT, library_path, pairwise_sq_dist)
 from pointcloud_style_transfer_torch.ops.kernels.ball_query import \
@@ -105,6 +119,11 @@ N_POINTS, M_POINTS = 120_000, 30_000
 STEPS, GUIDANCE = 50, 7.5
 # the grid's defaults, which the sampler uses
 GRID_SHAPE, GRID_TQ, SLOT_CAP = (16, 12, 8), 128, 384
+
+
+def expect_counts(**launched: int) -> dict:
+    """Every kernel's launch count, 0 where not named."""
+    return {name: 0 for name in LAUNCH_COUNTS} | launched
 
 
 def fail(msg: str) -> None:
@@ -293,6 +312,10 @@ def phase_kernels(rng: np.random.Generator, dev: torch.device) -> dict:
     phase_min_sq_dist(rng, dev)
     phase_knn_large_k(query[:, :M_POINTS].contiguous(), ref)
     records.update(phase_grid_kernels(rng, query, ref))
+    records.update(phase_packed_kernels(query, ref, records["knn_topk"]))
+    records["knn_pruned"] = phase_pruned_kernel(query, ref,
+                                                records["knn_topk"])
+    phase_grid_inexact(query, ref)
     return records
 
 
@@ -526,6 +549,205 @@ def phase_grid_kernels(rng: np.random.Generator, query: torch.Tensor,
           f" ids differ, each an exactly equidistant ref")
     return records
 
+PACKED = {
+    # LAUNCH_COUNTS key: (kernel, plain, TPU wrapper's ref tile, key
+    # resolution, line of the TPU kernel)
+    "knn_f32packed": (knn_f32packed_keys_cuda, knn_f32packed_keys_plain, 4096,
+                      2.0 ** -8, 476),
+    "knn_packed": (knn_intpacked_keys_cuda, knn_intpacked_keys_plain, 2048,
+                   2.0 ** -7, 103),
+}
+
+
+def phase_packed_kernels(query: torch.Tensor, ref: torch.Tensor,
+                         exact_record: dict) -> dict:
+    """The packed-key kNN kernels at the sampler's 90,000 x 30,000, k = 3
+    (the clouds carry 1% exact duplicates and 500 queries on refs) and on a
+    2,500-row patch, the grid fallback's size: raw keys identical to the
+    plain version, hence the decoded indices and recomputed distances;
+    every departure from the exact kernel a near-tie within the key's
+    resolution."""
+    records = {}
+    nq, m = query.shape[1], ref.shape[1]
+    d_e, i_e = knn_topk_cuda(query, ref, 3)
+    patch = query[:, :2500].contiguous()
+    for name, (kernel, plain, tr, res, line) in PACKED.items():
+        m_total = knn_packed.padded_refs(m, tr)
+        idx_bits = 15 if name == "knn_f32packed" \
+            else knn_packed.packed_idx_bits(m_total)
+        for q in (query, patch):
+            keys = kernel(q, ref, 3, m_total)
+            keys_p = plain(q, ref, 3, m_total)
+            torch.cuda.synchronize()
+            check_equal(f"{name} {q.shape[1]}x{m}", keys.view(torch.int32),
+                        keys_p.view(torch.int32), "raw keys")
+            d, i = knn_packed.decode_keys(q, ref, keys.view(torch.int32),
+                                          idx_bits)
+            d_p, i_p = knn_packed.decode_keys(q, ref, keys_p.view(torch.int32),
+                                              idx_bits)
+            check_equal(f"{name} {q.shape[1]}x{m}", i, i_p)
+            check_equal(f"{name} {q.shape[1]}x{m}", d.view(torch.int32),
+                        d_p.view(torch.int32), "recomputed distances")
+        keys = kernel(query, ref, 3, m_total)
+        d, i = knn_packed.decode_keys(query, ref, keys.view(torch.int32),
+                                      idx_bits)
+        # the t-th packed distance lies in the t-th exact one's key bucket
+        if not ((d >= d_e) & (d <= d_e * (1 + res) + 1e-37)).all():
+            fail(f"{name}: a selected neighbour is farther than the key's "
+                 f"resolution {res} allows")
+        differ = (torch.sort(i, dim=2).values
+                  != torch.sort(i_e, dim=2).values).any(dim=2)
+        farther = (d != d_e).any(dim=2)
+        ms = cuda_ms(lambda: kernel(query, ref, 3, m_total), reps=20)
+        patch_ms = cuda_ms(lambda: kernel(patch, ref, 3, m_total), reps=20)
+        decode_ms = cuda_ms(lambda: knn_packed.decode_keys(
+            query, ref, keys.view(torch.int32), idx_bits), reps=10)
+        plain_ms = cuda_ms(lambda: plain(query, ref, 3, m_total), reps=2)
+        b_ms, b_by = bound_ms((nq + m) * 12 + nq * 3 * 4, 8.0 * nq * m)
+        records[name] = dict(
+            name=name, route="cuda",
+            source="pointcloud_style_transfer_torch/csrc/knn_packed.cu",
+            replaces="pointcloud_style_transfer_tpu/ops/pallas/"
+                     f"distance_topk.py:{line}",
+            shape=f"{nq}x{m} k=3", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=exact_record["library_ms"])
+        print(f"[kernels] {name} {nq}x{m} k=3 (padded to {m_total}): raw "
+              f"keys, indices and recomputed distances identical at {nq} and "
+              f"2500 rows; neighbour set differs from knn_topk's on "
+              f"{int(differ.sum())} rows ({100 * differ.float().mean():.3f}%), "
+              f"{int(farther.sum())} of them with a farther set, each within "
+              f"{res} relative; kernel {ms:.4f} ms (knn_topk "
+              f"{exact_record['ms']:.4f} ms), 2500-row patch {patch_ms:.4f} ms,"
+              f" decode + recompute + sort {decode_ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, library (cdist+topk) "
+              f"{exact_record['library_ms']:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})")
+
+    # row 8's entry point, its own path: counts read around it
+    reset_launch_counts()
+    d, i = brute_knn(query, ref, 3, exact=False)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCH_COUNTS)
+    if counts != expect_counts(knn_packed=1):
+        fail(f"brute_knn(exact=False) launches {counts}")
+    records["knn_packed"]["launches"] = counts["knn_packed"]
+    records["knn_packed"]["path"] = "brute_knn(exact=False)"
+    print(f"[kernels] brute_knn(exact=False) {nq}x{m}: launches {counts}")
+    return records
+
+
+def phase_pruned_kernel(query: torch.Tensor, ref: torch.Tensor,
+                        exact_record: dict) -> dict:
+    """The pruned kNN at 90,000 x 30,000, k = 3, default tiles: both passes
+    of the kernel against the plain version, then the whole call against the
+    brute-force kernel."""
+    k, tq, tr = 3, 512, 2048
+    nq_pts, m = query.shape[1], ref.shape[1]
+    q, r = query[0], ref[0]
+    qs, rs, _, _ = pruned_knn.sort_and_pad(q, r, tq, tr)
+    nq, nr = qs.shape[0] // tq, rs.shape[0] // tr
+    in_window = pruned_knn.window_mask(nq, nr, 2, q.device)
+    skip1 = (~in_window).int().contiguous()
+    d0 = qs.new_full((qs.shape[0], k), 1e30)
+    i0 = torch.zeros((qs.shape[0], k), dtype=torch.int32, device=q.device)
+    d1, i1 = knn_pruned_pass_cuda(qs, rs, skip1, d0, i0, k, tq, tr)
+    d1_p, i1_p = knn_pruned_pass_plain(qs, rs, skip1, d0, i0, k, tq, tr)
+    skip2 = (pruned_knn.prune_mask(qs, rs, d1, k, tq, tr)
+             | in_window).int().contiguous()
+    d2, i2 = knn_pruned_pass_cuda(qs, rs, skip2, d1, i1, k, tq, tr)
+    d2_p, i2_p = knn_pruned_pass_plain(qs, rs, skip2, d1, i1, k, tq, tr)
+    torch.cuda.synchronize()
+    for what, got, want in (("pass 1 distances", d1, d1_p),
+                            ("pass 1 positions", i1, i1_p),
+                            ("pass 2 distances", d2, d2_p),
+                            ("pass 2 positions", i2, i2_p)):
+        check_equal("knn_pruned", got, want, what)
+
+    reset_launch_counts()
+    d, i = knn(query, ref, k, backend="pallas_pruned")
+    torch.cuda.synchronize()
+    counts = dict(LAUNCH_COUNTS)
+    if counts != expect_counts(knn_pruned=2):
+        fail(f"knn(backend='pallas_pruned') launches {counts}")
+    d_e, i_e = knn_topk_cuda(query, ref, k)
+    check_equal("knn(backend='pallas_pruned') vs knn_topk", d, d_e,
+                "distances")
+    d4, _ = knn_topk_cuda(query, ref, k + 1)
+    distinct = (d4[..., 1:] != d4[..., :-1]).all(-1)
+    check_equal("knn(backend='pallas_pruned') vs knn_topk, distinct rows",
+                i[distinct], i_e[distinct])
+
+    tiles1, tiles2 = int((skip1 == 0).sum()), int((skip2 == 0).sum())
+    pruned = int(((skip2 != 0) & ~in_window).sum())
+    # the pairs this data needs: real queries x real refs of every tile pair
+    # a pass visits (the kernel also scans the tiles' padding)
+    real_q = (nq_pts - torch.arange(nq, device=q.device) * tq).clamp(0, tq)
+    real_r = (m - torch.arange(nr, device=q.device) * tr).clamp(0, tr)
+    visits = (skip1 == 0).long() + (skip2 == 0).long()
+    pairs = int((visits * real_q[:, None] * real_r[None, :]).sum())
+    ms1 = cuda_ms(lambda: knn_pruned_pass_cuda(qs, rs, skip1, d0, i0, k, tq,
+                                               tr), reps=20)
+    ms2 = cuda_ms(lambda: knn_pruned_pass_cuda(qs, rs, skip2, d1, i1, k, tq,
+                                               tr), reps=20)
+    call_ms = cuda_ms(lambda: knn(query, ref, k, backend="pallas_pruned"),
+                      reps=10)
+    plain_ms = cuda_ms(lambda: (
+        knn_pruned_pass_plain(qs, rs, skip1, d0, i0, k, tq, tr),
+        knn_pruned_pass_plain(qs, rs, skip2, d1, i1, k, tq, tr)), reps=1)
+    # per launch: queries, refs, skip, state in; state out
+    launch_bytes = (qs.numel() + rs.numel() + skip1.numel()) * 4 \
+        + 4 * d0.numel() * 4
+    b_ms, b_by = bound_ms(2 * launch_bytes, 8.0 * pairs)
+    print(f"[kernels] knn_pruned {nq_pts}x{m} k={k}, tiles {tq}x{tr} "
+          f"({nq}x{nr} tile pairs): both passes identical to the plain "
+          f"version; result distances identical to knn_topk's, ids identical "
+          f"on the {int(distinct.sum())} rows whose {k + 1} nearest distances "
+          f"are distinct ({int((i != i_e).any(-1).sum())} rows differ in all)"
+          f"; pass 1 visits {tiles1} tile pairs, pass 2 {tiles2} and skips "
+          f"{pruned} of the other {nq * nr - tiles1} "
+          f"({100 * pruned / (nq * nr - tiles1):.1f}%); {pairs} pairs "
+          f"evaluated ({100 * pairs / (nq_pts * m):.1f}% of brute force's); "
+          f"launches {ms1:.4f} + {ms2:.4f} ms, whole call (sorts, boxes, "
+          f"masks, two launches, un-sort) {call_ms:.4f} ms (knn_topk "
+          f"{exact_record['ms']:.4f} ms), plain passes {plain_ms:.3f} ms, "
+          f"library (cdist+topk) {exact_record['library_ms']:.3f} ms, bound "
+          f"for both launches {b_ms:.4f} ms ({b_by})")
+    return dict(
+        name="knn_pruned", route="cuda",
+        source="pointcloud_style_transfer_torch/csrc/knn_pruned.cu",
+        replaces="pointcloud_style_transfer_tpu/ops/pallas/pruned_knn.py:66",
+        shape=f"{nq_pts}x{m} k={k}; ms, plain_ms and bound_ms are the mean "
+              "of one call's two launches, library_ms is the whole call's",
+        max_abs_err=0.0, ms=(ms1 + ms2) / 2, plain_ms=plain_ms / 2,
+        bound_ms=b_ms / 2, bound_by=b_by,
+        library_ms=exact_record["library_ms"])
+
+
+def phase_grid_inexact(query: torch.Tensor, ref: torch.Tensor) -> None:
+    """``grid_knn(exact=False)``: the grid pass, then the f32-packed kernel
+    (never the exact one) on the rows it could not prove exact."""
+    nq, m = query.shape[1], ref.shape[1]
+    reset_launch_counts()
+    grid_knn.UNSAFE_COUNTS.clear()
+    d, i = grid_knn.grid_knn(query, ref, 3, exact=False)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCH_COUNTS)
+    n_unsafe = grid_knn.UNSAFE_COUNTS[-1]
+    if counts != expect_counts(grid_topk=1, knn_f32packed=int(n_unsafe > 0)):
+        fail(f"grid_knn(exact=False) launches {counts} with {n_unsafe} "
+             "unsafe rows")
+    d_e, i_e = grid_knn.grid_knn(query, ref, 3)
+    if not ((d >= d_e) & (d <= d_e * (1 + 2.0 ** -8) + 1e-37)).all():
+        fail("grid_knn(exact=False) departs from exact=True beyond the "
+             "f32-packed key's resolution")
+    print(f"[kernels] grid_knn(exact=False) {nq}x{m} k=3: launches {counts}, "
+          f"{n_unsafe} unsafe rows through knn_f32packed; vs exact=True "
+          f"{int((d != d_e).any(-1).sum())} rows with a farther set (each "
+          f"within 2^-8 relative), {int((i != i_e).any(-1).sum())} rows with "
+          "other ids")
+
+
 def grid_breakdown(q: torch.Tensor, r: torch.Tensor,
                    vals: torch.Tensor) -> None:
     """Where one grid interpolation call's time goes: each phase run on its
@@ -590,10 +812,16 @@ def phase_reference(rng: np.random.Generator, dev: torch.device) -> None:
     points are the fewest that engage the default grid)."""
     for n, m, backend in ((4096, 1024, "pallas"), (24576, 6144, "auto")):
         reference_run(rng, dev, n, m, backend)
+    # a generator of its own: the phases that follow keep their clouds
+    # whatever this run draws
+    reference_run(np.random.default_rng(1), dev, 4096, 1024, "pallas",
+                  fast=True)
 
 
 def reference_run(rng: np.random.Generator, dev: torch.device, n: int,
-                  m: int, backend: str) -> None:
+                  m: int, backend: str, fast: bool = False) -> None:
+    """``fast``: the coarse displacement sampler instead of the per-step
+    one."""
     cfg = Config(total_points=n, global_points=m, use_amp=False,
                  knn_backend=backend)
     torch.manual_seed(1)
@@ -602,30 +830,42 @@ def reference_run(rng: np.random.Generator, dev: torch.device, n: int,
     net_gpu.load_state_dict(net_cpu.state_dict())
     src = torch.from_numpy(normalize_point_cloud(make_cloud(rng, n))[0])[None]
     cond = torch.from_numpy(normalize_point_cloud(make_cloud(rng, n))[0])[None]
+    # x_init first: the draws' order fixes the clouds of every later phase
+    x_init = torch.from_numpy(
+        rng.standard_normal((1, m if fast else n, 3), np.float32))
     draws = dict(
-        x_init=torch.from_numpy(rng.standard_normal((1, n, 3), np.float32)),
+        x_init=x_init,
         cond_priority=torch.from_numpy(rng.random((1, n), np.float32)),
-        step_priorities=torch.from_numpy(rng.random((STEPS, 1, n), np.float32)),
         fps_starts=torch.zeros((2, 1), dtype=torch.int64))
+    if fast:
+        sampler, what = guided_sample_loop_coarse, "coarse sampler, "
+        draws["src_priority"] = torch.from_numpy(
+            rng.random((1, n), np.float32))
+        want = {"knn_topk": 1, "grid_interp": 0}
+    else:
+        sampler, what = guided_sample_loop, ""
+        draws["step_priorities"] = torch.from_numpy(
+            rng.random((STEPS, 1, n), np.float32))
+        want = ({"grid_interp": STEPS} if backend == "auto"
+                else {"grid_interp": 0, "knn_topk": STEPS})
     outs = []
     for device, net in (("cpu", net_cpu), (dev, net_gpu)):
         model = PointCloudDiffusionModel(cfg, device, net=net)
         reset_launch_counts()
-        outs.append(guided_sample_loop(
+        outs.append(sampler(
             model, make_schedule(cfg), src, cond, num_inference_steps=STEPS,
             guidance_scale=GUIDANCE,
             **{k: v.to(model.device) for k, v in draws.items()}).cpu())
     counts = dict(LAUNCH_COUNTS)  # the card's run
-    want = ({"grid_interp": STEPS} if backend == "auto"
-            else {"grid_interp": 0, "knn_topk": STEPS})
     if any(counts[k] != v for k, v in want.items()):
         fail(f"reference ({backend}): launches {counts}, expected {want}")
     cd = chamfer_l2(outs[0][0], outs[1][0])
     max_abs = (outs[0] - outs[1]).abs().max().item()
     if not torch.isfinite(outs[1]).all() or cd > 1e-3:
-        fail(f"reference ({backend}): card vs CPU Chamfer-L2 {cd:.3g} "
+        fail(f"reference ({what}{backend}): card vs CPU Chamfer-L2 {cd:.3g} "
              "(> 1e-3) or non-finite output")
-    print(f"[reference] {n} points / {m} coarse, knn_backend={backend!r}, "
+    print(f"[reference] {what}{n} points / {m} coarse, "
+          f"knn_backend={backend!r}, "
           f"{STEPS} steps, float32: card (kernels, launches {counts}) vs CPU "
           f"(plain) Chamfer-L2 {cd:.3g}, max |d| {max_abs:.3g}")
 
@@ -668,8 +908,8 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
                  f"{bool(np.isfinite(out).all())}")
         patched = sum(u > 0 for u in unsafe)
         last_tier = grid_knn._fallback_caps(4096, N_POINTS - M_POINTS)[-1]
-        expected = {"knn_topk": patched, "fps": 2, "ball_query": 2,
-                    "grid_interp": STEPS, "grid_topk": 0, "rowmin": 0}
+        expected = expect_counts(knn_topk=patched, fps=2, ball_query=2,
+                                 grid_interp=STEPS)
         if len(unsafe) != STEPS or counts != expected:
             fail(f"launch counts {counts} != {expected} ({len(unsafe)} grid "
                  "passes recorded)")
@@ -685,12 +925,12 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
               f"{sum(u > last_tier for u in unsafe)} of them all-brute "
               f"(> {last_tier} rows); per step: {unsafe}")
 
-        brute_ckpt = save_checkpoint(os.path.join(tmp, "brute.pt"),
-                                     cfg.replace(knn_backend="pallas"),
-                                     params, stats)
-        brute = DiffusionInference(brute_ckpt, seed=1, device=dev)
-        brute.transfer_style_hierarchical(src, ref, STEPS, GUIDANCE)
-        for name, eng in (("grid (auto)", engine), ("brute (pallas)", brute)):
+        # the other serving paths at the same width: each driven once with
+        # the counts set to 0 just before and read just after (that run is
+        # also its warm-up), then timed. The grid and the brute path are
+        # timed first, with no other engine on the card yet, so that their
+        # seconds per cloud compare with earlier readings of this script.
+        def time_engine(name: str, eng: DiffusionInference) -> None:
             times = []
             for _ in range(3):
                 t0 = time.perf_counter()
@@ -702,35 +942,148 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
                   f"{', '.join(f'{t:.4f}' for t in times)}), "
                   f"{N_POINTS / best:.0f} points/s ({card})")
 
-        torch.cuda.reset_peak_memory_stats()
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.transfer_style_hierarchical(src, ref, STEPS, GUIDANCE)
+        for name, backend, fast, want in (
+                ("brute (pallas)", "pallas", False,
+                 expect_counts(knn_topk=STEPS, fps=2, ball_query=2)),
+                ("f32-packed (pallas_f32packed)", "pallas_f32packed", False,
+                 expect_counts(knn_f32packed=STEPS, fps=2, ball_query=2)),
+                ("pruned (pallas_pruned)", "pallas_pruned", False,
+                 expect_counts(knn_pruned=2 * STEPS, fps=2, ball_query=2)),
+                ("fast (--fast, auto)", "auto", True, None)):
+            path = save_checkpoint(os.path.join(tmp, f"{backend}.pt"),
+                                   cfg.replace(knn_backend=backend), params,
+                                   stats)
+            eng = DiffusionInference(path, seed=1, device=dev, fast=fast)
+            reset_launch_counts()
+            grid_knn.UNSAFE_COUNTS.clear()
+            out = eng.transfer_style_hierarchical(src, ref, STEPS, GUIDANCE)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # device-side events only: a CPU op's self device time repeats the
-        # time of the kernels it launched
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        rows.sort(key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows)
-        print(f"[profile] one cloud: wall {wall * 1e3:.1f} ms (profiled), "
-              f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), "
-              f"{sum(r[2] for r in rows)} kernel launches, peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        for key, ms, cnt in rows[:20]:
-            print(f"[profile]   {ms:9.3f} ms  x{cnt:<5d} {key[:100]}")
+            got = dict(LAUNCH_COUNTS)
+            if fast:  # one upsample: the grid pass and at most one patch
+                unsafe = list(grid_knn.UNSAFE_COUNTS)
+                want = expect_counts(grid_topk=1, fps=2, ball_query=2,
+                                     knn_topk=int(unsafe[0] > 0))
+                if len(unsafe) != 1:
+                    fail(f"--fast ran {len(unsafe)} grid passes")
+                print(f"[main] --fast: one upsample of {N_POINTS} points "
+                      f"from {M_POINTS}, {unsafe[0]} unsafe rows")
+            if got != want or out.shape != (N_POINTS, 3) \
+                    or not np.isfinite(out).all():
+                fail(f"{name}: launches {got} != {want}, or output "
+                     f"{out.shape} not finite")
+            print(f"[main] {name}: output {out.shape} finite; launches {got}")
+            counts[name] = got
+            if backend == "pallas":
+                time_engine("grid (auto)", engine)
+            time_engine(name, eng)
+        fast_engine = eng
+        counts["knn_f32packed"] = counts["f32-packed (pallas_f32packed)"][
+            "knn_f32packed"]
+        counts["knn_pruned"] = counts["pruned (pallas_pruned)"]["knn_pruned"]
+        counts["grid_topk"] = counts["fast (--fast, auto)"]["grid_topk"]
+
+        for what, eng, top in (("one cloud", engine, 20),
+                               ("one --fast cloud", fast_engine, 12)):
+            profile_cloud(what, eng, src, ref, top)
+        phase_batch_and_ddim(np.random.default_rng(2), engine, ckpt, tmp, src,
+                             ref_path, card)
     return counts
+
+
+def profile_cloud(what: str, engine: DiffusionInference, src: np.ndarray,
+                  ref: np.ndarray, top: int) -> None:
+    """One cloud through ``engine`` under the profiler: wall, device busy
+    share, launches, and the kernels that take most device time."""
+    torch.cuda.reset_peak_memory_stats()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.transfer_style_hierarchical(src, ref, STEPS, GUIDANCE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only: a CPU op's self device time repeats the
+    # time of the kernels it launched
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(f"[profile] {what}: wall {wall * 1e3:.1f} ms (profiled), "
+          f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), "
+          f"{sum(r[2] for r in rows)} kernel launches, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for key, ms, cnt in rows[:top]:
+        print(f"[profile]   {ms:9.3f} ms  x{cnt:<5d} {key[:100]}")
+
+
+def phase_batch_and_ddim(rng: np.random.Generator, engine: DiffusionInference,
+                         ckpt: str, tmp: str, src: np.ndarray, ref_path: str,
+                         card: str) -> None:
+    """``--source_dir`` with 3 clouds at ``--batch_size 2`` (a ragged tail)
+    through the CLI, and ``ddim_sample_loop`` for 5 steps, both at
+    ``Config()`` width on the grid."""
+    src_dir, out_dir = os.path.join(tmp, "srcs"), os.path.join(tmp, "outs")
+    os.makedirs(src_dir)
+    for i in range(3):
+        np.save(os.path.join(src_dir, f"cloud_{i}.npy"),
+                src if i == 0 else make_cloud(rng, N_POINTS, dup_frac=0.0))
+    reset_launch_counts()
+    grid_knn.UNSAFE_COUNTS.clear()
+    t0 = time.perf_counter()
+    rc = cli_main(["--checkpoint", ckpt, "--source_dir", src_dir,
+                   "--reference", ref_path, "--output_dir", out_dir,
+                   "--batch_size", "2", "--num_steps", str(STEPS),
+                   "--guidance_scale", str(GUIDANCE), "--device", "cuda"])
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    got = dict(LAUNCH_COUNTS)
+    unsafe = list(grid_knn.UNSAFE_COUNTS)
+    # two batches of two clouds (the tail padded with its last pair): the
+    # encoder's kernels take the batch at once, the grid runs cloud by cloud
+    want = expect_counts(grid_interp=4 * STEPS, fps=4, ball_query=4,
+                         knn_topk=sum(u > 0 for u in unsafe))
+    names = sorted(os.listdir(out_dir)) if rc == 0 else []
+    outs = [np.load(os.path.join(out_dir, f)) for f in names]
+    if rc != 0 or got != want or len(unsafe) != 4 * STEPS or names != [
+            f"cloud_{i}_transferred.npy" for i in range(3)] or not all(
+            o.shape == (N_POINTS, 3) and np.isfinite(o).all() for o in outs):
+        fail(f"--source_dir: rc {rc}, outputs {names}, launches {got} != "
+             f"{want}")
+    print(f"[main] --source_dir, 3 clouds at --batch_size 2: 3 outputs of "
+          f"{outs[0].shape}, finite; launches {got}; {batch_s:.3f} s incl. "
+          f"checkpoint load and file IO, {batch_s / 3:.4f} s per output cloud "
+          f"({card})")
+
+    cfg = engine.config
+    cond = torch.from_numpy(normalize_point_cloud(np.load(ref_path))[0])[None]
+    shape_like = torch.zeros((1, N_POINTS, 3))
+    gen = torch.Generator(device=engine.device).manual_seed(3)
+    times = []
+    for _ in range(2):  # warm-up, then the counted and timed run
+        reset_launch_counts()
+        grid_knn.UNSAFE_COUNTS.clear()
+        t0 = time.perf_counter()
+        out = ddim_sample_loop(engine.model, make_schedule(cfg), shape_like,
+                               cond, num_inference_steps=5, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    got = dict(LAUNCH_COUNTS)
+    want = expect_counts(grid_interp=5, fps=10, ball_query=10, knn_topk=sum(
+        u > 0 for u in grid_knn.UNSAFE_COUNTS))
+    if got != want or tuple(out.shape) != (1, N_POINTS, 3) \
+            or not torch.isfinite(out).all():
+        fail(f"ddim_sample_loop: launches {got} != {want}, output "
+             f"{tuple(out.shape)}")
+    print(f"[main] ddim_sample_loop, 5 steps at {N_POINTS} points: output "
+          f"{tuple(out.shape)} finite; launches {got}; {times[1]:.4f} s "
+          f"(first run {times[0]:.4f} s) ({card})")
 
 
 # each training mini-step's launches (the Chamfer's two k=1 kNN, the
 # style encoder's FPS and ball query)
-TRAIN_STEP_LAUNCHES = {"knn_topk": 2, "fps": 2, "ball_query": 2,
-                       "grid_interp": 0, "grid_topk": 0, "rowmin": 0}
+TRAIN_STEP_LAUNCHES = expect_counts(knn_topk=2, fps=2, ball_query=2)
 
 
 def flat(tensors: dict) -> torch.Tensor:
@@ -983,8 +1336,8 @@ def phase_eval(dev: torch.device, card: str, work: str,
     infer_s = time.perf_counter() - t0
     counts = dict(LAUNCH_COUNTS)
     patched = sum(u > 0 for u in grid_knn.UNSAFE_COUNTS)
-    want = {"knn_topk": patched, "fps": 2, "ball_query": 2,
-            "grid_interp": STEPS, "grid_topk": 0, "rowmin": 0}
+    want = expect_counts(knn_topk=patched, fps=2, ball_query=2,
+                         grid_interp=STEPS)
     out = np.load(out_path) if rc == 0 else None
     if rc != 0 or counts != want or out.shape != (N_POINTS, 3) or \
             not np.isfinite(out).all():
@@ -1003,7 +1356,7 @@ def phase_eval(dev: torch.device, card: str, work: str,
     result = json.loads(buf.getvalue())
     keys = {"precision", "recall", "f1", "chamfer_distance", "threshold",
             "generated_points", "reference_points"}
-    want = {k: 0 for k in counts} | {"rowmin": 4}
+    want = expect_counts(rowmin=4)
     if rc != 0 or set(result) != keys or counts != want or not all(
             np.isfinite(v) for v in result.values()):
         fail(f"compare CLI: rc {rc}, keys {sorted(result)}, launches {counts}")
@@ -1049,6 +1402,8 @@ def main() -> int:
         phase_train_reference(rng, dev)
         records["rowmin"]["launches"] = phase_eval(dev, card, work, paths)
         records["rowmin"]["path"] = "cli.compare"
+    records["grid_topk"].update(launches=counts["grid_topk"],
+                                path="cli.inference --fast")
     for name, rec in records.items():
         rec.setdefault("launches", counts[name])
     print(json.dumps({"kernels": list(records.values())}))

@@ -12,8 +12,11 @@ Two fields read differently on the GPU:
 * ``knn_backend`` — ``"auto"`` and ``"grid"`` select the kd-grid (the
   slot-run kernels with the brute-force kernel as exact fallback), as on the
   TPU; ``"pallas"`` the exact brute-force kNN kernel; ``"jnp"`` its plain
-  version. ``"pallas_f32packed"`` and ``"pallas_pruned"`` are not ported yet
-  and raise.
+  version; ``"pallas_f32packed"`` the f32-packed brute-force kernel (its
+  choice can differ between neighbours within about 2^-8 relative distance;
+  distances recomputed exactly); ``"pallas_pruned"`` the Morton-pruned exact
+  kNN. With ``"auto"`` the sampler also reads the validated
+  ``PCST_SAMPLER_KNN_BACKEND`` environment hook (an experiment switch).
 """
 
 from __future__ import annotations

@@ -4,12 +4,15 @@ from .diffusion import (DiffusionSchedule, ddim_step, ddim_timesteps,
 from .model import PointCloudDiffusionModel, dtype_of
 from .networks import (DiffusionNet, NoisePredictor, PointNet2Encoder,
                        SetAbstraction, StyleEncoder, time_embedding)
-from .samplers import guided_sample_loop, resolve_sampler_knn_backend
+from .samplers import (ddim_sample_loop, guided_sample_loop,
+                       guided_sample_loop_coarse,
+                       resolve_sampler_knn_backend)
 
 __all__ = [
     "DiffusionSchedule", "make_schedule", "make_beta_schedule", "q_sample",
     "geometric_constraint", "ddim_step", "ddim_timesteps",
     "PointCloudDiffusionModel", "dtype_of", "DiffusionNet", "NoisePredictor",
     "PointNet2Encoder", "SetAbstraction", "StyleEncoder", "time_embedding",
-    "guided_sample_loop", "resolve_sampler_knn_backend",
+    "guided_sample_loop", "guided_sample_loop_coarse", "ddim_sample_loop",
+    "resolve_sampler_knn_backend",
 ]

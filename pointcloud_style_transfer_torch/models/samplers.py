@@ -1,8 +1,9 @@
-"""CFG-guided DDIM style transfer (counterpart of
-``pointcloud_style_transfer_tpu/models/samplers.py::guided_sample_loop``).
+"""DDIM samplers (counterpart of
+``pointcloud_style_transfer_tpu/models/samplers.py``).
 
-The style is encoded once from the voxel-downsampled condition cloud; each of
-the ``num_inference_steps`` steps then runs the denoiser on the cond/uncond
+``guided_sample_loop``, the CFG style transfer: the style is encoded once
+from the voxel-downsampled condition cloud; each of the
+``num_inference_steps`` steps then runs the denoiser on the cond/uncond
 batch, combines with the guidance scale, and takes a DDIM step with the
 content anchor and the tanh constraint. When the cloud is larger than
 ``global_points`` (hierarchical branch) the denoiser sees a voxel
@@ -10,16 +11,21 @@ downsample of the current state, the CFG combine runs at coarse resolution,
 and the unselected points get the inverse-distance (k=3) interpolation of the
 coarse noise: with ``knn_backend="auto"`` or ``"grid"`` through the kd-grid
 (``ops/grid_knn.py``, the slot-run interpolation kernel with the brute-force
-kernel as its exact fallback), as on the TPU; with ``"pallas"`` through the
-brute-force kernel alone.
+kernel as its exact fallback), as on the TPU; with ``"pallas"``,
+``"pallas_f32packed"`` or ``"pallas_pruned"`` through that brute-force or
+pruned kNN kernel alone. Its random draws, in the order they are taken from
+``generator`` when not passed in: the condition cloud's voxel priorities, the
+two FPS start indices, the initial noise, then each step's voxel priorities.
 
-Random draws, in the order they are taken from ``generator`` when not passed
-in: the condition cloud's voxel priorities, the two FPS start indices, the
-initial noise, then each step's voxel priorities.
+``guided_sample_loop_coarse``, the fast mode: the whole trajectory runs on a
+voxel downsample of the source and one kNN interpolation upsamples the final
+displacement. ``ddim_sample_loop``: plain DDIM without guidance or anchor,
+the style re-encoded every step through the model's full forward.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -28,28 +34,34 @@ import torch
 from ..config import Config
 from ..ops import (complement_indices, grid_knn, index_points, knn,
                    voxel_downsample, voxel_downsample_partition)
-from ..ops.distance import UNPORTED_KNN_BACKENDS
+from ..ops.interpolate import apply_interpolation, knn_interpolate_weights
 from .diffusion import DiffusionSchedule, ddim_step, ddim_timesteps
 from .model import PointCloudDiffusionModel
 
 
+KNN_BACKENDS = ("grid", "jnp", "pallas", "pallas_f32packed", "pallas_pruned")
+
+
 def resolve_sampler_knn_backend(cfg: Config) -> str:
-    """The upsampling kNN's backend: ``"grid"`` (the kd-grid and its
-    kernels) for ``"auto"`` and ``"grid"``, ``"pallas"`` (the brute-force
-    kernel) for ``"pallas"``, ``"jnp"`` (its plain version) for ``"jnp"`` or
-    ``use_pallas=False``. The JAX backends not ported yet raise
-    ``NotImplementedError``."""
+    """The upsampling kNN's backend, one of ``KNN_BACKENDS``: ``"jnp"`` (the
+    brute-force plain version) when ``use_pallas=False``; else what the
+    config pins; else, for ``"auto"``, the validated
+    ``PCST_SAMPLER_KNN_BACKEND`` environment hook (an experiment switch, read
+    only when the config pins nothing) or ``"grid"``, the kd-grid, as on
+    the TPU."""
     if not cfg.use_pallas:
         return "jnp"
-    if cfg.knn_backend in UNPORTED_KNN_BACKENDS:
-        raise NotImplementedError(
-            f"knn_backend {cfg.knn_backend!r} is not ported yet: "
-            f"{UNPORTED_KNN_BACKENDS[cfg.knn_backend]}")
-    if cfg.knn_backend in ("auto", "grid"):
-        return "grid"
-    if cfg.knn_backend in ("pallas", "jnp"):
+    if cfg.knn_backend != "auto":
+        if cfg.knn_backend not in KNN_BACKENDS:
+            raise ValueError(f"unknown knn_backend: {cfg.knn_backend!r}")
         return cfg.knn_backend
-    raise ValueError(f"unknown knn_backend: {cfg.knn_backend!r}")
+    env = os.environ.get("PCST_SAMPLER_KNN_BACKEND")
+    if env:
+        if env not in KNN_BACKENDS:
+            raise ValueError(f"PCST_SAMPLER_KNN_BACKEND={env!r} is not one "
+                             f"of {KNN_BACKENDS}")
+        return env
+    return "grid"
 
 
 def _upsample_unknown(x: torch.Tensor, idx: torch.Tensor,
@@ -176,8 +188,8 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
     ts, t_prev = _step_schedule(schedule.num_timesteps, num_inference_steps)
 
     for s, (t, tp) in enumerate(zip(ts.tolist(), t_prev.tolist())):
-        t_in = torch.full((2 * B,), t, dtype=torch.int64, device=device)
         if use_hierarchical:
+            t_in = torch.full((2 * B,), t, dtype=torch.int64, device=device)
             x_coarse, x_idx, x_unk, x_unk_xyz = voxel_downsample_partition(
                 x, M, priority=None if step_priorities is None
                 else step_priorities[s], generator=generator)
@@ -192,13 +204,144 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
                                             ref_xyz=x_coarse,
                                             unknown_xyz=x_unk_xyz)
         else:
-            x2 = torch.cat([x, x], dim=0)
-            pred = model.predict_noise(x2, t_in, style_in).float()
-            nc, nu = pred.chunk(2)
-            final_noise = nu + guidance_scale * (nc - nu)
+            final_noise = _guided_step(model, x, t, style_in, guidance_scale)
 
         x = ddim_step(schedule, x, final_noise, t, tp,
                       source_points=source_points,
                       content_anchor=cfg.content_anchor,
+                      target_range=cfg.target_range)
+    return x
+
+
+def _guided_step(model: PointCloudDiffusionModel, x: torch.Tensor, t: int,
+                 style_in: torch.Tensor, guidance_scale: float
+                 ) -> torch.Tensor:
+    """The CFG noise of one step at x's own resolution."""
+    B = x.shape[0]
+    t_in = torch.full((2 * B,), t, dtype=torch.int64, device=x.device)
+    pred = model.predict_noise(torch.cat([x, x], dim=0), t_in, style_in)
+    nc, nu = pred.float().chunk(2)
+    return nu + guidance_scale * (nc - nu)
+
+
+@torch.no_grad()
+def guided_sample_loop_coarse(model: PointCloudDiffusionModel,
+                              schedule: DiffusionSchedule,
+                              source_points: torch.Tensor,
+                              condition_points: torch.Tensor,
+                              num_inference_steps: int = 50,
+                              guidance_scale: float = 7.5,
+                              use_hierarchical: bool = True,
+                              x_init: Optional[torch.Tensor] = None,
+                              cond_priority: Optional[torch.Tensor] = None,
+                              src_priority: Optional[torch.Tensor] = None,
+                              fps_starts: Optional[torch.Tensor] = None,
+                              generator: Optional[torch.Generator] = None
+                              ) -> torch.Tensor:
+    """Fast CFG sampling: the whole DDIM trajectory runs at coarse resolution
+    (a voxel downsample of the source, the content anchor pulling toward it)
+    and the final displacement field is upsampled once: one kNN (k=3) of every
+    source point against the coarse points over the static source geometry,
+    ``source + interpolated displacement``. Without a hierarchy
+    (``use_hierarchical=False`` or N <= global_points) it is the guided loop
+    at full resolution. Returns [B, N, 3] float32.
+
+    Draws that may be passed in, else taken from ``generator`` in this order:
+    ``cond_priority`` [B, Nc], ``fps_starts`` [2, B], ``src_priority`` [B, N]
+    the source's voxel priorities, ``x_init`` [B, Mc, 3] the initial noise at
+    coarse resolution."""
+    cfg = model.config
+    device = model.device
+    schedule = schedule.to(device)
+    source_points = source_points.to(device=device, dtype=torch.float32)
+    condition_points = condition_points.to(device=device, dtype=torch.float32)
+    N = source_points.shape[1]
+    M = cfg.global_points
+
+    cond_ds, _ = voxel_downsample(condition_points, M, priority=cond_priority,
+                                  generator=generator)
+    style = model.encode_style(cond_ds, fps_starts, generator)
+    style_in = torch.cat([style, torch.zeros_like(style)], dim=0)
+
+    knn_backend = resolve_sampler_knn_backend(cfg)
+    if use_hierarchical and N > M:
+        src_coarse, src_idx = voxel_downsample(
+            source_points, M, priority=src_priority, generator=generator)
+    else:
+        src_coarse, src_idx = source_points, None
+
+    if x_init is None:
+        x = torch.randn(src_coarse.shape, generator=generator, device=device,
+                        dtype=torch.float32)
+    else:
+        x = x_init.to(device=device, dtype=torch.float32)
+    ts, t_prev = _step_schedule(schedule.num_timesteps, num_inference_steps)
+    for t, tp in zip(ts.tolist(), t_prev.tolist()):
+        final_noise = _guided_step(model, x, t, style_in, guidance_scale)
+        x = ddim_step(schedule, x, final_noise, t, tp,
+                      source_points=src_coarse,
+                      content_anchor=cfg.content_anchor,
+                      target_range=cfg.target_range)
+    if src_idx is None:
+        return x
+    disp = x - src_coarse
+    nbr, w = knn_interpolate_weights(source_points, src_idx, k=3,
+                                     backend=knn_backend)
+    return source_points + apply_interpolation(disp, nbr, w, src_idx)
+
+
+@torch.no_grad()
+def ddim_sample_loop(model: PointCloudDiffusionModel,
+                     schedule: DiffusionSchedule, shape_like: torch.Tensor,
+                     condition_points: torch.Tensor,
+                     num_inference_steps: int = 50,
+                     use_hierarchical: Optional[bool] = None,
+                     x_init: Optional[torch.Tensor] = None,
+                     cond_priorities: Optional[torch.Tensor] = None,
+                     step_priorities: Optional[torch.Tensor] = None,
+                     fps_starts: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """Plain DDIM sampling (no CFG, no content anchor): every step runs the
+    model's full forward (condition voxel downsample, style encoder, voxel
+    downsample of the state, denoiser) and, when hierarchical, interpolates
+    the unselected points' noise from the coarse prediction.
+    ``shape_like`` supplies the output shape [B, N, 3]. Returns float32.
+
+    Draws that may be passed in: ``x_init`` [B, N, 3], ``cond_priorities``
+    [steps, B, Nc] and ``step_priorities`` [steps, B, N] (each step's voxel
+    priorities of the condition cloud and of the state), ``fps_starts``
+    [2, B] (used at every step). The rest come from ``generator``: the
+    initial noise, then per step the condition priorities, the FPS starts
+    and the state's priorities."""
+    cfg = model.config
+    device = model.device
+    schedule = schedule.to(device)
+    condition_points = condition_points.to(device=device, dtype=torch.float32)
+    B, N, _ = shape_like.shape
+    if use_hierarchical is None:
+        use_hierarchical = N > cfg.global_points
+    if x_init is None:
+        x = torch.randn((B, N, 3), generator=generator, device=device,
+                        dtype=torch.float32)
+    else:
+        x = x_init.to(device=device, dtype=torch.float32)
+    ts, t_prev = _step_schedule(schedule.num_timesteps, num_inference_steps)
+    knn_backend = resolve_sampler_knn_backend(cfg)
+
+    for s, (t, tp) in enumerate(zip(ts.tolist(), t_prev.tolist())):
+        t_in = torch.full((B,), t, dtype=torch.int64, device=device)
+        pred, idx, _ = model.forward(
+            x, t_in, condition_points, cond_drop_prob=0.0,
+            use_hierarchical=use_hierarchical, train=False,
+            cond_priority=None if cond_priorities is None
+            else cond_priorities[s],
+            noisy_priority=None if step_priorities is None
+            else step_priorities[s],
+            fps_starts=fps_starts, generator=generator)
+        pred = pred.float()
+        if idx is not None:
+            pred = _upsample_unknown(x, idx, pred, knn_backend)
+        x = ddim_step(schedule, x, pred, t, tp,
                       target_range=cfg.target_range)
     return x

@@ -16,14 +16,10 @@ from __future__ import annotations
 import torch
 
 from .grid_knn import grid_knn
-from .kernels import knn_topk, knn_topk_plain, rowmin_kernel, rowmin_plain
-
-# Backends of the JAX package that this port does not have yet, with the
-# ROADMAP item that ports each.
-UNPORTED_KNN_BACKENDS = {
-    "pallas_f32packed": "ROADMAP queue 2 item 7 (_topk_f32packed_kernel)",
-    "pallas_pruned": "ROADMAP queue 2 item 9 (_pruned_topk_kernel)",
-}
+from .kernels import (knn_f32packed, knn_intpacked, knn_topk, knn_topk_plain,
+                      rowmin_kernel, rowmin_plain)
+from .kernels.knn_packed import MAX_REFS, padded_refs
+from .pruned_knn import knn_pruned
 
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
@@ -103,27 +99,55 @@ def chamfer_distance_l2(pred: torch.Tensor, target: torch.Tensor,
     return (d_pt.mean(dim=1) + d_tp.mean(dim=1)) / 2.0
 
 
+def brute_knn(query: torch.Tensor, ref: torch.Tensor, k: int,
+              exact: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """The brute-force kNN with the JAX package's ``pallas_knn(query, ref, k,
+    exact=...)`` switch: the exact kernel by default; with ``exact=False`` and
+    at most 2^15 refs the int-packed kernel (``kernels.knn_packed``), whose
+    selection can differ from the exact one between neighbours within about
+    2^-7 relative distance and whose distances are recomputed exactly."""
+    query = query.float().contiguous()
+    ref = ref.float().contiguous()
+    if not exact and ref.shape[1] <= MAX_REFS:
+        return knn_intpacked(query, ref, k)
+    return knn_topk(query, ref, k)
+
+
+def knn_f32packed_or_exact(query: torch.Tensor, ref: torch.Tensor, k: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``pallas_knn_f32packed``: the f32-packed kernel (near-ties within
+    about 2^-8 relative distance may be chosen differently; distances
+    recomputed exactly), or the exact kernel when the refs, padded to the
+    TPU wrapper's 4,096-ref tile, exceed the key's 2^15 index budget."""
+    if padded_refs(ref.shape[1], 4096) > MAX_REFS:
+        return knn_topk(query, ref, k)
+    return knn_f32packed(query, ref, k)
+
+
 def knn(query: torch.Tensor, ref: torch.Tensor, k: int,
         backend: str = "pallas") -> tuple[torch.Tensor, torch.Tensor]:
     """k nearest refs per query: query [B, N, 3], ref [B, M, 3] ->
     (sq_dists [B, N, k] float32, indices [B, N, k] int32), ascending, ties
-    to the lowest ref index.
+    to the lowest ref index unless the backend says otherwise.
 
     ``backend="pallas"`` runs the brute-force kernel on CUDA tensors (its
     plain version on CPU tensors); ``"grid"`` the kd-grid (``grid_knn``:
     the slot-run kernel, the brute-force kernel for the rows it cannot
-    prove exact); ``"jnp"`` the brute plain version everywhere
-    (``Config.use_pallas=False``)."""
-    if backend in UNPORTED_KNN_BACKENDS:
-        raise NotImplementedError(
-            f"knn backend {backend!r} is not ported yet: "
-            f"{UNPORTED_KNN_BACKENDS[backend]}")
+    prove exact); ``"pallas_f32packed"`` the f32-packed brute-force kernel
+    (``knn_f32packed_or_exact``); ``"pallas_pruned"`` the Morton-pruned exact
+    kNN (``pruned_knn.knn_pruned``; ties to the window's refs, then the
+    lowest Morton-sorted position); ``"jnp"`` the brute plain version
+    everywhere (``Config.use_pallas=False``)."""
     query = query.float().contiguous()
     ref = ref.float().contiguous()
     if backend == "pallas":
         return knn_topk(query, ref, k)
     if backend == "grid":
         return grid_knn(query, ref, k)
+    if backend == "pallas_f32packed":
+        return knn_f32packed_or_exact(query, ref, k)
+    if backend == "pallas_pruned":
+        return knn_pruned(query, ref, k)
     if backend == "jnp":
         return knn_topk_plain(query, ref, k)
     raise ValueError(f"unknown knn backend: {backend!r}")

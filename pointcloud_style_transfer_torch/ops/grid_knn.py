@@ -36,7 +36,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .kernels import grid_interp, grid_topk, knn_topk
+from .kernels import grid_interp, grid_topk, knn_f32packed, knn_topk
+from .kernels.knn_packed import MAX_REFS, padded_refs
 
 _FAR = 1e15  # padding coordinate of queries and refs
 _INF = 3e38  # open domain edges of the boundary tables
@@ -392,10 +393,17 @@ def _fallback_caps(fallback_cap: int, Nq: int) -> list[int]:
     return caps or [min(fallback_cap, Nq)]
 
 
-def _brute(query: torch.Tensor, ref: torch.Tensor, k: int):
-    """Exact brute-force kNN of one cloud: [n, 3] x [M, 3] -> ([n, k],
-    [n, k]), ties to the lowest ref index."""
-    d, i = knn_topk(query[None].contiguous(), ref[None].contiguous(), k)
+def _brute(query: torch.Tensor, ref: torch.Tensor, k: int,
+           exact: bool = True):
+    """Brute-force kNN of one cloud: [n, 3] x [M, 3] -> ([n, k], [n, k]).
+    The exact kernel (ties to the lowest ref index), or the f32-packed one
+    when near-tie approximation is allowed (``exact=False``) and the refs,
+    padded to 2,048, fit its 2^15 index budget."""
+    q, r = query[None].contiguous(), ref[None].contiguous()
+    if not exact and padded_refs(ref.shape[0], 2048) <= MAX_REFS:
+        d, i = knn_f32packed(q, r, k, tr=2048)
+    else:
+        d, i = knn_topk(q, r, k)
     return d[0], i[0]
 
 
@@ -517,15 +525,17 @@ def grid_knn_interpolate_layout(query: torch.Tensor, ref: torch.Tensor,
 
 
 def _grid_knn_single(query, ref, k, grid_shape, tq, slot_cap, fallback_cap,
-                     z_halo, xy_halo):
-    """One cloud's grid kNN: ([Nq, k] float32, [Nq, k] int32)."""
+                     z_halo, xy_halo, exact=True):
+    """One cloud's grid kNN: ([Nq, k] float32, [Nq, k] int32). ``exact``
+    only selects the brute-force kernel of the fallback."""
     query, ref = query.float(), ref.float()
     struct = _build_struct(ref, grid_shape, skip_z_sort=_full_z_ok(
         ref.shape[0], grid_shape, slot_cap))
     d_out, i_out, unsafe = _query_pass(struct, query, k, grid_shape, tq,
                                        slot_cap, z_halo, xy_halo)
     return _apply_fallback((d_out, i_out), unsafe, query, query.shape[0],
-                           fallback_cap, lambda rows: _brute(rows, ref, k))
+                           fallback_cap,
+                           lambda rows: _brute(rows, ref, k, exact))
 
 
 def grid_knn(query: torch.Tensor, ref: torch.Tensor, k: int = 3, *,
@@ -534,17 +544,20 @@ def grid_knn(query: torch.Tensor, ref: torch.Tensor, k: int = 3, *,
              xy_halo=1) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact kd-grid kNN: query [B, N, 3], ref [B, M, 3] -> (sq_dists
     [B, N, k] float32, indices [B, N, k] int32), ascending. Clouds of a batch
-    run one after another."""
-    if not exact:
-        raise NotImplementedError(
-            "grid_knn(exact=False) needs the f32-packed brute kernel, not "
-            "ported yet: ROADMAP queue 2 item 7 (_topk_f32packed_kernel)")
+    run one after another. The grid pass is always exact or flagged;
+    ``exact=False`` lets the brute-force fallback (and the brute force that
+    small ref sets take) run the f32-packed kernel, whose choice can differ
+    between near-ties."""
     _check_grid_args(slot_cap, query.shape[1], "grid_knn")
     if not _grid_engages(ref.shape[1], k, grid_shape, slot_cap):
-        return knn_topk(query.float().contiguous(), ref.float().contiguous(),
-                        k)
-    outs = [_grid_knn_single(q, r, k, tuple(grid_shape), tq, slot_cap,
-                             fallback_cap, z_halo, xy_halo)
-            for q, r in zip(query, ref)]
+        if exact:
+            return knn_topk(query.float().contiguous(),
+                            ref.float().contiguous(), k)
+        outs = [_brute(q.float(), r.float(), k, exact)
+                for q, r in zip(query, ref)]
+    else:
+        outs = [_grid_knn_single(q, r, k, tuple(grid_shape), tq, slot_cap,
+                                 fallback_cap, z_halo, xy_halo, exact)
+                for q, r in zip(query, ref)]
     return (torch.stack([o[0] for o in outs]),
             torch.stack([o[1] for o in outs]))

@@ -45,6 +45,15 @@ SIGNATURES = {
         "pcst_grid_topk": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
                            _INT, _INT, _VP],
     },
+    "knn_packed": {
+        "pcst_knn_f32packed": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+                               _VP],
+        "pcst_knn_packed": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
+                            _VP],
+    },
+    "knn_pruned": {"pcst_knn_pruned_pass": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                            _INT, _INT, _INT, _INT, _INT,
+                                            _VP]},
 }
 KERNEL_SOURCES = tuple(SIGNATURES)
 # kernel (its LAUNCH_COUNTS key) -> (source, C entry point)
@@ -55,6 +64,9 @@ KERNELS = {
     "grid_interp": ("grid_fused", "pcst_grid_interp"),
     "grid_topk": ("grid_fused", "pcst_grid_topk"),
     "rowmin": ("rowmin", "pcst_rowmin"),
+    "knn_f32packed": ("knn_packed", "pcst_knn_f32packed"),
+    "knn_packed": ("knn_packed", "pcst_knn_packed"),
+    "knn_pruned": ("knn_pruned", "pcst_knn_pruned_pass"),
 }
 
 LAUNCH_COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}

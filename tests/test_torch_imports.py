@@ -23,7 +23,9 @@ def port_modules():
 
 def test_import_loads_no_jax():
     mods = port_modules()
-    assert "pointcloud_style_transfer_torch.cli.inference" in mods
+    for name in ("cli.inference", "ops.interpolate", "ops.pruned_knn",
+                 "ops.kernels.knn_packed", "ops.kernels.knn_pruned"):
+        assert f"pointcloud_style_transfer_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"

@@ -11,7 +11,9 @@ refs uses atomics, so its sums are taken in another order). The grid
 kernels' distances
 and positions are identical to their plain versions' (on rows with k
 candidates), their interpolated values within rtol 1e-6 and
-atol 1e-6 * max|v|.
+atol 1e-6 * max|v|. The packed kNN kernels' raw keys, decoded indices and
+recomputed distances and the pruned pass kernel's state are identical to
+their plain versions', NaN coordinates included.
 """
 
 import numpy as np
@@ -22,7 +24,11 @@ from pointcloud_style_transfer_torch.ops import grid_knn, knn, min_sq_dist
 from pointcloud_style_transfer_torch.ops.kernels import (
     LAUNCH_COUNTS, ball_query_cuda, ball_query_plain, fps_cuda, fps_plain,
     grid_interp_cuda, grid_interp_plain, grid_topk_cuda, grid_topk_plain,
-    knn_topk, knn_topk_cuda, knn_topk_plain, rowmin_cuda, rowmin_plain)
+    knn_f32packed, knn_f32packed_keys_cuda, knn_f32packed_keys_plain,
+    knn_intpacked, knn_intpacked_keys_cuda, knn_intpacked_keys_plain,
+    knn_pruned_pass_cuda, knn_pruned_pass_plain, knn_topk, knn_topk_cuda,
+    knn_topk_plain, rowmin_cuda, rowmin_plain)
+from pointcloud_style_transfer_torch.ops import pruned_knn
 
 pytestmark = pytest.mark.cuda
 
@@ -234,3 +240,124 @@ def test_grid_wrappers_reject_bad_inputs(cuda):
         grid_interp_cuda(q, refs, vals[:64], st, st, 3)
     with pytest.raises(ValueError):
         grid_interp_cuda(q, refs, vals.t(), st, st, 3)
+
+
+@pytest.mark.parametrize("b,n,m,k,tr", [
+    (1, 5000, 3000, 3, 4096), (2, 1000, 2500, 1, 2048), (1, 700, 5, 8, 2048),
+    (1, 300, 2, 3, 4096), (1, 3000, 5000, 9, 512), (2, 1500, 2048, 16, 2048),
+    (1, 200, 32768, 3, 4096)])
+def test_packed_knn_kernels_match_plain(rng, cuda, b, n, m, k, tr):
+    r = points(rng, b, m)
+    q = points(rng, b, n)
+    q[:, : n // 5] = r[:, rng.choice(m, n // 5)]  # zero distances
+    q[0, -1, 1] = np.nan  # a NaN query keeps the start keys
+    r[0, 0, 2] = np.nan   # a NaN ref is never selected
+    qt, rt = torch.from_numpy(q).to(cuda), torch.from_numpy(r).to(cuda)
+    m_total = -(-m // tr) * tr
+    for name, kernel, plain, whole in (
+            ("knn_f32packed", knn_f32packed_keys_cuda,
+             knn_f32packed_keys_plain, knn_f32packed),
+            ("knn_packed", knn_intpacked_keys_cuda, knn_intpacked_keys_plain,
+             knn_intpacked)):
+        before = LAUNCH_COUNTS[name]
+        keys = kernel(qt, rt, k, m_total)
+        assert LAUNCH_COUNTS[name] == before + 1
+        assert torch.equal(keys.view(torch.int32),
+                           plain(qt, rt, k, m_total).view(torch.int32))
+        d, i = whole(qt, rt, k, tr=tr)
+        d_c, i_c = whole(qt.cpu(), rt.cpu(), k, tr=tr)
+        assert torch.equal(i.cpu(), i_c)
+        nan = torch.isnan(d_c)
+        assert torch.equal(torch.isnan(d).cpu(), nan) and nan[0, -1].all()
+        assert torch.equal(d.cpu()[~nan], d_c[~nan])
+        assert not (i[0, :-1] == 0).any()
+
+
+def test_packed_wrappers_reject_bad_inputs(cuda):
+    x = torch.zeros((1, 10, 3), device=cuda)
+    big = torch.zeros((1, 32769, 3), device=cuda)
+    for kernel in (knn_f32packed_keys_cuda, knn_intpacked_keys_cuda):
+        kernel(x, x, 3, 2048)  # accepted
+        with pytest.raises(ValueError):
+            kernel(x, big, 3, 32769)
+        with pytest.raises(ValueError):
+            kernel(x, x, 17, 2048)
+        with pytest.raises(ValueError):
+            kernel(x, x, 3, 5)  # fewer padded refs than refs
+        with pytest.raises(ValueError):
+            kernel(x.cpu(), x, 3, 2048)
+
+
+@pytest.mark.parametrize("n,m,k,tq,tr", [(5000, 3000, 3, 512, 2048),
+                                         (1000, 900, 9, 128, 256),
+                                         (300, 700, 1, 100, 300),
+                                         (2000, 2000, 16, 512, 2048)])
+def test_pruned_pass_kernel_matches_plain(rng, cuda, n, m, k, tq, tr):
+    """Both passes of the pruned kNN on Morton-sorted clustered clouds with
+    duplicates: running state identical to the plain version's; the whole
+    call identical to the CPU's and its distances to the brute force's."""
+    r = points(rng, 1, m)[0] * 0.05 + rng.integers(-3, 4, (m, 1)) * 5.0
+    q = points(rng, 1, n)[0] * 0.05 + rng.integers(-3, 4, (n, 1)) * 5.0
+    q[: n // 5] = r[rng.choice(m, n // 5)]
+    qt = torch.from_numpy(q.astype(np.float32)).to(cuda)
+    rt = torch.from_numpy(r.astype(np.float32)).to(cuda)
+    qs, rs, _, _ = pruned_knn.sort_and_pad(qt, rt, tq, tr)
+    nq, nr = qs.shape[0] // tq, rs.shape[0] // tr
+    in_window = pruned_knn.window_mask(nq, nr, 2, cuda)
+    d0 = qs.new_full((qs.shape[0], k), 1e30)
+    i0 = torch.zeros((qs.shape[0], k), dtype=torch.int32, device=cuda)
+    skip1 = (~in_window).int().contiguous()
+    before = LAUNCH_COUNTS["knn_pruned"]
+    d1, i1 = knn_pruned_pass_cuda(qs, rs, skip1, d0, i0, k, tq, tr)
+    d1_p, i1_p = knn_pruned_pass_plain(qs, rs, skip1, d0, i0, k, tq, tr)
+    assert torch.equal(d1, d1_p) and torch.equal(i1, i1_p)
+    skip2 = (pruned_knn.prune_mask(qs, rs, d1, k, tq, tr)
+             | in_window).int().contiguous()
+    d2, i2 = knn_pruned_pass_cuda(qs, rs, skip2, d1, i1, k, tq, tr)
+    assert LAUNCH_COUNTS["knn_pruned"] == before + 2
+    d2_p, i2_p = knn_pruned_pass_plain(qs, rs, skip2, d1, i1, k, tq, tr)
+    assert torch.equal(d2, d2_p) and torch.equal(i2, i2_p)
+
+    d, i = pruned_knn._pruned_knn_single(qt, rt, k, tq, tr)
+    d_c, i_c = pruned_knn._pruned_knn_single(qt.cpu(), rt.cpu(), k, tq, tr)
+    assert torch.equal(d.cpu(), d_c) and torch.equal(i.cpu(), i_c)
+    assert torch.equal(d[None], knn_topk(qt[None], rt[None], k)[0])
+
+
+def test_pruned_pass_nan_and_bad_inputs(rng, cuda):
+    q = torch.from_numpy(points(rng, 1, 256)[0]).to(cuda)
+    r = torch.from_numpy(points(rng, 1, 512)[0]).to(cuda)
+    q[5, 0] = float("nan")
+    r[7, 1] = float("nan")
+    skip = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    d0 = q.new_full((256, 3), 1e30)
+    i0 = torch.zeros((256, 3), dtype=torch.int32, device=cuda)
+    d, i = knn_pruned_pass_cuda(q, r, skip, d0, i0, 3, 128, 256)
+    d_p, i_p = knn_pruned_pass_plain(q, r, skip, d0, i0, 3, 128, 256)
+    assert torch.equal(d, d_p) and torch.equal(i, i_p)
+    assert torch.equal(d[5], d0[5]) and not (i == 7).any()
+    with pytest.raises(ValueError):
+        knn_pruned_pass_cuda(q[:200], r, skip, d0[:200], i0[:200], 3, 128, 256)
+    with pytest.raises(ValueError):
+        knn_pruned_pass_cuda(q, r, skip.long(), d0, i0, 3, 128, 256)
+    with pytest.raises(ValueError):
+        knn_pruned_pass_cuda(q, r, skip[:1], d0, i0, 3, 128, 256)
+    with pytest.raises(ValueError):
+        knn_pruned_pass_cuda(q, r, skip, d0, i0.cpu(), 3, 128, 256)
+
+
+def test_new_knn_backends_launch_their_kernels(rng, cuda):
+    r = torch.from_numpy(points(rng, 1, 6500)).to(cuda)
+    q = torch.from_numpy(points(rng, 1, 9000)).to(cuda)
+    d_b, i_b = knn_topk(q, r, 3)
+    before = dict(LAUNCH_COUNTS)
+    d, _ = knn(q, r, 3, backend="pallas_pruned")
+    assert LAUNCH_COUNTS["knn_pruned"] == before["knn_pruned"] + 2
+    assert torch.equal(d, d_b)
+    d, _ = knn(q, r, 3, backend="pallas_f32packed")
+    assert LAUNCH_COUNTS["knn_f32packed"] == before["knn_f32packed"] + 1
+    assert (d >= d_b).all() and (d <= d_b * (1 + 2.0 ** -8) + 1e-37).all()
+    d, _ = grid_knn.grid_knn(q, r, 3, exact=False)
+    assert LAUNCH_COUNTS["grid_topk"] == before["grid_topk"] + 1
+    assert LAUNCH_COUNTS["knn_topk"] == before["knn_topk"]
+    assert (d >= d_b).all() and (d <= d_b * (1 + 2.0 ** -8) + 1e-37).all()

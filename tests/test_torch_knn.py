@@ -64,8 +64,12 @@ def test_knn_dispatch(rng):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     got = knn(qt, rt, 3, backend="grid")  # too few refs: brute force
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    for backend in ("pallas_f32packed", "pallas_pruned"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            knn(qt, rt, 3, backend=backend)
+    # the pruned kNN is exact: the same distances; the f32-packed one may
+    # swap near-ties but never returns a farther set than 2^-8 relative
+    d, i = knn(qt, rt, 3, backend="pallas_pruned")
+    assert torch.equal(d, want[0]) and i.dtype == torch.int32
+    d, i = knn(qt, rt, 3, backend="pallas_f32packed")
+    assert (d >= want[0]).all() and (d <= want[0] * (1 + 2.0 ** -8)).all()
+    assert i.dtype == torch.int32 and i.shape == want[1].shape
     with pytest.raises(ValueError):
         knn(qt, rt, 3, backend="nope")

@@ -166,5 +166,21 @@ def test_knn_backend_resolution():
     with pytest.raises(ValueError):
         resolve(Config(knn_backend="nope"))
     for b in ("pallas_f32packed", "pallas_pruned"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsamp.resolve_sampler_knn_backend(Config(knn_backend=b))
+        assert resolve(Config(knn_backend=b)) == b
+
+
+def test_knn_backend_env_hook(monkeypatch):
+    """``PCST_SAMPLER_KNN_BACKEND`` is honoured only when the config says
+    "auto" and the kernels are on; an unknown value raises."""
+    resolve = tsamp.resolve_sampler_knn_backend
+    for value in tsamp.KNN_BACKENDS:
+        monkeypatch.setenv("PCST_SAMPLER_KNN_BACKEND", value)
+        assert resolve(Config()) == value
+        assert resolve(Config(knn_backend="pallas")) == "pallas"
+        assert resolve(Config(use_pallas=False)) == "jnp"
+    monkeypatch.setenv("PCST_SAMPLER_KNN_BACKEND", "palas")
+    with pytest.raises(ValueError, match="PCST_SAMPLER_KNN_BACKEND"):
+        resolve(Config())
+    assert resolve(Config(knn_backend="grid")) == "grid"  # pinned: not read
+    monkeypatch.setenv("PCST_SAMPLER_KNN_BACKEND", "")
+    assert resolve(Config()) == "grid"

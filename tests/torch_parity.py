@@ -98,21 +98,37 @@ def xla_cpu_sq_dist(q, r):
     return fma32(dz, dz, fma32(dx, dx, dy * dy))
 
 
+def xla_cpu_selected_sq_dist(query, sel):
+    """The packed kNN wrappers' recomputed distances ``sum((q - sel)**2)`` as
+    XLA's CPU backend fuses them under jit: fma(dz, dz, fma(dy, dy, dx*dx))."""
+    d = query[:, :, None, :] - sel
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    return fma32(z, z, fma32(y, y, x * x))
+
+
 @contextlib.contextmanager
-def xla_cpu_distances():
-    """Make the port's plain kernels (grid and brute kNN) compute distances
-    as the JAX kernels do in interpret mode on the CPU, so that parity with
-    them can be held bit for bit."""
-    from pointcloud_style_transfer_torch.ops.kernels import grid, knn, rowmin
-    mods = (grid, knn, rowmin)
-    saved = [m.pairwise_sq_dist for m in mods]
-    for m in mods:
-        m.pairwise_sq_dist = xla_cpu_sq_dist
+def xla_cpu_distances(jit_recompute=True):
+    """Make the port's plain kernels (grid, brute, packed and pruned kNN,
+    row minimum) compute distances as the JAX kernels do in interpret mode
+    on the CPU, so that parity with them can be held bit for bit.
+    ``jit_recompute`` also switches the packed kNN wrappers' recomputed
+    distances to the form XLA gives them under jit (run eagerly, JAX
+    computes them op by op, as the port does)."""
+    from pointcloud_style_transfer_torch.ops.kernels import (
+        grid, knn, knn_packed, knn_pruned, rowmin)
+    patches = [(m, "pairwise_sq_dist", xla_cpu_sq_dist)
+               for m in (grid, knn, knn_packed, knn_pruned, rowmin)]
+    if jit_recompute:
+        patches.append((knn_packed, "selected_sq_dist",
+                        xla_cpu_selected_sq_dist))
+    saved = [getattr(m, name) for m, name, _ in patches]
+    for m, name, f in patches:
+        setattr(m, name, f)
     try:
         yield
     finally:
-        for m, f in zip(mods, saved):
-            m.pairwise_sq_dist = f
+        for (m, name, _), f in zip(patches, saved):
+            setattr(m, name, f)
 
 
 def pallas_vjp_min_sq_dist(monkeypatch):
