@@ -5,13 +5,19 @@ NVIDIA GPU. Run from the root of a checkout: ``python3 chip_smoke.py``.
 Phases, each printing one line per result:
 
 1. build — compile every CUDA kernel from ``csrc/`` (one nvcc per source, in
-   parallel); the card's name and power limit.
+   parallel); each instantiation's registers and spill stores (none allowed
+   in the kNN and FPS kernels); the card's name and power limit.
 2. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes (numpy-seeded inputs with exact duplicate points,
-   to force ties): identical indices, kNN distances within 1e-6 relative,
-   also at k = 9 and 16; the row minimum at the compare CLI's 120,000 x
-   120,000 and the Chamfer loss's 30,000 x 30,000, identical values with a
-   NaN row; ``MinSqDist`` launching the k=1 kNN under grad and the row
+   to force ties): the brute-force kNN's indices and distance bits identical
+   at 90,000 x 30,000, at the kd-grid's patch sizes (500 to 32,768 rows)
+   and at 30,000 x 30,000 with k = 1, 9 and 16, with its cluster size S,
+   one launch per call, and the plan's S against half and double S at each
+   shape; FPS identical at 30,000 -> 512, 512 -> 128, 65,536 -> 512 and on
+   three lattice clouds, in us per iteration, with its launch (S, threads,
+   PER) against its neighbours at four cloud sizes; the row minimum at the
+   compare CLI's 120,000 x 120,000 and the Chamfer loss's 30,000 x 30,000,
+   identical values with a NaN row; ``MinSqDist`` launching the k=1 kNN under grad and the row
    minimum without, its gradients on the card within 1e-6 of the CPU's;
    the kd-grid's slot-run kernels on slot tables from the grid's own layout
    pass (90,000 queries, 30,000 refs): distances and positions identical,
@@ -69,6 +75,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -102,6 +109,11 @@ from pointcloud_style_transfer_torch.ops.kernels import (
     knn_pruned_pass_plain, knn_topk_cuda, knn_topk_plain, reset_launch_counts,
     rowmin_cuda, rowmin_plain)
 from pointcloud_style_transfer_torch.ops.kernels import knn_packed
+from pointcloud_style_transfer_torch.ops.kernels.fps import (
+    CLUSTER_SIZES as FPS_CLUSTER_SIZES, MAX_THREADS as FPS_MAX_THREADS, PERS,
+    fps_plan)
+from pointcloud_style_transfer_torch.ops.kernels.knn import (
+    CLUSTER_SIZES, knn_topk_plan)
 from pointcloud_style_transfer_torch.ops.kernels._common import (
     BUILD_ROOT, library_path, pairwise_sq_dist)
 from pointcloud_style_transfer_torch.ops.kernels.ball_query import \
@@ -114,6 +126,9 @@ from pointcloud_style_transfer_torch.utils.checkpoint import (
 # H100 SXM published peaks (dense): float32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# float32 operations issued one at a time, no FMA (the distance kernels'
+# contract): 132 SMs x 128 FP32 lanes x 1.98 GHz
+NO_FMA_OPS = 132 * 128 * 1.98e9
 
 N_POINTS, M_POINTS = 120_000, 30_000
 STEPS, GUIDANCE = 50, 7.5
@@ -159,6 +174,11 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def no_fma_ms(n_ops: float) -> float:
+    """The operations' least time when none may be fused into an FMA."""
+    return n_ops / NO_FMA_OPS * 1e3
+
+
 def make_cloud(rng: np.random.Generator, n: int, dup_frac: float = 0.01,
                scale: float = 30.0) -> np.ndarray:
     """A LiDAR-like scene (ground plane + object clusters) in metres, with a
@@ -177,16 +197,46 @@ def make_cloud(rng: np.random.Generator, n: int, dup_frac: float = 0.01,
     return pts
 
 
+def ptxas_usage(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill-store bytes) per entry function of an
+    ``-Xptxas -v`` log; template arguments written out, e.g. ``<3,4>``."""
+    rows, name, spill = [], None, 0
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", ln)
+        if entry:
+            mangled, spill = entry.group(1), 0
+            short = re.search(r"([a-z_]+_kernel)(I((?:Li\d+E)+)E)?", mangled)
+            name = mangled
+            if short:
+                args = re.findall(r"Li(\d+)E", short.group(3) or "")
+                name = short.group(1) + (f"<{','.join(args)}>" if args else "")
+            continue
+        found = re.search(r"(\d+) bytes spill stores", ln)
+        if found and name:
+            spill = int(found.group(1))
+        found = re.search(r"Used (\d+) registers", ln)
+        if found and name:
+            rows.append((name, int(found.group(1)), spill))
+            name = None
+    return rows
+
+
+# the kernels whose every instantiation must keep its state in registers
+NO_SPILL_SOURCES = ("knn_topk", "fps")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     paths = build_all()
     dt = time.perf_counter() - t0
     print(f"[build] {len(paths)} kernels built in {dt:.1f}s into {BUILD_ROOT}")
     for name in paths:
-        log = library_path(name).with_suffix(".log").read_text()
-        usage = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"[build] {name} ptxas: " + " | ".join(usage))
+        usage = ptxas_usage(library_path(name).with_suffix(".log").read_text())
+        print(f"[build] {name} ptxas (registers, spill-store bytes): " + ", ".join(
+            f"{k} {r}/{s}" for k, r, s in usage))
+        spilled = [k for k, _, s in usage if s]
+        if name in NO_SPILL_SOURCES and (spilled or not usage):
+            fail(f"{name}: spill stores in {spilled} (or no ptxas report)")
     print(f"[build] card: {card_line()}")
 
 
@@ -223,10 +273,8 @@ def phase_kernels(rng: np.random.Generator, dev: torch.device) -> dict:
     d_p, i_p = knn_topk_plain(query, ref, 3)
     torch.cuda.synchronize()
     check_equal("knn_topk", i_k, i_p)
-    rel = ((d_k - d_p).abs() / d_p.abs().clamp(min=1e-30)).max().item()
-    if rel > 1e-6:
-        fail(f"knn_topk: distances differ by {rel:.3g} relative (> 1e-6)")
-    max_err = (d_k - d_p).abs().max().item()
+    check_equal("knn_topk", d_k.view(torch.int32), d_p.view(torch.int32),
+                "distance bits")
     ms = cuda_ms(lambda: knn_topk_cuda(query, ref, 3), reps=20)
     plain_ms = cuda_ms(lambda: knn_topk_plain(query, ref, 3), reps=2)
 
@@ -237,15 +285,19 @@ def phase_kernels(rng: np.random.Generator, dev: torch.device) -> dict:
     lib_ms = cuda_ms(library, reps=3)
     nq, m = query.shape[1], ref.shape[1]
     b_ms, b_by = bound_ms((nq + m) * 12 + nq * 3 * 8, 8.0 * nq * m)
+    plan = knn_topk_plan(1, nq, m)
     records["knn_topk"] = dict(
         name="knn_topk", route="cuda",
         source="pointcloud_style_transfer_torch/csrc/knn_topk.cu",
         replaces="pointcloud_style_transfer_tpu/ops/pallas/distance_topk.py:40",
-        shape=f"{nq}x{m} k=3", max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    print(f"[kernels] knn_topk {nq}x{m} k=3: indices identical, max rel "
-          f"d err {rel:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"library (cdist+topk) {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        shape=f"{nq}x{m} k=3", plan=dict(S=plan),
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, bound_no_fma_ms=no_fma_ms(8.0 * nq * m),
+        library_ms=lib_ms)
+    print(f"[kernels] knn_topk {nq}x{m} k=3, plan S={plan}: "
+          f"indices and distance bits identical; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, library (cdist+topk) {lib_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; no-FMA {no_fma_ms(8.0 * nq * m):.4f} ms)")
 
     # -- FPS 30,000 -> 512 and 512 -> 128 --
     fps_rows = []
@@ -262,18 +314,27 @@ def phase_kernels(rng: np.random.Generator, dev: torch.device) -> dict:
         plain_ms = cuda_ms(lambda: fps_plain(xyz, npoint, start), reps=2)
         b_ms, b_by = bound_ms(n * 12 + 4 + npoint * 4, 9.0 * npoint * n)
         fps_rows.append((xyz, got))
-        print(f"[kernels] fps {n}->{npoint}: indices identical; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
-              f"({b_by}; latency-bound by {npoint} dependent argmaxes)")
+        print(f"[kernels] fps {n}->{npoint}, plan (S, threads, PER) "
+              f"{fps_plan(n)}: indices identical; kernel {ms:.4f} ms "
+              f"({1e3 * ms / npoint:.3f} us per iteration), plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}; latency-bound "
+              f"by {npoint} dependent argmaxes)")
         if npoint == 512:
             records["fps"] = dict(
                 name="fps", route="cuda",
                 source="pointcloud_style_transfer_torch/csrc/fps.cu",
                 replaces="pointcloud_style_transfer_tpu/ops/pallas/fps.py:31",
-                shape=f"{n}->{npoint}", max_abs_err=0.0, ms=ms,
+                shape=f"{n}->{npoint}",
+                plan=dict(zip(("S", "threads", "PER"), fps_plan(n))),
+                us_per_iteration=1e3 * ms / npoint, max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
         xyz = index_points(xyz, got).contiguous()
+    # what 512 iterations cost where no pass over a large cloud is needed:
+    # the 512-point call's time per iteration
+    records["fps"]["latency_floor_ms"] = 512 * ms / 128
+    print(f"[kernels] fps latency floor for 512 iterations (the 512-point "
+          f"call's time per iteration): {512 * ms / 128:.4f} ms")
 
     # -- ball query at the encoder's two calls --
     for (points, sel), radius, ns in zip(fps_rows, (0.2, 0.4), (32, 64)):
@@ -308,8 +369,10 @@ def phase_kernels(rng: np.random.Generator, dev: torch.device) -> dict:
                 shape=f"{s}x{n} r={radius} ns={ns}", max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
+    phase_fps_plans(ref, records["fps"])
     records["rowmin"] = phase_rowmin(rng, dev)
     phase_min_sq_dist(rng, dev)
+    phase_knn_plans(query, ref, records["knn_topk"])
     phase_knn_large_k(query[:, :M_POINTS].contiguous(), ref)
     records.update(phase_grid_kernels(rng, query, ref))
     records.update(phase_packed_kernels(query, ref, records["knn_topk"]))
@@ -348,7 +411,8 @@ def phase_rowmin(rng: np.random.Generator, dev: torch.device) -> dict:
         b_ms, b_by = bound_ms(2 * n * 12 + n * 4, 8.0 * n * n)
         print(f"[kernels] rowmin {n}x{n}: values identical (NaN row kept); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library (chunked "
-              f"cdist + amin) {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+              f"cdist + amin) {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"no-FMA {no_fma_ms(8.0 * n * n):.4f} ms)")
         if n == N_POINTS:
             record = dict(
                 name="rowmin", route="cuda",
@@ -356,7 +420,8 @@ def phase_rowmin(rng: np.random.Generator, dev: torch.device) -> dict:
                 replaces="pointcloud_style_transfer_tpu/ops/pallas/"
                          "distance_topk.py:152",
                 shape=f"{n}x{n}", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by,
+                bound_no_fma_ms=no_fma_ms(8.0 * n * n), library_ms=lib_ms)
     return record
 
 
@@ -413,23 +478,162 @@ def phase_min_sq_dist(rng: np.random.Generator, dev: torch.device) -> None:
           f"max |dr| err {errs[1]:.3g}")
 
 
+def knn_neighbours(q: torch.Tensor, ref: torch.Tensor, k: int,
+                   d: torch.Tensor, i: torch.Tensor) -> str:
+    """The plan's cluster size against its neighbours (half and double):
+    each result identical to the plan's (``d``, ``i``), ms per launch."""
+    plan = knn_topk_plan(1, q.shape[1], ref.shape[1])
+    times = {}
+    for S in (plan // 2, plan, 2 * plan):
+        if S not in CLUSTER_SIZES:
+            continue
+        d2, i2 = knn_topk_cuda(q, ref, k, plan=S)
+        torch.cuda.synchronize()
+        what = f"knn_topk {q.shape[1]}x{ref.shape[1]} k={k} S={S}"
+        check_equal(what, i2, i)
+        check_equal(what, d2.view(torch.int32), d.view(torch.int32),
+                    "distance bits")
+        times[S] = cuda_ms(lambda: knn_topk_cuda(q, ref, k, plan=S), reps=10)
+    best = min(times, key=times.get)
+    return ("; plan vs neighbours, ms: " + ", ".join(
+        f"S={S} {t:.4f}" for S, t in times.items())
+        + ("" if best == plan else f" (S={best} faster)"))
+
+
 def phase_knn_large_k(query: torch.Tensor, ref: torch.Tensor) -> None:
-    """The kNN kernel at k = 9 (``uniformity_score``'s k + 1) and at its cap
-    k = 16, against the plain version."""
+    """The kNN kernel at 30,000 x 30,000 with k = 1 (the Chamfer gradient's
+    shape), 9 (``uniformity_score``'s k + 1) and its cap 16: indices and
+    distance bits identical to the plain version, the plan against its
+    neighbours."""
     nq, m = query.shape[1], ref.shape[1]
-    for k in (9, 16):
+    for k in (1, 9, 16):
         d, i = knn_topk_cuda(query, ref, k)
         d_p, i_p = knn_topk_plain(query, ref, k)
         torch.cuda.synchronize()
         check_equal(f"knn_topk k={k}", i, i_p)
-        rel = ((d - d_p).abs() / d_p.abs().clamp(min=1e-30)).max().item()
-        if rel > 1e-6:
-            fail(f"knn_topk k={k}: distances differ by {rel:.3g} relative")
+        check_equal(f"knn_topk k={k}", d.view(torch.int32),
+                    d_p.view(torch.int32), "distance bits")
         ms = cuda_ms(lambda: knn_topk_cuda(query, ref, k), reps=10)
         b_ms, b_by = bound_ms((nq + m) * 12 + nq * k * 8, 8.0 * nq * m)
-        print(f"[kernels] knn_topk {nq}x{m} k={k}: indices identical, max rel "
-              f"d err {rel:.3g}; kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by})")
+        print(f"[kernels] knn_topk {nq}x{m} k={k}, plan S="
+              f"{knn_topk_plan(1, nq, m)}: indices and distance bits "
+              f"identical; kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"no-FMA {no_fma_ms(8.0 * nq * m):.4f} ms)"
+              + knn_neighbours(query, ref, k, d, i))
+
+
+# the kd-grid's patch sizes: the sampler's median ~1,825 unsafe rows up to
+# its last fallback tier, 32,768 rows
+PATCH_ROWS = (500, 1825, 2500, 4096, 16384, 32768)
+
+
+def phase_knn_plans(query: torch.Tensor, ref: torch.Tensor,
+                    record: dict) -> None:
+    """``knn_topk`` at the kd-grid's patch sizes x 30,000 refs and at the
+    brute path's 90,000 x 30,000, k = 3: indices and distance bits identical
+    to the plain version, one launch per call, ms per launch against the
+    bounds, and the plan against its neighbours."""
+    rng = np.random.default_rng(5)  # the phase's own: later phases keep
+    # their clouds whatever this phase draws
+    nq, m, k = query.shape[1], ref.shape[1], 3
+    shapes = [query[:, torch.from_numpy(np.sort(rng.choice(
+        nq, rows, replace=False))).to(query.device)].contiguous()
+        for rows in PATCH_ROWS] + [query]
+    for q in shapes:
+        rows = q.shape[1]
+        plan = knn_topk_plan(1, rows, m)
+        before = LAUNCH_COUNTS["knn_topk"]
+        d, i = knn_topk_cuda(q, ref, k)
+        launches = LAUNCH_COUNTS["knn_topk"] - before
+        if launches != 1:
+            fail(f"knn_topk {rows}x{m}: {launches} launches for one call")
+        if rows < nq:  # the whole query cloud was held in [kernels] above
+            d_p, i_p = knn_topk_plain(q, ref, k)
+            torch.cuda.synchronize()
+            check_equal(f"knn_topk {rows}x{m}", i, i_p)
+            check_equal(f"knn_topk {rows}x{m}", d.view(torch.int32),
+                        d_p.view(torch.int32), "distance bits")
+        ms = cuda_ms(lambda: knn_topk_cuda(q, ref, k), reps=20)
+        ops = 8.0 * rows * m
+        b_ms, b_by = bound_ms((rows + m) * 12 + rows * k * 8, ops)
+        lib = ""
+        if rows == 2500:
+            lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(q[0], ref[0]), k,
+                                                largest=False), reps=5)
+            lib = f", library (cdist+topk) {lib_ms:.4f} ms"
+            record["patch_2500"] = dict(
+                plan=dict(S=plan), ms=ms, bound_ms=b_ms,
+                bound_no_fma_ms=no_fma_ms(ops), library_ms=lib_ms)
+        print(f"[kernels] knn_topk {rows}x{m} k={k}, plan S={plan}: indices "
+              f"and distance bits identical, {launches} launch per call; "
+              f"kernel {ms:.4f} ms{lib}, bound {b_ms:.4f} ms ({b_by}; no-FMA "
+              f"{no_fma_ms(ops):.4f} ms)" + knn_neighbours(q, ref, k, d, i))
+
+
+def fps_neighbours(n: int) -> list[tuple[int, int, int]]:
+    """The plan (S, threads, PER) for n points and the launches that halve
+    or double its S and its threads, each with the fewest points per thread
+    that hold a rank's slice."""
+    S0, t0, _ = fps_plan(n)
+    plans = []
+    for S in (S0 // 2, S0, 2 * S0):
+        for t in (t0 // 2, t0, 2 * t0):
+            per = next((p for p in PERS if t * p >= -(-n // max(S, 1))), None)
+            if (S in FPS_CLUSTER_SIZES and 32 <= t <= FPS_MAX_THREADS
+                    and per is not None):
+                plans.append((S, t, per))
+    return plans
+
+
+def phase_fps_plans(ref: torch.Tensor, record: dict) -> None:
+    """FPS at the kernel's cap, 65,536 -> 512, and on three 30,000-point
+    lattice clouds (tied maxima, within and across ranks), identical to the
+    plain version; then at 30,000 -> 512, 8,192 -> 512, 512 -> 128 and
+    65,536 -> 512 the plan against its neighbours (``fps_neighbours``),
+    each identical to the plan's, in us per iteration."""
+    rng = np.random.default_rng(6)  # the phase's own, as above
+    dev = ref.device
+    big = torch.from_numpy(normalize_point_cloud(make_cloud(
+        rng, 65536))[0])[None].to(dev)
+    lattice = torch.from_numpy((np.round(rng.standard_normal(
+        (3, M_POINTS, 3)) * 4) / 4).astype(np.float32)).to(dev)
+    for name, xyz in (("65536->512", big), ("lattice B=3 30000->512",
+                                             lattice)):
+        B, n = xyz.shape[:2]
+        start = torch.from_numpy(rng.integers(0, n, B).astype(np.int32)
+                                 ).to(dev)
+        got = fps_cuda(xyz, 512, start)
+        want = fps_plain(xyz, 512, start)
+        torch.cuda.synchronize()
+        check_equal(f"fps {name}", got, want)
+        ms = cuda_ms(lambda: fps_cuda(xyz, 512, start), reps=10)
+        print(f"[kernels] fps {name}, plan (S, threads, PER) {fps_plan(n)}: "
+              f"indices identical; kernel {ms:.4f} ms "
+              f"({1e3 * ms / 512:.3f} us per iteration)")
+
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+    small = index_points(ref, fps_cuda(ref, 512, start)).contiguous()
+    for xyz, npoint in ((ref, 512), (ref[:, :8192].contiguous(), 512),
+                        (small, 128), (big, 512)):
+        n = xyz.shape[1]
+        want = fps_cuda(xyz, npoint, start)
+        times = {}
+        for plan in fps_neighbours(n):
+            check_equal(f"fps {n}->{npoint} plan {plan}",
+                        fps_cuda(xyz, npoint, start, plan=plan), want)
+            times[plan] = 1e3 * cuda_ms(lambda: fps_cuda(
+                xyz, npoint, start, plan=plan), reps=10) / npoint
+        best = min(times, key=times.get)
+        by_s = {S: min((t for p, t in times.items() if p[0] == S),
+                       default=None) for S in FPS_CLUSTER_SIZES}
+        print(f"[kernels] fps {n}->{npoint}, plan {fps_plan(n)} "
+              f"{times[fps_plan(n)]:.3f} us per iteration; vs neighbours "
+              "(S/threads/PER): " + " ".join(
+                  f"{S}/{t}/{p} {u:.3f}" for (S, t, p), u in times.items())
+              + ("" if best == fps_plan(n) else f" ({best} faster)"))
+        if n == M_POINTS:
+            record["us_per_iteration_by_S"] = {
+                S: t for S, t in by_s.items() if t is not None}
 
 
 def phase_grid_kernels(rng: np.random.Generator, query: torch.Tensor,
@@ -611,6 +815,7 @@ def phase_packed_kernels(query: torch.Tensor, ref: torch.Tensor,
                      f"distance_topk.py:{line}",
             shape=f"{nq}x{m} k=3", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by,
+            bound_no_fma_ms=no_fma_ms(8.0 * nq * m),
             library_ms=exact_record["library_ms"])
         print(f"[kernels] {name} {nq}x{m} k=3 (padded to {m_total}): raw "
               f"keys, indices and recomputed distances identical at {nq} and "
@@ -622,7 +827,7 @@ def phase_packed_kernels(query: torch.Tensor, ref: torch.Tensor,
               f" decode + recompute + sort {decode_ms:.4f} ms, plain "
               f"{plain_ms:.3f} ms, library (cdist+topk) "
               f"{exact_record['library_ms']:.3f} ms, bound {b_ms:.4f} ms "
-              f"({b_by})")
+              f"({b_by}; no-FMA {no_fma_ms(8.0 * nq * m):.4f} ms)")
 
     # row 8's entry point, its own path: counts read around it
     reset_launch_counts()
@@ -712,7 +917,8 @@ def phase_pruned_kernel(query: torch.Tensor, ref: torch.Tensor,
           f"masks, two launches, un-sort) {call_ms:.4f} ms (knn_topk "
           f"{exact_record['ms']:.4f} ms), plain passes {plain_ms:.3f} ms, "
           f"library (cdist+topk) {exact_record['library_ms']:.3f} ms, bound "
-          f"for both launches {b_ms:.4f} ms ({b_by})")
+          f"for both launches {b_ms:.4f} ms ({b_by}; no-FMA "
+          f"{no_fma_ms(8.0 * pairs):.4f} ms)")
     return dict(
         name="knn_pruned", route="cuda",
         source="pointcloud_style_transfer_torch/csrc/knn_pruned.cu",
@@ -721,6 +927,7 @@ def phase_pruned_kernel(query: torch.Tensor, ref: torch.Tensor,
               "of one call's two launches, library_ms is the whole call's",
         max_abs_err=0.0, ms=(ms1 + ms2) / 2, plain_ms=plain_ms / 2,
         bound_ms=b_ms / 2, bound_by=b_by,
+        bound_no_fma_ms=no_fma_ms(8.0 * pairs) / 2,
         library_ms=exact_record["library_ms"])
 
 

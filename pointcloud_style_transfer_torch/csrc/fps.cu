@@ -1,4 +1,4 @@
-// Farthest point sampling, one thread block per cloud.
+// Farthest point sampling, one thread-block cluster per cloud.
 //
 // Replaces pointcloud_style_transfer_tpu/ops/pallas/fps.py::_fps_kernel
 // (wrappers _fps_single / pallas_farthest_point_sample). Semantics kept bit
@@ -8,28 +8,45 @@
 //   * every point's running distance starts at 1e10 and takes
 //     min(dist, (dx*dx + dy*dy) + dz*dz), rounded op by op (__f*_rn: no FMA
 //     contraction, so the plain PyTorch version reproduces every bit);
-//   * the next index is the LOWEST index reaching the maximum distance: the
-//     block reduction compares (value, index) pairs and keeps the smaller
-//     index on equal values (float atomics could not give that).
+//   * the next index is the LOWEST index reaching the maximum distance: every
+//     reduction compares (value, index) pairs and keeps the smaller index on
+//     equal values (float atomics could not give that).
 //
 // What bounds it on the card: latency. npoint iterations depend on each other
-// (512 for the encoder's 30k -> 512 call), each a pass over the cloud and a
-// block-wide argmax, so neither bytes nor operations set its time. The TPU
-// kernel keeps the cloud and its distances resident in VMEM; 30k points x 16 B
-// do not fit one SM's 227 KB of shared memory, so here each thread keeps its
-// slice of the distances in registers (PER per thread, unrolled) and re-reads
-// the coordinates from L2 (360 KB per iteration for 30k points). Two block
-// barriers per iteration carry the argmax.
+// (512 for the encoder's 30k -> 512 call), each an update of every point's
+// distance and an argmax over the cloud. The TPU kernel keeps the cloud and
+// its distances resident in VMEM; here the registers of a cluster of S blocks
+// hold them: rank r owns the r-th contiguous slice of the cloud, and each
+// thread keeps PER points' coordinates and running distances in registers,
+// loaded once, so nothing is read from memory inside the loop. An iteration:
+//   * every thread min-updates its points against the current centre and
+//     takes its own argmax (slots ascend in index, strict '>');
+//   * a warp butterfly, then warp 0 over the warps' winners, give the rank's
+//     winner; its coordinates come along from the owning lane;
+//   * warp 0 writes (value, index, x, y, z) into slot it & 1 of the rank's
+//     shared memory, and one cluster barrier (release / acquire) publishes
+//     it;
+//   * in every warp of the cluster, lane r reads rank r's slot through
+//     distributed shared memory and a butterfly over the S lanes reduces
+//     them by the same rule, so all ranks reach the same winner and its
+//     coordinates, the next centre, without a broadcast.
+// Two slots suffice: a rank writes slot it & 1 again at iteration it + 2
+// only after barrier it + 1, which every rank reaches after its reads of
+// iteration it. A last barrier keeps every rank alive while it is read.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr float kInitDist = 1e10f;
+constexpr int kNone = 0x7fffffff;  // the index of an empty candidate
 
 __device__ __forceinline__ float sq_dist(float px, float py, float pz,
                                          float cx, float cy, float cz) {
@@ -41,109 +58,206 @@ __device__ __forceinline__ float sq_dist(float px, float py, float pz,
 }
 
 // Keep the larger value; on equal values the lower index.
-__device__ __forceinline__ void take_max(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
+__device__ __forceinline__ bool beats(float ov, int oi, float v, int i) {
+  return ov > v || (ov == v && oi < i);
 }
 
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+// A candidate: value, index, coordinates (two float4 so that a remote read
+// is two vector loads).
+struct alignas(16) Cand {
+  float4 a;  // value, index bits, x, y
+  float4 b;  // z, unused
+};
+
+__device__ __forceinline__ void warp_argmax_all(float& v, int& i) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    take_max(v, i, ov, oi);
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (beats(ov, oi, v, i)) {
+      v = ov;
+      i = oi;
+    }
   }
 }
 
-// Point i of the cloud belongs to thread i % kThreads, register slot
-// i / kThreads; PER * kThreads >= n.
+// grid (S, batch), clusters of (S, 1, 1), blockDim.x a power of two. Point
+// lo + j * blockDim.x + t of rank r's slice [lo, hi) lives in thread t's
+// register slot j; PER * blockDim.x >= hi - lo.
 template <int PER>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
-           int* __restrict__ out, int n, int npoint) {
-  __shared__ float s_val[kWarps];
-  __shared__ int s_idx[kWarps];
-  __shared__ int s_far;
+           int* __restrict__ out, int n, int npoint, int S) {
+  __shared__ Cand s_warp[kMaxWarps];
+  __shared__ Cand s_slot[2];
 
-  const int b = blockIdx.x;
+  const int b = blockIdx.y;
   xyz += static_cast<size_t>(b) * n * 3;
   out += static_cast<size_t>(b) * npoint;
+  const int nt = blockDim.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int rank = blockIdx.x;
+  const int chunk = (n + S - 1) / S;
+  const int lo = min(n, rank * chunk);
+  const int hi = min(n, lo + chunk);
 
-  float dist[PER];
+  // a slot past the slice holds -inf, which min keeps and no '>' takes
+  float px[PER], py[PER], pz[PER], dist[PER];
 #pragma unroll
-  for (int j = 0; j < PER; ++j) dist[j] = kInitDist;
+  for (int j = 0; j < PER; ++j) {
+    const int p = lo + j * nt + tid;
+    px[j] = py[j] = pz[j] = 0.f;
+    dist[j] = -CUDART_INF_F;
+    if (p < hi) {
+      dist[j] = kInitDist;
+      px[j] = __ldg(xyz + static_cast<size_t>(p) * 3);
+      py[j] = __ldg(xyz + static_cast<size_t>(p) * 3 + 1);
+      pz[j] = __ldg(xyz + static_cast<size_t>(p) * 3 + 2);
+    }
+  }
 
-  int farthest = start[b];
+  int far = start[b];
+  float cx = __ldg(xyz + static_cast<size_t>(far) * 3);
+  float cy = __ldg(xyz + static_cast<size_t>(far) * 3 + 1);
+  float cz = __ldg(xyz + static_cast<size_t>(far) * 3 + 2);
+  cg::cluster_group cluster = cg::this_cluster();
+
   for (int it = 0; it < npoint; ++it) {
-    if (tid == 0) out[it] = farthest;
-    const float* c = xyz + static_cast<size_t>(farthest) * 3;
-    const float cx = __ldg(c), cy = __ldg(c + 1), cz = __ldg(c + 2);
+    if (rank == 0 && tid == 0) out[it] = far;
 
-    float best = -CUDART_INF_F;
-    int best_i = 0x7fffffff;
+    float best = -CUDART_INF_F, bx = 0.f, by = 0.f, bz = 0.f;
+    int best_j = -1;
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
-      const int i = j * kThreads + tid;
-      if (i < n) {
-        const float* p = xyz + static_cast<size_t>(i) * 3;
-        const float d = sq_dist(__ldg(p), __ldg(p + 1), __ldg(p + 2), cx, cy, cz);
-        dist[j] = fminf(dist[j], d);
-        if (dist[j] > best) {  // strict: the thread's lowest index wins ties
-          best = dist[j];
-          best_i = i;
-        }
+      dist[j] = fminf(dist[j], sq_dist(px[j], py[j], pz[j], cx, cy, cz));
+      if (dist[j] > best) {  // strict: the thread's lowest index wins ties
+        best = dist[j];
+        best_j = j;
+        bx = px[j];
+        by = py[j];
+        bz = pz[j];
       }
     }
+    int best_i = best_j < 0 ? kNone : lo + best_j * nt + tid;
 
-    warp_argmax(best, best_i);
-    if (lane == 0) {
-      s_val[warp] = best;
-      s_idx[warp] = best_i;
-    }
+    // the warp's winner, its coordinates from the lane that owns it
+    warp_argmax_all(best, best_i);
+    int owner = (best_i - lo) & 31;  // slots are lo + j * nt + t, 32 | nt
+    bx = __shfl_sync(0xffffffffu, bx, owner);
+    by = __shfl_sync(0xffffffffu, by, owner);
+    bz = __shfl_sync(0xffffffffu, bz, owner);
+    if (lane == 0)
+      s_warp[warp] = {make_float4(best, __int_as_float(best_i), bx, by),
+                      make_float4(bz, 0.f, 0.f, 0.f)};
     __syncthreads();
+
+    // the rank's winner, from the warps' winners
     if (warp == 0) {
-      best = s_val[lane];
-      best_i = s_idx[lane];
-      warp_argmax(best, best_i);
-      if (lane == 0) s_far = best_i;
+      Cand c = {make_float4(-CUDART_INF_F, __int_as_float(kNone), 0.f, 0.f),
+                make_float4(0.f, 0.f, 0.f, 0.f)};
+      if (lane < nt / 32) c = s_warp[lane];
+      float v = c.a.x;
+      int i = __float_as_int(c.a.y);
+      warp_argmax_all(v, i);
+      owner = ((i - lo) & (nt - 1)) >> 5;  // the warp that owns index i
+      const float x = __shfl_sync(0xffffffffu, c.a.z, owner);
+      const float y = __shfl_sync(0xffffffffu, c.a.w, owner);
+      const float z = __shfl_sync(0xffffffffu, c.b.x, owner);
+      if (lane == 0)
+        s_slot[it & 1] = {make_float4(v, __int_as_float(i), x, y),
+                          make_float4(z, 0.f, 0.f, 0.f)};
     }
-    __syncthreads();
-    farthest = s_far;
+
+    // every rank's winner, reduced alike by every warp of the cluster:
+    // lane r < S reads rank r's slot, a butterfly over the S lanes gives the
+    // winner, and the lane that read it hands out its coordinates
+    if (S > 1) {
+      cluster.sync();
+      Cand c = {make_float4(-CUDART_INF_F, __int_as_float(kNone), 0.f, 0.f),
+                make_float4(0.f, 0.f, 0.f, 0.f)};
+      if (lane < S) {
+        const Cand* src = cluster.map_shared_rank(&s_slot[it & 1], lane);
+        c.a = src->a;
+        c.b.x = src->b.x;
+      }
+      float v = c.a.x;
+      int i = __float_as_int(c.a.y);
+      for (int off = S >> 1; off > 0; off >>= 1) {  // lanes [0, S) closed
+        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+        if (beats(ov, oi, v, i)) {
+          v = ov;
+          i = oi;
+        }
+      }
+      far = __shfl_sync(0xffffffffu, i, 0);
+      owner = __ffs(__ballot_sync(0xffffffffu, lane < S &&
+                                  __float_as_int(c.a.y) == far)) - 1;
+      cx = __shfl_sync(0xffffffffu, c.a.z, owner);
+      cy = __shfl_sync(0xffffffffu, c.a.w, owner);
+      cz = __shfl_sync(0xffffffffu, c.b.x, owner);
+    } else {
+      __syncthreads();
+      const Cand c = s_slot[it & 1];
+      far = __float_as_int(c.a.y);
+      cx = c.a.z;
+      cy = c.a.w;
+      cz = c.b.x;
+    }
   }
+  if (S > 1) cluster.sync();  // no rank exits while its slots are read
 }
 
 template <int PER>
-void launch(const float* xyz, const int* start, int* out, int batch, int n,
-            int npoint, cudaStream_t stream) {
-  fps_kernel<PER><<<batch, kThreads, 0, stream>>>(xyz, start, out, n, npoint);
+cudaError_t launch(const float* xyz, const int* start, int* out, int batch,
+                   int n, int npoint, int S, int threads,
+                   cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, batch, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = S > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, fps_kernel<PER>, xyz, start, out, n, npoint,
+                            S);
 }
 
 }  // namespace
 
 // xyz [batch, n, 3] f32, start [batch] i32 (each in [0, n)) -> out
-// [batch, npoint] i32, all contiguous. n <= 64 * 1024. Returns the CUDA error
-// code of the launch (0 on success).
+// [batch, npoint] i32, all contiguous. The plan: S in {1, 2, 4, 8} ranks per
+// cluster, threads per block a power of two in [32, 1024], PER in {1, 2, 4,
+// 8} points per thread, with S * threads * PER >= n (so n <= 64 * 1024).
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int pcst_fps(const void* xyz, const void* start, void* out,
-                        int batch, int n, int npoint, void* stream) {
+                        int batch, int n, int npoint, int S, int threads,
+                        int per, void* stream) {
+  if ((S != 1 && S != 2 && S != 4 && S != 8) || threads < 32 ||
+      threads > kMaxThreads || (threads & (threads - 1)) != 0 ||
+      static_cast<long long>(threads) * per < (n + S - 1) / S)
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* x = static_cast<const float*>(xyz);
   const int* st = static_cast<const int*>(start);
   int* o = static_cast<int*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per = (n + kThreads - 1) / kThreads;
-  if (per <= 1) launch<1>(x, st, o, batch, n, npoint, s);
-  else if (per <= 2) launch<2>(x, st, o, batch, n, npoint, s);
-  else if (per <= 4) launch<4>(x, st, o, batch, n, npoint, s);
-  else if (per <= 8) launch<8>(x, st, o, batch, n, npoint, s);
-  else if (per <= 16) launch<16>(x, st, o, batch, n, npoint, s);
-  else if (per <= 32) launch<32>(x, st, o, batch, n, npoint, s);
-  else if (per <= 64) launch<64>(x, st, o, batch, n, npoint, s);
-  else return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  switch (per) {
+    case 1: err = launch<1>(x, st, o, batch, n, npoint, S, threads, s); break;
+    case 2: err = launch<2>(x, st, o, batch, n, npoint, S, threads, s); break;
+    case 4: err = launch<4>(x, st, o, batch, n, npoint, S, threads, s); break;
+    case 8: err = launch<8>(x, st, o, batch, n, npoint, S, threads, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t last = cudaGetLastError();  // also clears a launch error
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 extern "C" const char* pcst_error_string(int code) {

@@ -11,22 +11,40 @@
 //     so ties resolve to the lowest ref index;
 //   * indices clipped to [0, M-1].
 //
-// What bounds it on the card: operations. The sampler's call is 90,000
-// queries x 30,000 refs = 2.7e9 pairs (8 float ops each) against about 1.5 MB
-// of inputs, so it is compute-bound. Design: one thread per query, its top-k
-// in registers (the sorted insert is unrolled, no local memory); the block
-// streams ref tiles through shared memory as float4 so each pair costs one
-// broadcast shared load. The ref axis is not split across threads, which keeps
-// the tie rule trivially right; that caps the launch at one thread per query
-// (90k threads, about a third of the card's resident-thread capacity).
+// What bounds it on the card: operations, 8 float ops per pair that may not
+// be contracted into FMAs, so the floor is the card's FP32 issue rate, not
+// its FMA peak. The sampler's brute path asks 90,000 x 30,000 pairs; the
+// kd-grid's patches ask a few thousand queries x 30,000, which one thread
+// per query spreads over only ~20 of the 132 SMs.
+//
+// Design: one thread per query, its top-k in registers; the cluster size S
+// is the caller's plan:
+//   * a thread-block cluster of S blocks serves one block of queries; rank r
+//     scans the r-th contiguous slice of the ref axis (slices ascend with the
+//     rank), so small query counts still fill the card;
+//   * refs stream through shared memory in tiles, each pair one broadcast
+//     shared load; the scan takes them eight at a time and tries the
+//     inserts only when the smallest of them beats the k-th distance;
+//   * the merge, in one launch: ranks 1..S-1 write their lists to their own
+//     shared memory, and after a cluster barrier rank 0 reads them in rank
+//     order through distributed shared memory and inserts their entries in
+//     list order with the same strict '<'. A later rank's slice holds only
+//     higher indices and each list is sorted by (distance, index), so an
+//     equal distance arriving later has the higher index and is refused: the
+//     result is the (distance, index)-lexicographic k smallest, as one scan
+//     gives. A second barrier keeps every rank alive while it is read.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kTile = 1024;  // refs staged per shared-memory tile (16 KB)
+constexpr int kUnroll = 8;   // refs tried together before any insert
 constexpr float kBig = 1e30f;
 
 __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
@@ -38,22 +56,49 @@ __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
                    __fmul_rn(dz, dz));
 }
 
+// Sorted insert on strict '<' (a NaN never passes).
 template <int K>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void insert(float (&D)[K], int (&I)[K], float d,
+                                       int idx) {
+  if (d < D[K - 1]) {
+    D[K - 1] = d;
+    I[K - 1] = idx;
+#pragma unroll
+    for (int t = K - 1; t > 0; --t) {
+      if (D[t] < D[t - 1]) {
+        const float td = D[t];
+        D[t] = D[t - 1];
+        D[t - 1] = td;
+        const int ti = I[t];
+        I[t] = I[t - 1];
+        I[t - 1] = ti;
+      }
+    }
+  }
+}
+
+// grid (query blocks * S, batch), clusters of (S, 1, 1); thread t of query
+// block g serves query g * kThreads + t. (The minimum of one block per SM
+// lets ptxas give k = 3 48 registers rather than 34; with 34 a block that
+// has its SM to itself scanned 1.2x slower, PERF.md PR 5.)
+template <int K>
+__global__ void __launch_bounds__(kThreads, 1)
 knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
                 float* __restrict__ d_out, int* __restrict__ i_out, int nq,
-                int m) {
-  __shared__ float4 tile[kTile];
+                int m, int S) {
+  // a ref tile, then (S > 1) the rank's lists: list t of query l at
+  // s_d[t * kThreads + l], s_i likewise; the tile is the larger
+  __shared__ float4 smem[kTile];
   const int b = blockIdx.y;
   query += static_cast<size_t>(b) * nq * 3;
   ref += static_cast<size_t>(b) * m * 3;
   d_out += static_cast<size_t>(b) * nq * K;
   i_out += static_cast<size_t>(b) * nq * K;
 
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = qi < nq;
+  const int rank = blockIdx.x % S;  // the block's rank in its cluster
+  const int qi = (blockIdx.x / S) * kThreads + threadIdx.x;
   float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
+  if (qi < nq) {
     qx = query[static_cast<size_t>(qi) * 3 + 0];
     qy = query[static_cast<size_t>(qi) * 3 + 1];
     qz = query[static_cast<size_t>(qi) * 3 + 2];
@@ -67,38 +112,70 @@ knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
     I[t] = 0;
   }
 
-  for (int base = 0; base < m; base += kTile) {
-    const int n = min(kTile, m - base);
+  // this rank's slice of the ref axis (empty when S exceeds m)
+  const int chunk = (m + S - 1) / S;
+  const int lo = min(m, rank * chunk);
+  const int hi = min(m, lo + chunk);
+  for (int base = lo; base < hi; base += kTile) {
+    const int n = min(kTile, hi - base);
     __syncthreads();  // the previous tile is no longer read
     for (int j = threadIdx.x; j < n; j += kThreads) {
       const float* p = ref + static_cast<size_t>(base + j) * 3;
-      tile[j] = make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), 0.f);
+      smem[j] = make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), 0.f);
     }
     __syncthreads();
-    if (active) {
-      for (int j = 0; j < n; ++j) {
-        const float4 r = tile[j];
-        const float d = sq_dist(qx, qy, qz, r.x, r.y, r.z);
-        if (d < D[K - 1]) {
-          D[K - 1] = d;
-          I[K - 1] = base + j;
+    int j = 0;
+    for (; j + kUnroll <= n; j += kUnroll) {
+      float4 r[kUnroll];
 #pragma unroll
-          for (int t = K - 1; t > 0; --t) {
-            if (D[t] < D[t - 1]) {
-              const float td = D[t];
-              D[t] = D[t - 1];
-              D[t - 1] = td;
-              const int ti = I[t];
-              I[t] = I[t - 1];
-              I[t - 1] = ti;
-            }
-          }
-        }
+      for (int u = 0; u < kUnroll; ++u) r[u] = smem[j + u];
+      float d[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        d[u] = sq_dist(qx, qy, qz, r[u].x, r[u].y, r[u].z);
+      // fminf drops a NaN; the inserts below refuse it on their own
+      float lowest = d[0];
+#pragma unroll
+      for (int u = 1; u < kUnroll; ++u) lowest = fminf(lowest, d[u]);
+      if (lowest < D[K - 1]) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) insert<K>(D, I, d[u], base + j + u);
       }
+    }
+    for (; j < n; ++j) {
+      const float4 r = smem[j];
+      insert<K>(D, I, sq_dist(qx, qy, qz, r.x, r.y, r.z), base + j);
     }
   }
 
-  if (active) {
+  if (S > 1) {
+    float* s_d = reinterpret_cast<float*>(smem);
+    int* s_i = reinterpret_cast<int*>(s_d + K * kThreads);
+    __syncthreads();  // the last tile is no longer read
+    if (rank != 0) {
+#pragma unroll
+      for (int t = 0; t < K; ++t) {
+        s_d[t * kThreads + threadIdx.x] = D[t];
+        s_i[t * kThreads + threadIdx.x] = I[t];
+      }
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // release the lists, acquire the other ranks'
+    if (rank == 0) {
+      for (int src = 1; src < S; ++src) {
+        const float* rd = cluster.map_shared_rank(s_d, src);
+        const int* ri = cluster.map_shared_rank(s_i, src);
+#pragma unroll
+        for (int t = 0; t < K; ++t)
+          insert<K>(D, I, rd[t * kThreads + threadIdx.x],
+                    ri[t * kThreads + threadIdx.x]);
+      }
+    }
+    cluster.sync();  // no rank exits while its lists are read
+    if (rank != 0) return;
+  }
+
+  if (qi < nq) {
 #pragma unroll
     for (int t = 0; t < K; ++t) {
       d_out[static_cast<size_t>(qi) * K + t] = D[t];
@@ -107,46 +184,54 @@ knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
   }
 }
 
+// 16 lists of kThreads (distance, index) pairs fit the tile
+static_assert(16 * kThreads * 8 <= kTile * sizeof(float4), "lists > tile");
+
 template <int K>
-void launch(const float* q, const float* r, float* d, int* i, int batch,
-            int nq, int m, cudaStream_t stream) {
-  const dim3 grid((nq + kThreads - 1) / kThreads, batch);
-  knn_topk_kernel<K><<<grid, kThreads, 0, stream>>>(q, r, d, i, nq, m);
+cudaError_t launch(const float* q, const float* r, float* d, int* i,
+                   int batch, int nq, int m, int S, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((nq + kThreads - 1) / kThreads) * S, batch, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = S > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, knn_topk_kernel<K>, q, r, d, i, nq, m, S);
 }
 
 }  // namespace
 
 // query [batch, nq, 3] f32, ref [batch, m, 3] f32 -> d_out [batch, nq, k] f32,
-// i_out [batch, nq, k] i32, all contiguous. 1 <= k <= 16. Returns the CUDA
-// error code of the launch (0 on success).
+// i_out [batch, nq, k] i32, all contiguous. 1 <= k <= 16; S in {1, 2, 4, 8}
+// ranks per cluster. Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int pcst_knn_topk(const void* query, const void* ref, void* d_out,
                              void* i_out, int batch, int nq, int m, int k,
-                             void* stream) {
+                             int S, void* stream) {
+  if (S != 1 && S != 2 && S != 4 && S != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* q = static_cast<const float*>(query);
   const float* r = static_cast<const float*>(ref);
   float* d = static_cast<float*>(d_out);
   int* i = static_cast<int*>(i_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   switch (k) {
-    case 1: launch<1>(q, r, d, i, batch, nq, m, s); break;
-    case 2: launch<2>(q, r, d, i, batch, nq, m, s); break;
-    case 3: launch<3>(q, r, d, i, batch, nq, m, s); break;
-    case 4: launch<4>(q, r, d, i, batch, nq, m, s); break;
-    case 5: launch<5>(q, r, d, i, batch, nq, m, s); break;
-    case 6: launch<6>(q, r, d, i, batch, nq, m, s); break;
-    case 7: launch<7>(q, r, d, i, batch, nq, m, s); break;
-    case 8: launch<8>(q, r, d, i, batch, nq, m, s); break;
-    case 9: launch<9>(q, r, d, i, batch, nq, m, s); break;
-    case 10: launch<10>(q, r, d, i, batch, nq, m, s); break;
-    case 11: launch<11>(q, r, d, i, batch, nq, m, s); break;
-    case 12: launch<12>(q, r, d, i, batch, nq, m, s); break;
-    case 13: launch<13>(q, r, d, i, batch, nq, m, s); break;
-    case 14: launch<14>(q, r, d, i, batch, nq, m, s); break;
-    case 15: launch<15>(q, r, d, i, batch, nq, m, s); break;
-    case 16: launch<16>(q, r, d, i, batch, nq, m, s); break;
+#define PCST_K(KK) \
+  case KK: err = launch<KK>(q, r, d, i, batch, nq, m, S, s); break;
+    PCST_K(1) PCST_K(2) PCST_K(3) PCST_K(4) PCST_K(5) PCST_K(6) PCST_K(7)
+    PCST_K(8) PCST_K(9) PCST_K(10) PCST_K(11) PCST_K(12) PCST_K(13)
+    PCST_K(14) PCST_K(15) PCST_K(16)
+#undef PCST_K
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t last = cudaGetLastError();  // also clears a launch error
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 extern "C" const char* pcst_error_string(int code) {

@@ -34,8 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 _VP, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "knn_topk": {"pcst_knn_topk": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
-                                   _VP]},
-    "fps": {"pcst_fps": [_VP, _VP, _VP, _INT, _INT, _INT, _VP]},
+                                   _INT, _VP]},
+    "fps": {"pcst_fps": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
+                         _VP]},
     "ball_query": {"pcst_ball_query": [_VP, _VP, _VP, _INT, _INT, _INT, _INT,
                                        _FLT, _VP]},
     "rowmin": {"pcst_rowmin": [_VP, _VP, _VP, _INT, _INT, _INT, _VP]},

@@ -3,9 +3,11 @@
 Replaces ``pointcloud_style_transfer_tpu/ops/pallas/fps.py::_fps_kernel``
 (wrappers ``_fps_single``, ``pallas_farthest_point_sample``); kernel source
 ``csrc/fps.cu``. It is latency-bound on the card: ``npoint`` dependent
-iterations, each a pass over the cloud and a block-wide argmax. One block per
-cloud keeps each thread's slice of the running distances in registers and
-re-reads the coordinates from L2.
+iterations, each an update of every point's distance and an argmax over the
+cloud. As the TPU kept the cloud in VMEM, the kernel keeps it in the
+registers of a thread-block cluster (``fps_plan``: S blocks, PER points per
+thread), loaded once; each iteration's argmax crosses the cluster through
+distributed shared memory behind one cluster barrier.
 
 Both versions take the start index per cloud from the caller, store the
 current index before updating the distances (initialised to 1e10), and pick
@@ -19,7 +21,11 @@ import torch
 
 from ._common import check_points, launch
 
-MAX_POINTS = 64 * 1024  # the kernel keeps at most 64 distances per thread
+CLUSTER_SIZES = (1, 2, 4, 8)  # ranks per cluster (the portable sizes)
+PERS = (1, 2, 4, 8)           # points per thread the kernel is built for
+MAX_THREADS = 1024
+MAX_POINTS = CLUSTER_SIZES[-1] * MAX_THREADS * PERS[-1]  # 64 * 1024
+_RANK_POINTS = 4096  # a rank's points beyond which the cluster grows
 _INIT_DIST = 1e10
 
 
@@ -43,9 +49,41 @@ def fps_plain(xyz: torch.Tensor, npoint: int, start: torch.Tensor
     return out
 
 
-def fps_cuda(xyz: torch.Tensor, npoint: int, start: torch.Tensor
-             ) -> torch.Tensor:
-    """Launch ``csrc/fps.cu`` on the current stream. ``start`` is an int32
+def fps_plan(n: int) -> tuple[int, int, int]:
+    """The launch ``(S, threads, PER)`` for clouds of n points, chosen from
+    ``tools/sweep_kernel_plans.py`` on an H100 (PERF.md, PR 5): one block while
+    1,024 threads hold the cloud (a cluster barrier costs more than a fuller
+    block), else the smallest cluster whose ranks hold at most
+    ``_RANK_POINTS`` points each; then half as many threads as points, up to
+    512 (1,024 where 512 cannot hold the slice), and the fewest points per
+    thread that hold it."""
+    if n <= MAX_THREADS * PERS[-1]:
+        S = 1
+    else:
+        S = next((s for s in CLUSTER_SIZES if -(-n // s) <= _RANK_POINTS),
+                 CLUSTER_SIZES[-1])
+    per_rank = -(-n // S)
+    threads = 32
+    while threads < min(512, -(-per_rank // 2)):
+        threads *= 2
+    if threads * PERS[-1] < per_rank:
+        threads = MAX_THREADS
+    per = next(p for p in PERS if threads * p >= per_rank)
+    return S, threads, per
+
+
+def _check_plan(plan: tuple[int, int, int], n: int) -> None:
+    S, threads, per = plan
+    if (S not in CLUSTER_SIZES or per not in PERS
+            or not 32 <= threads <= MAX_THREADS or threads & (threads - 1)
+            or threads * per < -(-n // S)):
+        raise ValueError(f"bad FPS launch plan {plan} for {n} points")
+
+
+def fps_cuda(xyz: torch.Tensor, npoint: int, start: torch.Tensor,
+             plan: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """Launch ``csrc/fps.cu`` on the current stream, with ``fps_plan``'s
+    launch unless ``plan`` (S, threads, PER) is given. ``start`` is an int32
     [B] tensor on the same device, each entry in [0, N)."""
     check_points(xyz, "xyz")
     B, N, _ = xyz.shape
@@ -55,10 +93,12 @@ def fps_cuda(xyz: torch.Tensor, npoint: int, start: torch.Tensor
             or start.shape != (B,) or not start.is_contiguous()):
         raise ValueError("start must be a contiguous int32 [B] tensor on the "
                          "points' device")
+    plan = fps_plan(N) if plan is None else tuple(plan)
+    _check_plan(plan, N)
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     if B and npoint:
         launch("fps", xyz.device, xyz.data_ptr(), start.data_ptr(),
-               out.data_ptr(), B, N, npoint)
+               out.data_ptr(), B, N, npoint, *plan)
     return out
 
 

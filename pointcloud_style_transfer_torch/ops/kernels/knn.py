@@ -2,11 +2,14 @@
 
 Replaces ``pointcloud_style_transfer_tpu/ops/pallas/distance_topk.py::
 _topk_kernel`` (wrappers ``_knn_single``, ``pallas_knn``); kernel source
-``csrc/knn_topk.cu``. It is compute-bound on the card (2.7e9 pairs per
-sampler step against ~1.5 MB of inputs): one thread per query keeps its
-sorted top-k in registers while the block streams ref tiles through shared
-memory. The JAX wrapper's query chunking exists only to dodge a TPU VMEM
-limit and has no counterpart here.
+``csrc/knn_topk.cu``. It is bound by operations: 8 float ops per pair that
+the bit-identical contract keeps out of FMAs, so its floor is the card's
+FP32 issue rate. A few thousand queries (the kd-grid's patches) give too few
+threads to fill the card with one thread per query, so ``knn_topk_plan``
+splits the ref axis across a thread-block cluster of S blocks, whose rank 0
+merges the ranks' lists through distributed shared memory in one launch.
+The JAX wrapper's query chunking exists only to dodge a TPU VMEM limit and
+has no counterpart here.
 
 Both versions return ascending squared distances [B, Nq, k] float32 and
 indices [B, Nq, k] int32 with ties to the lowest ref index; slots no ref
@@ -20,6 +23,10 @@ import torch
 from ._common import check_points, launch, pairwise_sq_dist
 
 MAX_K = 16  # the kernel is instantiated for 1 <= k <= 16
+CLUSTER_SIZES = (1, 2, 4, 8)  # ranks per cluster (the portable sizes)
+THREADS = 128        # queries per block, as in csrc/knn_topk.cu
+_SMS = 132           # streaming multiprocessors of an H100
+_MIN_SLICE = 1024    # refs a rank scans at least
 _BIG = 1e30  # the running top-k's initial distance, as on the TPU
 _CHUNK_ELEMS = 1 << 23  # plain version: distance-matrix elements per chunk
 
@@ -54,9 +61,37 @@ def knn_topk_plain(query: torch.Tensor, ref: torch.Tensor, k: int
     return d_out, i_out.clamp_(0, max(M - 1, 0))
 
 
-def knn_topk_cuda(query: torch.Tensor, ref: torch.Tensor, k: int
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/knn_topk.cu`` on the current stream."""
+def _last_round_full(blocks: int) -> float:
+    """The share of the busiest SM's blocks that the average SM also runs:
+    blocks / 132 over its ceiling."""
+    rounds = blocks / _SMS
+    return rounds / -(-blocks // _SMS)
+
+
+def knn_topk_plan(B: int, nq: int, m: int) -> int:
+    """The cluster size S for B clouds of nq queries x m refs, chosen from
+    ``tools/sweep_kernel_plans.py`` on an H100 (PERF.md, PR 5): blocks of
+    ``THREADS`` queries, then the smallest S whose clusters give two blocks
+    per SM, each rank's slice at least ``_MIN_SLICE`` refs (S = 8 at the
+    kd-grid's patches of 500-4,096 rows, 4 at 16,384, 2 at 32,768). S
+    doubles once more where that evens out the SMs' last round of blocks:
+    90,000 queries are 704 blocks, 5.33 per SM, so the busiest SMs run 6,
+    while S = 2 gives 10.67 per SM against 11 and measured 7% faster. The
+    plan takes no k: at 30,000 x 30,000 its S = 2 measured fastest at
+    k = 9, within 3% at k = 16 and 7-13% behind S = 4 at k = 1 and 3."""
+    blocks = B * -(-nq // THREADS)
+    sizes = [s for s in CLUSTER_SIZES if s == 1 or m // s >= _MIN_SLICE]
+    S = next((s for s in sizes if blocks * s >= 2 * _SMS), sizes[-1])
+    if 2 * S in sizes and (_last_round_full(2 * S * blocks)
+                           > _last_round_full(S * blocks) + 0.05):
+        S *= 2
+    return S
+
+
+def knn_topk_cuda(query: torch.Tensor, ref: torch.Tensor, k: int,
+                  plan: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/knn_topk.cu`` on the current stream, with
+    ``knn_topk_plan``'s cluster size unless ``plan`` (S) is given."""
     check_points(query, "query")
     check_points(ref, "ref")
     B, N, _ = query.shape
@@ -67,11 +102,14 @@ def knn_topk_cuda(query: torch.Tensor, ref: torch.Tensor, k: int
         raise ValueError(f"the kNN kernel takes 1 <= k <= {MAX_K}, got {k}")
     if M == 0:
         raise ValueError("kNN needs at least one ref point")
+    S = knn_topk_plan(B, N, M) if plan is None else plan
+    if S not in CLUSTER_SIZES:
+        raise ValueError(f"bad kNN cluster size {S}")
     d = torch.empty((B, N, k), dtype=torch.float32, device=query.device)
     i = torch.empty((B, N, k), dtype=torch.int32, device=query.device)
     if B * N:
         launch("knn_topk", query.device, query.data_ptr(), ref.data_ptr(),
-               d.data_ptr(), i.data_ptr(), B, N, M, k)
+               d.data_ptr(), i.data_ptr(), B, N, M, k, S)
     return d, i
 
 

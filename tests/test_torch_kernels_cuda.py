@@ -4,7 +4,9 @@ Needs a GPU with the CUDA toolkit (the kernels are built from ``csrc/`` on
 first use); skipped without one. The file needs no JAX, so on a GPU machine
 without it run ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 --noconftest -q``. Indices must be identical, kNN distances within 1e-6
-relative (same float32 arithmetic, no FMA). The row minimum is identical
+relative (same float32 arithmetic, no FMA); under every cluster size the kNN
+kernel's indices and distance bits, and under every launch plan FPS's
+indices, are identical to the plain versions'. The row minimum is identical
 to its plain version, NaN rows included; ``MinSqDist``'s gradients on the
 card are within 1e-6 relative of the CPU's (the card's scatter-add into the
 refs uses atomics, so its sums are taken in another order). The grid
@@ -77,6 +79,72 @@ def test_fps_kernel_matches_plain(rng, cuda, b, n, npoint):
     start = torch.from_numpy(rng.integers(0, n, b).astype(np.int32)).to(cuda)
     assert torch.equal(fps_cuda(xt, npoint, start),
                        fps_plain(xt, npoint, start))
+
+
+# cluster sizes forced on the kNN kernel (None: the plan's)
+KNN_PLANS = [None, 1, 2, 4, 8]
+
+
+@pytest.mark.parametrize("plan", KNN_PLANS)
+@pytest.mark.parametrize("b,n,m,k", [
+    (1, 1, 30000, 3), (1, 100, 30000, 3), (1, 1825, 30000, 1),
+    (1, 4096, 30000, 9), (2, 700, 3001, 16),  # B = 2; m not a multiple of
+    (1, 300, 4099, 3),                        # the tile or of S
+    (1, 200, 5, 8), (2, 64, 2, 3),            # m < k: fill slots, and
+])                                            # empty ranks at m < S
+def test_knn_kernel_plans_identical_to_plain(rng, cuda, b, n, m, k, plan):
+    """Every plan gives the plain version's indices and distance bits, with
+    zero-distance ties between the first and the last refs (the first and
+    the last rank) and a NaN ref, never selected."""
+    r = points(rng, b, m)
+    tail = min(50, m // 2)
+    r[:, m - tail:] = r[:, :tail]  # the same points at low and high indices
+    q = points(rng, b, n)
+    q[:, : n // 5] = r[:, rng.choice(tail, n // 5)] if tail else q[:, :0]
+    nan_ref = m // 2 if m > 2 * tail else None
+    if nan_ref is not None:
+        r[0, nan_ref, 1] = np.nan
+    qt, rt = torch.from_numpy(q).to(cuda), torch.from_numpy(r).to(cuda)
+    before = LAUNCH_COUNTS["knn_topk"]
+    d, i = knn_topk_cuda(qt, rt, k, plan=plan)
+    assert LAUNCH_COUNTS["knn_topk"] == before + 1
+    d_p, i_p = knn_topk_plain(qt, rt, k)
+    assert torch.equal(i, i_p)
+    assert torch.equal(d.view(torch.int32), d_p.view(torch.int32))
+    if nan_ref is not None:
+        assert not (i[0] == nan_ref).any()
+
+
+@pytest.mark.parametrize("b,n,npoint,plan", [
+    (1, 1, 4, None), (3, 1, 4, (4, 32, 1)),        # empty ranks
+    (1, 7, 12, None), (3, 7, 12, (8, 32, 1)),      # npoint > n
+    (1, 30000, 512, None), (3, 30000, 512, (4, 1024, 8)),
+    (1, 30000, 512, (8, 1024, 4)), (3, 30000, 300, (8, 512, 8)),
+    (1, 65536, 512, None), (3, 65536, 128, (8, 1024, 8)),
+])
+def test_fps_kernel_plans_identical_to_plain(rng, cuda, b, n, npoint, plan):
+    """Lattice clouds whose first half repeats in the second: tied maxima
+    within a rank and across ranks."""
+    x = np.round(points(rng, b, n) * 4) / 4
+    half = n // 2
+    x[:, half: 2 * half] = x[:, :half]
+    xt = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    start = torch.from_numpy(rng.integers(0, n, b).astype(np.int32)).to(cuda)
+    before = LAUNCH_COUNTS["fps"]
+    got = fps_cuda(xt, npoint, start, plan=plan)
+    assert LAUNCH_COUNTS["fps"] == before + 1
+    assert torch.equal(got, fps_plain(xt, npoint, start))
+
+
+def test_plans_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((1, 4000, 3), device=cuda)
+    start = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for plan in (0, 3, 16):
+        with pytest.raises(ValueError):
+            knn_topk_cuda(x, x, 3, plan=plan)
+    for plan in ((1, 1024, 2), (2, 96, 8), (16, 256, 1), (1, 1024, 3)):
+        with pytest.raises(ValueError):
+            fps_cuda(x, 4, start, plan=plan)
 
 
 @pytest.mark.parametrize("s,n,radius,ns", [(512, 30000, 0.2, 32),
