@@ -6,22 +6,27 @@ Phases, each printing one line per result:
 
 1. build — compile every CUDA kernel from ``csrc/`` (one nvcc per source, in
    parallel); each instantiation's registers and spill stores (none allowed
-   in the kNN and FPS kernels); the card's name and power limit.
+   in the kNN, FPS and grid kernels); the card's name and power limit.
 2. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes (numpy-seeded inputs with exact duplicate points,
    to force ties): the brute-force kNN's indices and distance bits identical
    at 90,000 x 30,000, at the kd-grid's patch sizes (500 to 32,768 rows)
    and at 30,000 x 30,000 with k = 1, 9 and 16, with its cluster size S,
    one launch per call, and the plan's S against half and double S at each
-   shape; FPS identical at 30,000 -> 512, 512 -> 128, 65,536 -> 512 and on
-   three lattice clouds, in us per iteration, with its launch (S, threads,
-   PER) against its neighbours at four cloud sizes; the row minimum at the
+   shape, and past 16 (k = 17, 32, 64 at 90,000 and 2,500 rows); FPS
+   identical at 30,000 -> 512, 512 -> 128, 65,536 -> 512, on three lattice
+   clouds and, past the registers' cap, at 70,000 and 120,000 -> 512, in us
+   per iteration, with its launch (S, threads, PER) against its neighbours
+   at four cloud sizes; the row minimum at the
    compare CLI's 120,000 x 120,000 and the Chamfer loss's 30,000 x 30,000,
    identical values with a NaN row; ``MinSqDist`` launching the k=1 kNN under grad and the row
    minimum without, its gradients on the card within 1e-6 of the CPU's;
    the kd-grid's slot-run kernels on slot tables from the grid's own layout
-   pass (90,000 queries, 30,000 refs): distances and positions identical,
-   values within rtol 1e-6, atol 1e-6 * max|v|; the grid's interpolation
+   pass (90,000 queries, 30,000 refs), with and without its real-row
+   counts and with NaN refs of both signs: distances and positions
+   identical on every row, values within rtol 1e-6, atol 1e-6 * max|v|,
+   pairs needed against pairs scanned, the staging chunk against half and
+   double it; the grid's interpolation
    after its fallback against the brute-force interpolation, and
    ``knn(backend="grid")`` (its own path, launch counts read around it)
    against the brute-force kNN; the packed-key kNN kernels (raw keys,
@@ -110,8 +115,8 @@ from pointcloud_style_transfer_torch.ops.kernels import (
     rowmin_cuda, rowmin_plain)
 from pointcloud_style_transfer_torch.ops.kernels import knn_packed
 from pointcloud_style_transfer_torch.ops.kernels.fps import (
-    CLUSTER_SIZES as FPS_CLUSTER_SIZES, MAX_THREADS as FPS_MAX_THREADS, PERS,
-    fps_plan)
+    CLUSTER_SIZES as FPS_CLUSTER_SIZES, MAX_POINTS as FPS_MAX_POINTS,
+    MAX_THREADS as FPS_MAX_THREADS, PERS, STREAM, fps_plan)
 from pointcloud_style_transfer_torch.ops.kernels.knn import (
     CLUSTER_SIZES, knn_topk_plan)
 from pointcloud_style_transfer_torch.ops.kernels._common import (
@@ -168,6 +173,28 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, name: str, reps: int = 30) -> float:
+    """Mean device time in ms of the kernel each call of ``fn`` launches
+    whose name contains ``name``, over the launches the profiler's trace
+    holds (it may drop one): the kernel's own time. ``cuda_ms`` times
+    back-to-back calls, which the wrapper's host time paces once the kernel
+    is shorter than it (~0.05-0.08 ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in events)
+    if not reps // 2 <= count <= reps:
+        fail(f"device_ms: {count} '{name}' kernels traced in {reps} calls")
+    return sum(e.self_device_time_total for e in events) / 1e3 / count
+
+
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_FLOPS * 1e3
@@ -222,7 +249,7 @@ def ptxas_usage(log: str) -> list[tuple[str, int, int]]:
 
 
 # the kernels whose every instantiation must keep its state in registers
-NO_SPILL_SOURCES = ("knn_topk", "fps")
+NO_SPILL_SOURCES = ("knn_topk", "fps", "grid_fused")
 
 
 def phase_build() -> None:
@@ -374,6 +401,7 @@ def phase_kernels(rng: np.random.Generator, dev: torch.device) -> dict:
     phase_min_sq_dist(rng, dev)
     phase_knn_plans(query, ref, records["knn_topk"])
     phase_knn_large_k(query[:, :M_POINTS].contiguous(), ref)
+    phase_knn_past_16(query, ref, records["knn_topk"])
     records.update(phase_grid_kernels(rng, query, ref))
     records.update(phase_packed_kernels(query, ref, records["knn_topk"]))
     records["knn_pruned"] = phase_pruned_kernel(query, ref,
@@ -500,11 +528,46 @@ def knn_neighbours(q: torch.Tensor, ref: torch.Tensor, k: int,
         + ("" if best == plan else f" (S={best} faster)"))
 
 
+def phase_knn_past_16(query: torch.Tensor, ref: torch.Tensor,
+                      record: dict) -> None:
+    """The kNN kernel past the register lists' k = 16 (its global-list
+    kernel, no cluster) at k = 17, 32 and 64, at the brute path's 90,000 x
+    30,000 and on a 2,500-row patch: one launch per call, indices and
+    distance bits identical to the plain version."""
+    rng = np.random.default_rng(7)  # the phase's own, as below
+    m = ref.shape[1]
+    patch = query[:, torch.from_numpy(np.sort(rng.choice(
+        query.shape[1], 2500, replace=False))).to(query.device)].contiguous()
+    record["k_past_16"] = {}
+    for k in (17, 32, 64):
+        for q in (query, patch):
+            nq = q.shape[1]
+            before = LAUNCH_COUNTS["knn_topk"]
+            d, i = knn_topk_cuda(q, ref, k)
+            launches = LAUNCH_COUNTS["knn_topk"] - before
+            d_p, i_p = knn_topk_plain(q, ref, k)
+            torch.cuda.synchronize()
+            what = f"knn_topk {nq}x{m} k={k}"
+            if launches != 1:
+                fail(f"{what}: {launches} launches for one call")
+            check_equal(what, i, i_p)
+            check_equal(what, d.view(torch.int32), d_p.view(torch.int32),
+                        "distance bits")
+            ms = cuda_ms(lambda: knn_topk_cuda(q, ref, k), reps=5)
+            b_ms, b_by = bound_ms((nq + m) * 12 + nq * k * 8, 8.0 * nq * m)
+            record["k_past_16"][f"{nq}x{m} k={k}"] = dict(
+                ms=ms, bound_ms=b_ms, bound_no_fma_ms=no_fma_ms(8.0 * nq * m))
+            print(f"[kernels] {what} (global lists, no cluster): indices and "
+                  f"distance bits identical, 1 launch; kernel {ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}; no-FMA "
+                  f"{no_fma_ms(8.0 * nq * m):.4f} ms)")
+
+
 def phase_knn_large_k(query: torch.Tensor, ref: torch.Tensor) -> None:
     """The kNN kernel at 30,000 x 30,000 with k = 1 (the Chamfer gradient's
-    shape), 9 (``uniformity_score``'s k + 1) and its cap 16: indices and
-    distance bits identical to the plain version, the plan against its
-    neighbours."""
+    shape), 9 (``uniformity_score``'s k + 1) and the register lists' cap 16:
+    indices and distance bits identical to the plain version, the plan
+    against its neighbours."""
     nq, m = query.shape[1], ref.shape[1]
     for k in (1, 9, 16):
         d, i = knn_topk_cuda(query, ref, k)
@@ -560,9 +623,11 @@ def phase_knn_plans(query: torch.Tensor, ref: torch.Tensor,
         if rows == 2500:
             lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(q[0], ref[0]), k,
                                                 largest=False), reps=5)
-            lib = f", library (cdist+topk) {lib_ms:.4f} ms"
+            dev_ms = device_ms(lambda: knn_topk_cuda(q, ref, k), "knn_topk")
+            lib = (f", device time {dev_ms:.4f} ms, library (cdist+topk) "
+                   f"{lib_ms:.4f} ms")
             record["patch_2500"] = dict(
-                plan=dict(S=plan), ms=ms, bound_ms=b_ms,
+                plan=dict(S=plan), ms=ms, device_ms=dev_ms, bound_ms=b_ms,
                 bound_no_fma_ms=no_fma_ms(ops), library_ms=lib_ms)
         print(f"[kernels] knn_topk {rows}x{m} k={k}, plan S={plan}: indices "
               f"and distance bits identical, {launches} launch per call; "
@@ -586,11 +651,13 @@ def fps_neighbours(n: int) -> list[tuple[int, int, int]]:
 
 
 def phase_fps_plans(ref: torch.Tensor, record: dict) -> None:
-    """FPS at the kernel's cap, 65,536 -> 512, and on three 30,000-point
+    """FPS at the registers' cap, 65,536 -> 512, and on three 30,000-point
     lattice clouds (tied maxima, within and across ranks), identical to the
-    plain version; then at 30,000 -> 512, 8,192 -> 512, 512 -> 128 and
-    65,536 -> 512 the plan against its neighbours (``fps_neighbours``),
-    each identical to the plan's, in us per iteration."""
+    plain version; the streaming kernel at 70,000 and 120,000 -> 512 (and
+    forced at 65,536), identical, one launch a call; then at 30,000 -> 512,
+    8,192 -> 512, 512 -> 128 and 65,536 -> 512 the plan against its
+    neighbours (``fps_neighbours``), each identical to the plan's, in us per
+    iteration."""
     rng = np.random.default_rng(6)  # the phase's own, as above
     dev = ref.device
     big = torch.from_numpy(normalize_point_cloud(make_cloud(
@@ -610,6 +677,39 @@ def phase_fps_plans(ref: torch.Tensor, record: dict) -> None:
         print(f"[kernels] fps {name}, plan (S, threads, PER) {fps_plan(n)}: "
               f"indices identical; kernel {ms:.4f} ms "
               f"({1e3 * ms / 512:.3f} us per iteration)")
+
+    # past the registers' 65,536 points: the streaming kernel, and at
+    # 65,536 the streaming kernel forced against the resident one
+    record["stream"] = {}
+    for n in (70000, N_POINTS, 65536):
+        xyz = big if n == 65536 else torch.from_numpy(normalize_point_cloud(
+            make_cloud(rng, n))[0])[None].to(dev)
+        start = torch.from_numpy(rng.integers(0, n, 1).astype(np.int32)
+                                 ).to(dev)
+        plans = [fps_plan(n)] + ([(8, 1024, STREAM)] if n <= FPS_MAX_POINTS
+                                 else [(4, 1024, STREAM), (8, 512, STREAM)])
+        want = fps_plain(xyz, 512, start)
+        times = {}
+        for plan in plans:
+            before = LAUNCH_COUNTS["fps"]
+            got = fps_cuda(xyz, 512, start, plan=plan)
+            torch.cuda.synchronize()
+            if LAUNCH_COUNTS["fps"] != before + 1:
+                fail(f"fps {n}->512 plan {plan}: not one launch")
+            check_equal(f"fps {n}->512 plan {plan}", got, want)
+            times[plan] = cuda_ms(lambda: fps_cuda(xyz, 512, start,
+                                                   plan=plan), reps=5)
+        b_ms, b_by = bound_ms(n * 12 + 4 + 512 * 4, 9.0 * 512 * n)
+        if n > FPS_MAX_POINTS:
+            record["stream"][f"{n}->512"] = dict(
+                plan=list(plans[0]), ms=times[plans[0]], bound_ms=b_ms)
+        print(f"[kernels] fps {n}->512, plan {fps_plan(n)}: indices "
+              f"identical under every plan (PER {STREAM}: the streaming "
+              f"kernel, distances in global scratch), one launch a call; ms "
+              f"(us per iteration) by plan: " + ", ".join(
+                  f"{p} {t:.4f} ({1e3 * t / 512:.3f})"
+                  for p, t in times.items())
+              + f"; bound {b_ms:.5f} ms ({b_by}; latency-bound)")
 
     start = torch.zeros(1, dtype=torch.int32, device=dev)
     small = index_points(ref, fps_cuda(ref, 512, start)).contiguous()
@@ -650,57 +750,112 @@ def phase_grid_kernels(rng: np.random.Generator, query: torch.Tensor,
     sl = grid_knn._layout_slots(struct, query[0], GRID_SHAPE, GRID_TQ,
                                 SLOT_CAP)
     q_pad, refs_pad, st, en = sl.q_pad, struct.refs_pad, sl.st, sl.en
+    n_real = sl.n_real
     vals_pad = grid_knn._sorted_values(struct, vals)
     T, S = st.shape
     runs = (en - st).clamp(min=0).sum(1)  # candidates per tile
-    # the pairs this data needs: each real query against its tile's runs
-    # (the kernel also scans for the layout's padding queries)
-    pairs = int((sl.real.sum(1) * runs).sum())
-    shape = (f"{nq} queries in {T} tiles of {GRID_TQ}, {S} slots, "
+    # the pairs this data needs: each real query against its tile's runs;
+    # the kernel scans whole warps that hold a real row, the parent's
+    # kernel every row of every tile
+    pairs = int((n_real * runs).sum())
+    warp_rows = (-(-n_real // 32) * 32).clamp(max=GRID_TQ)
+    scanned = int((warp_rows * runs).sum())
+    scanned_all = GRID_TQ * int(runs.sum())
+    shape = (f"{nq} queries in {T} tiles of {GRID_TQ} ({int(n_real.sum())} "
+             f"real rows, {int((n_real == 0).sum())} empty tiles), {S} slots, "
              f"{m} refs, k=3")
     print(f"[kernels] grid tables {GRID_SHAPE}/{SLOT_CAP}: {shape}; "
           f"candidates per tile mean {runs.float().mean():.1f}, max "
-          f"{int(runs.max())}; {pairs} pairs for real queries, "
-          f"{GRID_TQ * int(runs.sum())} scanned with padding (brute force: "
-          f"{nq * m})")
+          f"{int(runs.max())}; pairs needed {pairs}, scanned {scanned} "
+          f"(warps with a real row), {scanned_all} without n_real (brute "
+          f"force: {nq * m})")
 
-    v_k, d_k = grid_interp_cuda(q_pad, refs_pad, vals_pad, st, en, 3)
-    v_p, d_p = grid_interp_plain(q_pad, refs_pad, vals_pad, st, en, 3)
-    d_t, i_t = grid_topk_cuda(q_pad, refs_pad, st, en, 3)
-    d_tp, i_tp = grid_topk_plain(q_pad, refs_pad, st, en, 3)
-    torch.cuda.synchronize()
-    full = d_p[:, -1] < 1e29
-    check_equal("grid_interp", d_k[full], d_p[full], "distances")
-    check_equal("grid_topk", d_t[full], d_tp[full], "distances")
-    check_equal("grid_topk", i_t[full], i_tp[full], "positions")
-    v_err = values_err(v_k[full], v_p[full])
-    if not np.isfinite(v_err) or not torch.isfinite(v_k).all():
-        fail("grid_interp: values differ from the plain version beyond "
-             "rtol 1e-6, atol 1e-6 * max|v| (or are not finite)")
-    in_bytes = (q_pad.numel() + refs_pad.numel() + st.numel() + en.numel()) * 4
+    def check_grid(name: str, refs_pad: torch.Tensor, n_real=None
+                   ) -> tuple[float, torch.Tensor, torch.Tensor]:
+        """Both kernels against the plain versions: distances and positions
+        identical on every row, values within rtol 1e-6, atol 1e-6 *
+        max|v| on rows with 3 candidates; returns (max |v| err, d, i)."""
+        v_k, d_k = grid_interp_cuda(q_pad, refs_pad, vals_pad, st, en, 3,
+                                    n_real=n_real)
+        v_p, d_p = grid_interp_plain(q_pad, refs_pad, vals_pad, st, en, 3,
+                                     n_real=n_real)
+        d_t, i_t = grid_topk_cuda(q_pad, refs_pad, st, en, 3, n_real=n_real)
+        d_tp, i_tp = grid_topk_plain(q_pad, refs_pad, st, en, 3,
+                                     n_real=n_real)
+        torch.cuda.synchronize()
+        for what, got, want in (("grid_interp", d_k, d_p),
+                                ("grid_topk", d_t, d_tp)):
+            check_equal(f"{what} {name}", got.view(torch.int32),
+                        want.view(torch.int32), "distance bits")
+        check_equal(f"grid_topk {name}", i_t, i_tp, "positions")
+        full = d_p[:, -1] < 1e29
+        err = values_err(v_k[full], v_p[full])
+        if not np.isfinite(err) or not torch.isfinite(v_k).all():
+            fail(f"grid_interp {name}: values differ from the plain version "
+                 "beyond rtol 1e-6, atol 1e-6 * max|v| (or are not finite)")
+        return err, d_t, i_t
+
+    v_err, d_t, _ = check_grid("with n_real", refs_pad, n_real)
+    check_grid("without n_real", refs_pad)
+    full = d_t[:, -1] < 1e29
+    # a NaN ref of each sign inside the first run of every 7th tile, set
+    # on the host (a -nan scalar written on the card loses its sign bit)
+    first = torch.unique(st[::7, 0][en[::7, 0] > st[::7, 0] + 1].long() + 1)
+    host = refs_pad.cpu().numpy().copy()
+    host[first[0::2].cpu().numpy(), 0] = -np.nan
+    host[first[1::2].cpu().numpy(), 1] = np.nan
+    nan_refs = torch.from_numpy(host).to(refs_pad.device)
+    if not torch.signbit(nan_refs[first[0], 0]):
+        fail("the grid's NaN check lost the sign bit of its -nan refs")
+    _, d_n, i_n = check_grid("with NaN refs of both signs", nan_refs, n_real)
+    if torch.isin(i_n[d_n < 1e29], first.int()).any():
+        fail("grid_topk took a NaN ref")
+    print(f"[kernels] grid kernels: distance bits and positions identical to "
+          f"the plain versions on all {len(full)} rows with and without "
+          f"n_real and with {len(first)} NaN refs of both signs (never "
+          f"taken); max |v| err {v_err:.3g} on the {int(full.sum())} rows "
+          "with 3 candidates")
+
+    in_bytes = (q_pad.numel() + refs_pad.numel() + st.numel() + en.numel()
+                + n_real.numel()) * 4
     for name, fn, plain, out_bytes, err in (
             ("grid_interp",
-             lambda: grid_interp_cuda(q_pad, refs_pad, vals_pad, st, en, 3),
-             lambda: grid_interp_plain(q_pad, refs_pad, vals_pad, st, en, 3),
-             vals_pad.numel() * 4 + (v_k.numel() + d_k.numel()) * 4, v_err),
-            ("grid_topk", lambda: grid_topk_cuda(q_pad, refs_pad, st, en, 3),
-             lambda: grid_topk_plain(q_pad, refs_pad, st, en, 3),
-             (d_t.numel() + i_t.numel()) * 4, 0.0)):
-        ms = cuda_ms(fn, reps=20)
+             lambda **kw: grid_interp_cuda(q_pad, refs_pad, vals_pad, st, en,
+                                           3, **kw),
+             lambda: grid_interp_plain(q_pad, refs_pad, vals_pad, st, en, 3,
+                                       n_real=n_real),
+             vals_pad.numel() * 4 + q_pad.shape[0] * (vals.shape[1] + 3) * 4,
+             v_err),
+            ("grid_topk",
+             lambda **kw: grid_topk_cuda(q_pad, refs_pad, st, en, 3, **kw),
+             lambda: grid_topk_plain(q_pad, refs_pad, st, en, 3,
+                                     n_real=n_real),
+             q_pad.shape[0] * 3 * 8, 0.0)):
+        ms = device_ms(lambda: fn(n_real=n_real), name)
+        ms_all = device_ms(lambda: fn(), name)
+        call_ms = cuda_ms(lambda: fn(n_real=n_real), reps=50)
         plain_ms = cuda_ms(plain, reps=2)
         b_ms, b_by = bound_ms(in_bytes + out_bytes, 8.0 * pairs)
+        nf_ms = no_fma_ms(8.0 * pairs)
         records[name] = dict(
             name=name, route="cuda",
             source="pointcloud_style_transfer_torch/csrc/grid_fused.cu",
             replaces="pointcloud_style_transfer_tpu/ops/pallas/grid_fused.py:"
                      + ("127" if name == "grid_interp" else "53"),
-            shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        print(f"[kernels] {name}: {int(full.sum())} of {len(full)} rows with "
-              f"3 candidates, distances and positions identical, max |v| err "
-              f"{err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{b_ms:.5f} ms ({b_by}, {pairs} pairs); library: none "
-              "(no PyTorch call computes a kNN over slot runs)")
+            shape=shape, max_abs_err=err,
+            ms=ms, ms_without_n_real=ms_all, ms_per_call=call_ms,
+            plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, bound_no_fma_ms=nf_ms,
+            pairs_needed=pairs, pairs_scanned=scanned, library_ms=None)
+        print(f"[kernels] {name}: kernel {ms:.4f} ms device time with "
+              f"n_real (the main path's call), {ms_all:.4f} ms without; "
+              f"{call_ms:.4f} ms per back-to-back call (events); plain "
+              f"{plain_ms:.3f} ms; bound {b_ms:.5f} ms ({b_by}, {pairs} "
+              f"pairs), no-FMA "
+              f"{nf_ms:.5f} ms, half of it reached: "
+              f"{'yes' if ms <= 2 * nf_ms else 'no'} ({100 * nf_ms / ms:.0f}%)"
+              f"; library: none (no PyTorch call computes a kNN over slot "
+              f"runs)")
 
     # the grid's interpolation after its fallback vs brute interpolation
     grid_knn.UNSAFE_COUNTS.clear()
@@ -980,7 +1135,8 @@ def grid_breakdown(q: torch.Tensor, r: torch.Tensor,
     sl, ms["layout+tables"] = best(lambda: grid_knn._layout_slots(
         struct, q, GRID_SHAPE, GRID_TQ, SLOT_CAP))
     (v, d), ms["kernel"] = best(lambda: grid_interp_cuda(
-        sl.q_pad, struct.refs_pad, vals_pad, sl.st, sl.en, 3))
+        sl.q_pad, struct.refs_pad, vals_pad, sl.st, sl.en, 3,
+        n_real=sl.n_real))
     safe, ms["margins"] = best(lambda: grid_knn._safe_rows(struct, sl, d, 3,
                                                            GRID_SHAPE))
     unsafe = ~safe.reshape(-1) & (sl.orig_pad < nq)

@@ -33,6 +33,12 @@
 // Two slots suffice: a rank writes slot it & 1 again at iteration it + 2
 // only after barrier it + 1, which every rank reaches after its reads of
 // iteration it. A last barrier keeps every rank alive while it is read.
+// Clouds larger than a cluster's registers hold (8 x 1024 x 8 = 65,536
+// points) take fps_stream_kernel: the same slices, iteration and reductions,
+// but each point's running distance lives in a global scratch array [B, n]
+// (480 KB at 120,000 points, resident in L2) and its coordinates are re-read
+// every iteration; each thread walks its points in ascending order, so its
+// own argmax keeps the lowest index on ties as above.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -81,6 +87,90 @@ __device__ __forceinline__ void warp_argmax_all(float& v, int& i) {
   }
 }
 
+// The iteration's winner over the whole cloud, from each thread's own
+// (best, best_i, bx, by, bz), its points being lo + j * blockDim.x + t:
+//   * a warp butterfly, its coordinates from the lane that owns it;
+//   * warp 0 over the warps' winners, written into slot it & 1 of the rank;
+//   * (S > 1) one cluster barrier, then in every warp lane r < S reads rank
+//     r's slot through distributed shared memory and a butterfly over the S
+//     lanes reduces them by the same rule, so all ranks reach the same
+//     winner and its coordinates, the next centre, without a broadcast.
+__device__ __forceinline__ void cloud_argmax(
+    float best, int best_i, float bx, float by, float bz, int lo, int it,
+    int S, Cand* s_warp, Cand* s_slot, int& far, float& cx, float& cy,
+    float& cz) {
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // the warp's winner, its coordinates from the lane that owns it
+  warp_argmax_all(best, best_i);
+  int owner = (best_i - lo) & 31;  // slots are lo + j * nt + t, 32 | nt
+  bx = __shfl_sync(0xffffffffu, bx, owner);
+  by = __shfl_sync(0xffffffffu, by, owner);
+  bz = __shfl_sync(0xffffffffu, bz, owner);
+  if (lane == 0)
+    s_warp[warp] = {make_float4(best, __int_as_float(best_i), bx, by),
+                    make_float4(bz, 0.f, 0.f, 0.f)};
+  __syncthreads();
+
+  // the rank's winner, from the warps' winners
+  if (warp == 0) {
+    Cand c = {make_float4(-CUDART_INF_F, __int_as_float(kNone), 0.f, 0.f),
+              make_float4(0.f, 0.f, 0.f, 0.f)};
+    if (lane < nt / 32) c = s_warp[lane];
+    float v = c.a.x;
+    int i = __float_as_int(c.a.y);
+    warp_argmax_all(v, i);
+    owner = ((i - lo) & (nt - 1)) >> 5;  // the warp that owns index i
+    const float x = __shfl_sync(0xffffffffu, c.a.z, owner);
+    const float y = __shfl_sync(0xffffffffu, c.a.w, owner);
+    const float z = __shfl_sync(0xffffffffu, c.b.x, owner);
+    if (lane == 0)
+      s_slot[it & 1] = {make_float4(v, __int_as_float(i), x, y),
+                        make_float4(z, 0.f, 0.f, 0.f)};
+  }
+
+  // every rank's winner, reduced alike by every warp of the cluster:
+  // lane r < S reads rank r's slot, a butterfly over the S lanes gives the
+  // winner, and the lane that read it hands out its coordinates
+  if (S > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    Cand c = {make_float4(-CUDART_INF_F, __int_as_float(kNone), 0.f, 0.f),
+              make_float4(0.f, 0.f, 0.f, 0.f)};
+    if (lane < S) {
+      const Cand* src = cluster.map_shared_rank(&s_slot[it & 1], lane);
+      c.a = src->a;
+      c.b.x = src->b.x;
+    }
+    float v = c.a.x;
+    int i = __float_as_int(c.a.y);
+    for (int off = S >> 1; off > 0; off >>= 1) {  // lanes [0, S) closed
+      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+      if (beats(ov, oi, v, i)) {
+        v = ov;
+        i = oi;
+      }
+    }
+    far = __shfl_sync(0xffffffffu, i, 0);
+    owner = __ffs(__ballot_sync(0xffffffffu, lane < S &&
+                                __float_as_int(c.a.y) == far)) - 1;
+    cx = __shfl_sync(0xffffffffu, c.a.z, owner);
+    cy = __shfl_sync(0xffffffffu, c.a.w, owner);
+    cz = __shfl_sync(0xffffffffu, c.b.x, owner);
+  } else {
+    __syncthreads();
+    const Cand c = s_slot[it & 1];
+    far = __float_as_int(c.a.y);
+    cx = c.a.z;
+    cy = c.a.w;
+    cz = c.b.x;
+  }
+}
+
 // grid (S, batch), clusters of (S, 1, 1), blockDim.x a power of two. Point
 // lo + j * blockDim.x + t of rank r's slice [lo, hi) lives in thread t's
 // register slot j; PER * blockDim.x >= hi - lo.
@@ -96,8 +186,6 @@ fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
   out += static_cast<size_t>(b) * npoint;
   const int nt = blockDim.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int rank = blockIdx.x;
   const int chunk = (n + S - 1) / S;
   const int lo = min(n, rank * chunk);
@@ -122,7 +210,6 @@ fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
   float cx = __ldg(xyz + static_cast<size_t>(far) * 3);
   float cy = __ldg(xyz + static_cast<size_t>(far) * 3 + 1);
   float cz = __ldg(xyz + static_cast<size_t>(far) * 3 + 2);
-  cg::cluster_group cluster = cg::this_cluster();
 
   for (int it = 0; it < npoint; ++it) {
     if (rank == 0 && tid == 0) out[it] = far;
@@ -140,80 +227,70 @@ fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
         bz = pz[j];
       }
     }
-    int best_i = best_j < 0 ? kNone : lo + best_j * nt + tid;
-
-    // the warp's winner, its coordinates from the lane that owns it
-    warp_argmax_all(best, best_i);
-    int owner = (best_i - lo) & 31;  // slots are lo + j * nt + t, 32 | nt
-    bx = __shfl_sync(0xffffffffu, bx, owner);
-    by = __shfl_sync(0xffffffffu, by, owner);
-    bz = __shfl_sync(0xffffffffu, bz, owner);
-    if (lane == 0)
-      s_warp[warp] = {make_float4(best, __int_as_float(best_i), bx, by),
-                      make_float4(bz, 0.f, 0.f, 0.f)};
-    __syncthreads();
-
-    // the rank's winner, from the warps' winners
-    if (warp == 0) {
-      Cand c = {make_float4(-CUDART_INF_F, __int_as_float(kNone), 0.f, 0.f),
-                make_float4(0.f, 0.f, 0.f, 0.f)};
-      if (lane < nt / 32) c = s_warp[lane];
-      float v = c.a.x;
-      int i = __float_as_int(c.a.y);
-      warp_argmax_all(v, i);
-      owner = ((i - lo) & (nt - 1)) >> 5;  // the warp that owns index i
-      const float x = __shfl_sync(0xffffffffu, c.a.z, owner);
-      const float y = __shfl_sync(0xffffffffu, c.a.w, owner);
-      const float z = __shfl_sync(0xffffffffu, c.b.x, owner);
-      if (lane == 0)
-        s_slot[it & 1] = {make_float4(v, __int_as_float(i), x, y),
-                          make_float4(z, 0.f, 0.f, 0.f)};
-    }
-
-    // every rank's winner, reduced alike by every warp of the cluster:
-    // lane r < S reads rank r's slot, a butterfly over the S lanes gives the
-    // winner, and the lane that read it hands out its coordinates
-    if (S > 1) {
-      cluster.sync();
-      Cand c = {make_float4(-CUDART_INF_F, __int_as_float(kNone), 0.f, 0.f),
-                make_float4(0.f, 0.f, 0.f, 0.f)};
-      if (lane < S) {
-        const Cand* src = cluster.map_shared_rank(&s_slot[it & 1], lane);
-        c.a = src->a;
-        c.b.x = src->b.x;
-      }
-      float v = c.a.x;
-      int i = __float_as_int(c.a.y);
-      for (int off = S >> 1; off > 0; off >>= 1) {  // lanes [0, S) closed
-        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-        if (beats(ov, oi, v, i)) {
-          v = ov;
-          i = oi;
-        }
-      }
-      far = __shfl_sync(0xffffffffu, i, 0);
-      owner = __ffs(__ballot_sync(0xffffffffu, lane < S &&
-                                  __float_as_int(c.a.y) == far)) - 1;
-      cx = __shfl_sync(0xffffffffu, c.a.z, owner);
-      cy = __shfl_sync(0xffffffffu, c.a.w, owner);
-      cz = __shfl_sync(0xffffffffu, c.b.x, owner);
-    } else {
-      __syncthreads();
-      const Cand c = s_slot[it & 1];
-      far = __float_as_int(c.a.y);
-      cx = c.a.z;
-      cy = c.a.w;
-      cz = c.b.x;
-    }
+    const int best_i = best_j < 0 ? kNone : lo + best_j * nt + tid;
+    cloud_argmax(best, best_i, bx, by, bz, lo, it, S, s_warp, s_slot, far,
+                 cx, cy, cz);
   }
-  if (S > 1) cluster.sync();  // no rank exits while its slots are read
+  if (S > 1) cg::this_cluster().sync();  // no rank exits while read
 }
 
-template <int PER>
-cudaError_t launch(const float* xyz, const int* start, int* out, int batch,
-                   int n, int npoint, int S, int threads,
-                   cudaStream_t stream) {
+// As fps_kernel, for any n: point lo + j * blockDim.x + t of rank r's slice
+// is thread t's j-th point, its coordinates read from xyz and its running
+// distance from dist [batch, n] (global scratch, never read before it is
+// written: iteration 0 starts from the initial distance) every iteration.
+__global__ void __launch_bounds__(kMaxThreads, 1)
+fps_stream_kernel(const float* __restrict__ xyz,
+                  const int* __restrict__ start, float* __restrict__ dist,
+                  int* __restrict__ out, int n, int npoint, int S) {
+  __shared__ Cand s_warp[kMaxWarps];
+  __shared__ Cand s_slot[2];
+
+  const int b = blockIdx.y;
+  xyz += static_cast<size_t>(b) * n * 3;
+  dist += static_cast<size_t>(b) * n;
+  out += static_cast<size_t>(b) * npoint;
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int rank = blockIdx.x;
+  const int chunk = (n + S - 1) / S;
+  const int lo = min(n, rank * chunk);
+  const int hi = min(n, lo + chunk);
+
+  int far = start[b];
+  float cx = __ldg(xyz + static_cast<size_t>(far) * 3);
+  float cy = __ldg(xyz + static_cast<size_t>(far) * 3 + 1);
+  float cz = __ldg(xyz + static_cast<size_t>(far) * 3 + 2);
+
+  for (int it = 0; it < npoint; ++it) {
+    if (rank == 0 && tid == 0) out[it] = far;
+
+    float best = -CUDART_INF_F, bx = 0.f, by = 0.f, bz = 0.f;
+    int best_i = kNone;
+#pragma unroll 4
+    for (int p = lo + tid; p < hi; p += nt) {
+      const float x = __ldg(xyz + static_cast<size_t>(p) * 3);
+      const float y = __ldg(xyz + static_cast<size_t>(p) * 3 + 1);
+      const float z = __ldg(xyz + static_cast<size_t>(p) * 3 + 2);
+      const float old = it == 0 ? kInitDist : dist[p];
+      const float d = fminf(old, sq_dist(x, y, z, cx, cy, cz));
+      dist[p] = d;
+      if (d > best) {  // strict: the thread's lowest index wins ties
+        best = d;
+        best_i = p;
+        bx = x;
+        by = y;
+        bz = z;
+      }
+    }
+    cloud_argmax(best, best_i, bx, by, bz, lo, it, S, s_warp, s_slot, far,
+                 cx, cy, cz);
+  }
+  if (S > 1) cg::this_cluster().sync();  // no rank exits while read
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int batch, int S, int threads,
+                   cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(S, batch, 1);
   cfg.blockDim = dim3(threads, 1, 1);
@@ -226,34 +303,43 @@ cudaError_t launch(const float* xyz, const int* start, int* out, int batch,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = S > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, fps_kernel<PER>, xyz, start, out, n, npoint,
-                            S);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 }  // namespace
 
 // xyz [batch, n, 3] f32, start [batch] i32 (each in [0, n)) -> out
 // [batch, npoint] i32, all contiguous. The plan: S in {1, 2, 4, 8} ranks per
-// cluster, threads per block a power of two in [32, 1024], PER in {1, 2, 4,
-// 8} points per thread, with S * threads * PER >= n (so n <= 64 * 1024).
-// Returns the CUDA error code of the launch (0 on success).
+// cluster, threads per block a power of two in [32, 1024], and PER in {1, 2,
+// 4, 8} points per thread held in registers, with S * threads * PER >= n
+// (so n <= 64 * 1024), or PER = 0: any n, the running distances in scratch
+// [batch, n] f32. Returns the CUDA error code of the launch (0 on success).
 extern "C" int pcst_fps(const void* xyz, const void* start, void* out,
-                        int batch, int n, int npoint, int S, int threads,
-                        int per, void* stream) {
+                        void* scratch, int batch, int n, int npoint, int S,
+                        int threads, int per, void* stream) {
   if ((S != 1 && S != 2 && S != 4 && S != 8) || threads < 32 ||
       threads > kMaxThreads || (threads & (threads - 1)) != 0 ||
-      static_cast<long long>(threads) * per < (n + S - 1) / S)
+      (per == 0 && scratch == nullptr) ||
+      (per != 0 && static_cast<long long>(threads) * per < (n + S - 1) / S))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* x = static_cast<const float*>(xyz);
   const int* st = static_cast<const int*>(start);
   int* o = static_cast<int*>(out);
+  float* d = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (per) {
-    case 1: err = launch<1>(x, st, o, batch, n, npoint, S, threads, s); break;
-    case 2: err = launch<2>(x, st, o, batch, n, npoint, S, threads, s); break;
-    case 4: err = launch<4>(x, st, o, batch, n, npoint, S, threads, s); break;
-    case 8: err = launch<8>(x, st, o, batch, n, npoint, S, threads, s); break;
+#define PCST_PER(P)                                                        \
+  case P:                                                                  \
+    err = launch(fps_kernel<P>, batch, S, threads, s, x, st, o, n, npoint, \
+                 S);                                                       \
+    break;
+    PCST_PER(1) PCST_PER(2) PCST_PER(4) PCST_PER(8)
+#undef PCST_PER
+    case 0:
+      err = launch(fps_stream_kernel, batch, S, threads, s, x, st, d, o, n,
+                   npoint, S);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t last = cudaGetLastError();  // also clears a launch error

@@ -15,24 +15,43 @@
 //   * a running sorted top-k that starts at (1e30, position 0) and takes a
 //     candidate only when (d, position) is lexicographically smaller than
 //     its last entry, so ties resolve to the lowest sorted position whatever
-//     order the slots come in;
+//     order the candidates come in; a NaN distance is never taken;
+//   * rows at or past n_real[t] (the layout's padding, a suffix of each
+//     tile) keep the start list (1e30, 0); without n_real every row is real;
 //   * interpolation: w_u = 1/(sqrt(max(d_u, 0)) + eps), wsum = (w_0 + w_1)
 //     + ..., v_c = sum_u (w_u / wsum) * vals[pos_u, c], summed in u order;
 //   * top-k positions clipped to [0, m_pad - 1].
 //
 // What bounds it on the card: operations. At the sampler's shapes (896
 // tiles of 128 queries, three y-run slots, about 1,230 candidates a tile)
-// the real queries need 1.14e8 pairs of 8 float ops (0.014 ms at the
-// float32 peak) against about 3 MB of inputs and outputs; an H100 runs the
-// launch in about 0.14 ms (chip_smoke.py). Design: one block per tile, one
-// thread per query, its top-k in registers (unrolled insert, no local
-// memory); the block stages each slot's run of refs through shared memory
-// as float4, so each pair costs one broadcast shared load. The TPU kernel's
-// 128-aligned windows, scalar prefetch and VMEM-resident ref array have no
-// counterpart: the block reads its own slot row and scans [st, en) exactly.
-// The values are not staged: the epilogue reads the k selected rows of
-// vals from global memory (30k x 3 floats stay in L2), which is k*C loads a
-// query instead of one per candidate.
+// the real queries need 1.14e8 pairs of 8 float ops that may not be fused
+// into FMAs: 0.027 ms at the card's FP32 issue rate, against about 3 MB of
+// inputs and outputs. The scan issues about 10 instructions a pair (the 8
+// float ops, three LDS.128 per four refs, a minimum and a compare per
+// eight), and a warp runs an insert whenever any of its 32 queries takes a
+// ref; PERF.md (PR 6) has the kernel's time against the bound. Design, one
+// block per tile, one thread per query, its top-k in registers (unrolled
+// insert, no local memory):
+//   * the layout's padding is not scanned: a tile with no real row skips
+//     straight to its epilogue, and so does every warp whose 32 rows are
+//     all padding (the real rows of a tile are a prefix of it);
+//   * the block stages the tile's runs through shared memory in chunks of
+//     kChunk refs, one pair of barriers per chunk, with coalesced loads, as
+//     four arrays x, y, z and sorted position; a thread reads four refs' x
+//     (y, z) in one LDS.128, 12 bytes a pair;
+//   * the staging order starts with the middle third of the middle slot
+//     (the tile's own row of its own slab on the grid's tables), so each
+//     query's k-th distance is tight early and inserts stay rare; any order
+//     gives the same result, since the insert compares (distance, sorted
+//     position) and positions travel with the refs;
+//   * the scan takes eight refs at a time, takes the minimum of their
+//     distances and tries the inserts only when it is <= the k-th distance
+//     (<=: an equal distance may still win on its position), as
+//     csrc/knn_topk.cu does.
+// The TPU kernel's 128-aligned windows, scalar prefetch and VMEM-resident
+// ref array have no counterpart: the block reads its own slot row and scans
+// [st, en) exactly. The values are not staged: the epilogue reads the k
+// selected rows of vals from global memory (30k x 3 floats stay in L2).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,7 +59,18 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;  // tq: one thread per query of a tile
-constexpr int kChunk = 1024;       // refs staged per shared-memory pass (16 KB)
+constexpr int kUnroll = 8;         // refs tried together before any insert
+// refs staged at a time, a multiple of 8, 16 bytes each (24 KB): a whole
+// tile of the sampler's tables (at most ~1,400 candidates). On an H100 at
+// those tables 256 to 2,048 time within 8% of each other, 3,072 ~25%
+// slower (fewer blocks fit an SM); tools/sweep_kernel_plans.py rebuilds
+// with -DPCST_GRID_CHUNK=n
+#ifndef PCST_GRID_CHUNK
+#define PCST_GRID_CHUNK 1536
+#endif
+constexpr int kChunk = PCST_GRID_CHUNK;
+static_assert(kChunk % 8 == 0 && kChunk * 16 <= 48 * 1024,
+              "the chunk is a multiple of 8 in static shared memory");
 constexpr float kBig = 1e30f;
 
 __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
@@ -52,76 +82,179 @@ __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
                    __fmul_rn(dz, dz));
 }
 
-// (d, p) before (e, q): lexicographic on (distance, sorted position)
+// (d, p) before (e, q): lexicographic on (distance, sorted position); a NaN
+// d is never before anything
 __device__ __forceinline__ bool before(float d, int p, float e, int q) {
   return d < e || (d == e && p < q);
 }
 
-// The top-k of the tile's candidates for this thread's query, ascending.
 template <int K>
-__device__ __forceinline__ void scan_slots(
-    const float* __restrict__ q_pad, const float* __restrict__ refs,
-    const int* __restrict__ st_tab, const int* __restrict__ en_tab,
-    int n_slots, int m_pad, float4* stage, float (&D)[K], int (&I)[K]) {
-  const int tile = blockIdx.x;
-  const size_t qi = static_cast<size_t>(tile) * blockDim.x + threadIdx.x;
-  const float qx = q_pad[qi * 3 + 0];
-  const float qy = q_pad[qi * 3 + 1];
-  const float qz = q_pad[qi * 3 + 2];
+__device__ __forceinline__ void insert(float (&D)[K], int (&I)[K], float d,
+                                       int p) {
+  if (before(d, p, D[K - 1], I[K - 1])) {
+    D[K - 1] = d;
+    I[K - 1] = p;
 #pragma unroll
-  for (int t = 0; t < K; ++t) {
-    D[t] = kBig;
-    I[t] = 0;
-  }
-  for (int s = 0; s < n_slots; ++s) {
-    const size_t slot = static_cast<size_t>(tile) * n_slots + s;
-    const int st = max(__ldg(st_tab + slot), 0);
-    const int en = min(__ldg(en_tab + slot), m_pad);
-    for (int base = st; base < en; base += kChunk) {
-      const int n = min(kChunk, en - base);
-      __syncthreads();  // the previous chunk is no longer read
-      for (int j = threadIdx.x; j < n; j += blockDim.x) {
-        const float* p = refs + static_cast<size_t>(base + j) * 3;
-        stage[j] = make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), 0.f);
-      }
-      __syncthreads();
-      for (int j = 0; j < n; ++j) {
-        const float4 r = stage[j];
-        const float d = sq_dist(qx, qy, qz, r.x, r.y, r.z);
-        const int p = base + j;
-        if (before(d, p, D[K - 1], I[K - 1])) {
-          D[K - 1] = d;
-          I[K - 1] = p;
-#pragma unroll
-          for (int t = K - 1; t > 0; --t) {
-            if (before(D[t], I[t], D[t - 1], I[t - 1])) {
-              const float td = D[t];
-              D[t] = D[t - 1];
-              D[t - 1] = td;
-              const int ti = I[t];
-              I[t] = I[t - 1];
-              I[t - 1] = ti;
-            }
-          }
-        }
+    for (int t = K - 1; t > 0; --t) {
+      if (before(D[t], I[t], D[t - 1], I[t - 1])) {
+        const float td = D[t];
+        D[t] = D[t - 1];
+        D[t - 1] = td;
+        const int ti = I[t];
+        I[t] = I[t - 1];
+        I[t - 1] = ti;
       }
     }
   }
 }
 
+// The staged chunk: refs as x[], y[], z[] and position p[] (each array
+// 16-byte aligned, for the LDS.128 reads).
+struct Stage {
+  alignas(16) float x[kChunk];
+  alignas(16) float y[kChunk];
+  alignas(16) float z[kChunk];
+  alignas(16) int p[kChunk];
+};
+
+// One staged chunk of n refs against this thread's query.
 template <int K>
-__global__ void __launch_bounds__(kMaxThreads)
+__device__ __forceinline__ void scan_chunk(const Stage& st, int n, float qx,
+                                           float qy, float qz, float (&D)[K],
+                                           int (&I)[K]) {
+  int j = 0;
+  for (; j + kUnroll <= n; j += kUnroll) {
+    float d[kUnroll];
+#pragma unroll
+    for (int h = 0; h < kUnroll; h += 4) {
+      const float4 x4 = *reinterpret_cast<const float4*>(st.x + j + h);
+      const float4 y4 = *reinterpret_cast<const float4*>(st.y + j + h);
+      const float4 z4 = *reinterpret_cast<const float4*>(st.z + j + h);
+      d[h] = sq_dist(qx, qy, qz, x4.x, y4.x, z4.x);
+      d[h + 1] = sq_dist(qx, qy, qz, x4.y, y4.y, z4.y);
+      d[h + 2] = sq_dist(qx, qy, qz, x4.z, y4.z, z4.z);
+      d[h + 3] = sq_dist(qx, qy, qz, x4.w, y4.w, z4.w);
+    }
+    // fminf drops a NaN; the inserts below refuse it on their own
+    const float lowest =
+        fminf(fminf(fminf(d[0], d[1]), fminf(d[2], d[3])),
+              fminf(fminf(d[4], d[5]), fminf(d[6], d[7])));
+    if (lowest <= D[K - 1]) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) insert<K>(D, I, d[u], st.p[j + u]);
+    }
+  }
+  for (; j < n; ++j)
+    insert<K>(D, I, sq_dist(qx, qy, qz, st.x[j], st.y[j], st.z[j]), st.p[j]);
+}
+
+// Piece i of the tile's staging order, [lo, lo + len) of the sorted refs:
+// the middle third of the middle slot's run, its first third, its last
+// third, then the other slots' runs in slot order (runs clipped to
+// [0, m_pad)). Together the pieces are the tile's runs, each ref once.
+__device__ __forceinline__ void piece(const int* st_row, const int* en_row,
+                                      int n_slots, int m_pad, int i, int& lo,
+                                      int& len) {
+  const int m = n_slots / 2;
+  if (i >= 3) {
+    const int s = i - 3 < m ? i - 3 : i - 2;
+    lo = max(__ldg(st_row + s), 0);
+    len = max(min(__ldg(en_row + s), m_pad) - lo, 0);
+    return;
+  }
+  const int mlo = max(__ldg(st_row + m), 0);
+  const int mlen = max(min(__ldg(en_row + m), m_pad) - mlo, 0);
+  const int a = mlen / 3, b = 2 * mlen / 3;
+  lo = mlo + (i == 0 ? a : i == 1 ? 0 : b);
+  len = i == 0 ? b - a : i == 1 ? a : mlen - b;
+}
+
+// The top-k of the tile's candidates for this thread's query, ascending;
+// the start list on a padding row.
+template <int K>
+__device__ __forceinline__ void scan_tile(
+    const float* __restrict__ q_pad, const float* __restrict__ refs,
+    const int* __restrict__ st_tab, const int* __restrict__ en_tab,
+    const int* __restrict__ n_real_tab, int n_slots, int m_pad, Stage& stage,
+    float (&D)[K], int (&I)[K]) {
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    D[u] = kBig;
+    I[u] = 0;
+  }
+  const int tile = blockIdx.x;
+  const int row = threadIdx.x;
+  const int tq = blockDim.x;
+  const int n_real = n_real_tab == nullptr
+                         ? tq
+                         : min(max(__ldg(n_real_tab + tile), 0), tq);
+  if (n_real == 0 || n_slots == 0) return;  // the whole block, no barrier
+  const bool scans = (row & ~31) < n_real;  // its warp holds a real row
+  const size_t qi = static_cast<size_t>(tile) * tq + row;
+  const float qx = q_pad[qi * 3 + 0];
+  const float qy = q_pad[qi * 3 + 1];
+  const float qz = q_pad[qi * 3 + 2];
+
+  const int* st_row = st_tab + static_cast<size_t>(tile) * n_slots;
+  const int* en_row = en_tab + static_cast<size_t>(tile) * n_slots;
+  const int n_pieces = n_slots + 2;
+  int total = 0;
+  for (int i = 0; i < n_pieces; ++i) {
+    int lo, len;
+    piece(st_row, en_row, n_slots, m_pad, i, lo, len);
+    total += len;
+  }
+  for (int c0 = 0; c0 < total; c0 += kChunk) {
+    const int n = min(kChunk, total - c0);
+    __syncthreads();  // the previous chunk is no longer read
+    // candidates [c0, c0 + n) of the staging order: piece i holds
+    // [pre, pre + len) of it, candidate c sorted position lo + c - pre
+    int pre = 0;
+    for (int i = 0; i < n_pieces && pre < c0 + n; ++i) {
+      int lo, len;
+      piece(st_row, en_row, n_slots, m_pad, i, lo, len);
+      const int a = max(pre, c0);
+      const int b = min(pre + len, c0 + n);
+      for (int c = a + row; c < b; c += tq) {
+        const int p = lo + (c - pre);
+        const float* r = refs + static_cast<size_t>(p) * 3;
+        stage.x[c - c0] = __ldg(r);
+        stage.y[c - c0] = __ldg(r + 1);
+        stage.z[c - c0] = __ldg(r + 2);
+        stage.p[c - c0] = p;
+      }
+      pre += len;
+    }
+    __syncthreads();
+    if (scans) scan_chunk<K>(stage, n, qx, qy, qz, D, I);
+  }
+  if (row >= n_real) {  // a padding row of a scanning warp
+#pragma unroll
+    for (int u = 0; u < K; ++u) {
+      D[u] = kBig;
+      I[u] = 0;
+    }
+  }
+}
+
+// grid (n_tiles), block tq threads: thread t serves row t of its tile.
+// (The minimum of one block per SM lets ptxas give the lists the registers
+// they need: without it grid_topk_kernel<3> stopped at 32 and spilled.)
+template <int K>
+__global__ void __launch_bounds__(kMaxThreads, 1)
 grid_interp_kernel(const float* __restrict__ q_pad,
                    const float* __restrict__ refs,
                    const float* __restrict__ vals,
                    const int* __restrict__ st_tab,
-                   const int* __restrict__ en_tab, float* __restrict__ v_out,
-                   float* __restrict__ d_out, int n_slots, int m_pad,
-                   int n_chan, float eps) {
-  __shared__ float4 stage[kChunk];
+                   const int* __restrict__ en_tab,
+                   const int* __restrict__ n_real,
+                   float* __restrict__ v_out, float* __restrict__ d_out,
+                   int n_slots, int m_pad, int n_chan, float eps) {
+  __shared__ Stage stage;
   float D[K];
   int I[K];
-  scan_slots<K>(q_pad, refs, st_tab, en_tab, n_slots, m_pad, stage, D, I);
+  scan_tile<K>(q_pad, refs, st_tab, en_tab, n_real, n_slots, m_pad, stage, D,
+               I);
 
   const size_t qi = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   float w[K];
@@ -147,16 +280,18 @@ grid_interp_kernel(const float* __restrict__ q_pad,
 }
 
 template <int K>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 grid_topk_kernel(const float* __restrict__ q_pad,
                  const float* __restrict__ refs,
                  const int* __restrict__ st_tab,
-                 const int* __restrict__ en_tab, float* __restrict__ d_out,
+                 const int* __restrict__ en_tab,
+                 const int* __restrict__ n_real, float* __restrict__ d_out,
                  int* __restrict__ i_out, int n_slots, int m_pad) {
-  __shared__ float4 stage[kChunk];
+  __shared__ Stage stage;
   float D[K];
   int I[K];
-  scan_slots<K>(q_pad, refs, st_tab, en_tab, n_slots, m_pad, stage, D, I);
+  scan_tile<K>(q_pad, refs, st_tab, en_tab, n_real, n_slots, m_pad, stage, D,
+               I);
 
   const size_t qi = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
 #pragma unroll
@@ -174,14 +309,16 @@ bool bad_shape(int n_tiles, int tq, int n_slots, int m_pad) {
 }  // namespace
 
 // q_pad [n_tiles*tq, 3] f32, refs [m_pad, 3] f32, vals [m_pad, n_chan] f32,
-// st/en [n_tiles, n_slots] i32 -> v_out [n_tiles*tq, n_chan] f32,
-// d_out [n_tiles*tq, k] f32, all contiguous. 1 <= k <= 8, 1 <= tq <= 1024.
-// Returns the CUDA error code of the launch (0 on success).
+// st/en [n_tiles, n_slots] i32, n_real [n_tiles] i32 or null (every row
+// real) -> v_out [n_tiles*tq, n_chan] f32, d_out [n_tiles*tq, k] f32, all
+// contiguous. 1 <= k <= 8, 1 <= tq <= 1024. Returns the CUDA error code of
+// the launch (0 on success).
 extern "C" int pcst_grid_interp(const void* q_pad, const void* refs,
                                 const void* vals, const void* st,
-                                const void* en, void* v_out, void* d_out,
-                                int n_tiles, int tq, int n_slots, int m_pad,
-                                int n_chan, int k, float eps, void* stream) {
+                                const void* en, const void* n_real,
+                                void* v_out, void* d_out, int n_tiles, int tq,
+                                int n_slots, int m_pad, int n_chan, int k,
+                                float eps, void* stream) {
   if (bad_shape(n_tiles, tq, n_slots, m_pad) || n_chan < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -190,35 +327,36 @@ extern "C" int pcst_grid_interp(const void* q_pad, const void* refs,
   const float* v = static_cast<const float*>(vals);
   const int* s = static_cast<const int*>(st);
   const int* e = static_cast<const int*>(en);
+  const int* nr = static_cast<const int*>(n_real);
   float* vo = static_cast<float*>(v_out);
   float* d = static_cast<float*>(d_out);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-#define PCST_INTERP(K)                                                     \
-  grid_interp_kernel<K><<<n_tiles, tq, 0, cs>>>(q, r, v, s, e, vo, d,      \
-                                                n_slots, m_pad, n_chan, eps)
   switch (k) {
-    case 1: PCST_INTERP(1); break;
-    case 2: PCST_INTERP(2); break;
-    case 3: PCST_INTERP(3); break;
-    case 4: PCST_INTERP(4); break;
-    case 5: PCST_INTERP(5); break;
-    case 6: PCST_INTERP(6); break;
-    case 7: PCST_INTERP(7); break;
-    case 8: PCST_INTERP(8); break;
+#define PCST_INTERP(K)                                                     \
+  case K:                                                                  \
+    grid_interp_kernel<K><<<n_tiles, tq, 0, cs>>>(q, r, v, s, e, nr, vo, d, \
+                                                  n_slots, m_pad, n_chan,  \
+                                                  eps);                    \
+    break;
+    PCST_INTERP(1) PCST_INTERP(2) PCST_INTERP(3) PCST_INTERP(4)
+    PCST_INTERP(5) PCST_INTERP(6) PCST_INTERP(7) PCST_INTERP(8)
+#undef PCST_INTERP
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef PCST_INTERP
+  // also clears a launch error
   return static_cast<int>(cudaGetLastError());
 }
 
 // q_pad [n_tiles*tq, 3] f32, refs [m_pad, 3] f32, st/en [n_tiles, n_slots]
-// i32 -> d_out [n_tiles*tq, k] f32, i_out [n_tiles*tq, k] i32 (sorted
-// positions), all contiguous. 1 <= k <= 8, 1 <= tq <= 1024. Returns the CUDA
-// error code of the launch (0 on success).
+// i32, n_real [n_tiles] i32 or null -> d_out [n_tiles*tq, k] f32, i_out
+// [n_tiles*tq, k] i32 (sorted positions), all contiguous. 1 <= k <= 8,
+// 1 <= tq <= 1024. Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int pcst_grid_topk(const void* q_pad, const void* refs,
-                              const void* st, const void* en, void* d_out,
-                              void* i_out, int n_tiles, int tq, int n_slots,
-                              int m_pad, int k, void* stream) {
+                              const void* st, const void* en,
+                              const void* n_real, void* d_out, void* i_out,
+                              int n_tiles, int tq, int n_slots, int m_pad,
+                              int k, void* stream) {
   if (bad_shape(n_tiles, tq, n_slots, m_pad)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -226,24 +364,22 @@ extern "C" int pcst_grid_topk(const void* q_pad, const void* refs,
   const float* r = static_cast<const float*>(refs);
   const int* s = static_cast<const int*>(st);
   const int* e = static_cast<const int*>(en);
+  const int* nr = static_cast<const int*>(n_real);
   float* d = static_cast<float*>(d_out);
   int* i = static_cast<int*>(i_out);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-#define PCST_TOPK(K)                                                       \
-  grid_topk_kernel<K><<<n_tiles, tq, 0, cs>>>(q, r, s, e, d, i, n_slots,  \
-                                              m_pad)
   switch (k) {
-    case 1: PCST_TOPK(1); break;
-    case 2: PCST_TOPK(2); break;
-    case 3: PCST_TOPK(3); break;
-    case 4: PCST_TOPK(4); break;
-    case 5: PCST_TOPK(5); break;
-    case 6: PCST_TOPK(6); break;
-    case 7: PCST_TOPK(7); break;
-    case 8: PCST_TOPK(8); break;
+#define PCST_TOPK(K)                                                       \
+  case K:                                                                  \
+    grid_topk_kernel<K><<<n_tiles, tq, 0, cs>>>(q, r, s, e, nr, d, i,      \
+                                                n_slots, m_pad);           \
+    break;
+    PCST_TOPK(1) PCST_TOPK(2) PCST_TOPK(3) PCST_TOPK(4)
+    PCST_TOPK(5) PCST_TOPK(6) PCST_TOPK(7) PCST_TOPK(8)
+#undef PCST_TOPK
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef PCST_TOPK
+  // also clears a launch error
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,10 +16,11 @@
 //   * the f32-packed keys are compared as unsigned integers, which orders
 //     non-negative floats as their values do and needs no denormal handling;
 //     a key is taken only below the current k-th key, so a distance that is
-//     NaN, infinite or >= 2^127 (its biased key has the sign bit set) and any
-//     key at or above the start value is never taken;
-//   * the int-packed keys are compared as signed integers and a NaN distance
-//     is never taken;
+//     infinite or >= 2^127 (its biased key has the sign bit set) and any key
+//     at or above the start value is never taken;
+//   * the int-packed keys are compared as signed integers;
+//   * a NaN distance is refused explicitly in both (d != d), whatever its
+//     sign bit: a set one would wrap the f32-packed key below every other;
 //   * the TPU wrappers pad the refs to a multiple of their tile with points
 //     at 1e15; here refs m..m_total-1 are those points, computed and not
 //     stored (all lie at one place, so only the first k can matter).
@@ -65,10 +66,11 @@ __device__ __forceinline__ int make_key(float d, int col, int idx_bits) {
 
 template <bool F32>
 __device__ __forceinline__ bool takes(float d, int key, int worst) {
+  if (d != d) return false;  // NaN
   if (F32) {
     return static_cast<uint32_t>(key) < static_cast<uint32_t>(worst);
   }
-  return d == d && key < worst;
+  return key < worst;
 }
 
 template <int K, bool F32>

@@ -33,6 +33,12 @@
 //     equal distance arriving later has the higher index and is refused: the
 //     result is the (distance, index)-lexicographic k smallest, as one scan
 //     gives. A second barrier keeps every rank alive while it is read.
+// Above k = 16 the lists leave the registers: knn_topk_global_kernel keeps
+// each query's sorted list in the output buffer itself (global memory, hot
+// in L1 and L2) and only its k-th distance in a register, with the same
+// ascending scan, eight-ref filter and strict '<', and no cluster. An insert
+// shifts the entries above it up by one, which is what the register
+// version's swap network does.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -184,6 +190,85 @@ knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
   }
 }
 
+// The sorted insert of d into a global list of k entries on strict '<';
+// returns the new k-th distance.
+__device__ __forceinline__ float insert_global(float* D, int* I, int k,
+                                               float d, int idx) {
+  int t = k - 1;
+  while (t > 0 && d < D[t - 1]) {
+    D[t] = D[t - 1];
+    I[t] = I[t - 1];
+    --t;
+  }
+  D[t] = d;
+  I[t] = idx;
+  return D[k - 1];
+}
+
+// grid (query blocks, batch), no cluster; any k >= 1. Thread t of query
+// block g serves query g * kThreads + t, its list at d_out/i_out [qi, :].
+__global__ void __launch_bounds__(kThreads)
+knn_topk_global_kernel(const float* __restrict__ query,
+                       const float* __restrict__ ref,
+                       float* __restrict__ d_out, int* __restrict__ i_out,
+                       int nq, int m, int k) {
+  __shared__ float4 smem[kTile];
+  const int b = blockIdx.y;
+  query += static_cast<size_t>(b) * nq * 3;
+  ref += static_cast<size_t>(b) * m * 3;
+  const int qi = blockIdx.x * kThreads + threadIdx.x;
+  const bool active = qi < nq;
+  float* D = d_out + (static_cast<size_t>(b) * nq + qi) * k;
+  int* I = i_out + (static_cast<size_t>(b) * nq + qi) * k;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (active) {
+    qx = query[static_cast<size_t>(qi) * 3 + 0];
+    qy = query[static_cast<size_t>(qi) * 3 + 1];
+    qz = query[static_cast<size_t>(qi) * 3 + 2];
+    for (int t = 0; t < k; ++t) {
+      D[t] = kBig;
+      I[t] = 0;
+    }
+  }
+  float kth = kBig;
+
+  for (int base = 0; base < m; base += kTile) {
+    const int n = min(kTile, m - base);
+    __syncthreads();  // the previous tile is no longer read
+    for (int j = threadIdx.x; j < n; j += kThreads) {
+      const float* p = ref + static_cast<size_t>(base + j) * 3;
+      smem[j] = make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), 0.f);
+    }
+    __syncthreads();
+    if (!active) continue;
+    int j = 0;
+    for (; j + kUnroll <= n; j += kUnroll) {
+      float d[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const float4 r = smem[j + u];
+        d[u] = sq_dist(qx, qy, qz, r.x, r.y, r.z);
+      }
+      float lowest = d[0];
+#pragma unroll
+      for (int u = 1; u < kUnroll; ++u) lowest = fminf(lowest, d[u]);
+      if (lowest < kth) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (d[u] < kth) kth = insert_global(D, I, k, d[u], base + j + u);
+      }
+    }
+    for (; j < n; ++j) {
+      const float4 r = smem[j];
+      const float d = sq_dist(qx, qy, qz, r.x, r.y, r.z);
+      if (d < kth) kth = insert_global(D, I, k, d, base + j);
+    }
+  }
+  if (active) {
+    for (int t = 0; t < k; ++t) I[t] = min(max(I[t], 0), m - 1);
+  }
+}
+
 // 16 lists of kThreads (distance, index) pairs fit the tile
 static_assert(16 * kThreads * 8 <= kTile * sizeof(float4), "lists > tile");
 
@@ -207,20 +292,25 @@ cudaError_t launch(const float* q, const float* r, float* d, int* i,
 }  // namespace
 
 // query [batch, nq, 3] f32, ref [batch, m, 3] f32 -> d_out [batch, nq, k] f32,
-// i_out [batch, nq, k] i32, all contiguous. 1 <= k <= 16; S in {1, 2, 4, 8}
-// ranks per cluster. Returns the CUDA error code of the launch (0 on
-// success).
+// i_out [batch, nq, k] i32, all contiguous. k >= 1; S in {1, 2, 4, 8} ranks
+// per cluster for k <= 16, S = 1 above. Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int pcst_knn_topk(const void* query, const void* ref, void* d_out,
                              void* i_out, int batch, int nq, int m, int k,
                              int S, void* stream) {
-  if (S != 1 && S != 2 && S != 4 && S != 8)
+  if ((S != 1 && S != 2 && S != 4 && S != 8) || k < 1 || (k > 16 && S != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* q = static_cast<const float*>(query);
   const float* r = static_cast<const float*>(ref);
   float* d = static_cast<float*>(d_out);
   int* i = static_cast<int*>(i_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  cudaError_t err = cudaSuccess;
+  if (k > 16) {
+    knn_topk_global_kernel<<<dim3((nq + kThreads - 1) / kThreads, batch),
+                             kThreads, 0, s>>>(q, r, d, i, nq, m, k);
+    return static_cast<int>(cudaGetLastError());
+  }
   switch (k) {
 #define PCST_K(KK) \
   case KK: err = launch<KK>(q, r, d, i, batch, nq, m, S, s); break;

@@ -154,6 +154,7 @@ class Slots(NamedTuple):
     q_pad: torch.Tensor      # [NP, 3] row-padded queries, padding at _FAR
     orig_pad: torch.Tensor   # [NP] query id per position, Nq on padding
     real: torch.Tensor       # [T, tq] real (non-padding) positions
+    n_real: torch.Tensor     # [T] int32 real rows per tile (a prefix)
     st: torch.Tensor         # [T, S] int32 run starts (sorted positions)
     en: torch.Tensor         # [T, S] int32 run ends
     tile_ok: torch.Tensor    # [T] every run fits its window
@@ -220,7 +221,10 @@ def _layout_slots(struct: GridStruct, query: torch.Tensor, grid_shape,
 
     # --- per-tile value ranges over real queries ---
     qt = q_pad.reshape(T, tq, 3)
-    empty_t = ~valid.any(1)
+    # a tile lies in one row and the row's padding ends it, so its real
+    # rows are its first n_real: the kernels scan no padding row
+    n_real = valid.sum(1, dtype=torch.int32)
+    empty_t = n_real == 0
     vymin = torch.where(valid, qt[:, :, 1], _INF).amin(1)
     vymax = torch.where(valid, qt[:, :, 1], -_INF).amax(1)
     yc = torch.where(empty_t, 0.0, (vymin + vymax) * 0.5)
@@ -282,7 +286,7 @@ def _layout_slots(struct: GridStruct, query: torch.Tensor, grid_shape,
             stb = (st // _LANE).clamp(0, s.M_pad // _LANE - bps)
             tile_ok = (en - stb * _LANE <= slot_cap).all(1)
             pairs = (sx2, sy2, row2, zlo, zhi, valid_pair)
-    return Slots(q_pad, orig_pad, valid, st.int().contiguous(),
+    return Slots(q_pad, orig_pad, valid, n_real, st.int().contiguous(),
                  en.int().contiguous(), tile_ok, full_z, (Hx, Hy), tsx,
                  sx3c, slab3_ok, r3, pairs)
 
@@ -355,9 +359,10 @@ def _query_pass(struct: GridStruct, query: torch.Tensor, k: int, grid_shape,
                        full_z)
     if values is not None:
         v_s, d_s = grid_interp(sl.q_pad, s.refs_pad, _sorted_values(s, values),
-                               sl.st, sl.en, k, eps)
+                               sl.st, sl.en, k, eps, sl.n_real)
     else:
-        d_s, gidx = grid_topk(sl.q_pad, s.refs_pad, sl.st, sl.en, k)
+        d_s, gidx = grid_topk(sl.q_pad, s.refs_pad, sl.st, sl.en, k,
+                              sl.n_real)
         gidx = gidx.long()
         ridx = torch.where(gidx < s.M, s.order_r[gidx.clamp(0, s.M - 1)], 0)
     safe = _safe_rows(s, sl, d_s, k, grid_shape).reshape(-1)

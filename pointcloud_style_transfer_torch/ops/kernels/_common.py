@@ -35,16 +35,16 @@ _VP, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "knn_topk": {"pcst_knn_topk": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                                    _INT, _VP]},
-    "fps": {"pcst_fps": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
-                         _VP]},
+    "fps": {"pcst_fps": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+                         _INT, _VP]},
     "ball_query": {"pcst_ball_query": [_VP, _VP, _VP, _INT, _INT, _INT, _INT,
                                        _FLT, _VP]},
     "rowmin": {"pcst_rowmin": [_VP, _VP, _VP, _INT, _INT, _INT, _VP]},
     "grid_fused": {
-        "pcst_grid_interp": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
-                             _INT, _INT, _INT, _INT, _FLT, _VP],
-        "pcst_grid_topk": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
-                           _INT, _INT, _VP],
+        "pcst_grid_interp": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT,
+                             _INT, _INT, _INT, _INT, _INT, _FLT, _VP],
+        "pcst_grid_topk": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
+                           _INT, _INT, _INT, _VP],
     },
     "knn_packed": {
         "pcst_knn_f32packed": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
@@ -130,20 +130,24 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
     return {n: library_path(n) for n in names}
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use, with its
+def open_library(path: Path, name: str) -> ctypes.CDLL:
+    """A built library of ``csrc/<name>.cu`` at ``path``, loaded, with its
     entry points' argtypes declared."""
+    lib = ctypes.CDLL(str(path))
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.pcst_error_string.argtypes = [ctypes.c_int]
+    lib.pcst_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
         if name not in _libs:
-            path = build_all([name])[name]
-            lib = ctypes.CDLL(str(path))
-            for fn_name, argtypes in SIGNATURES[name].items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.pcst_error_string.argtypes = [ctypes.c_int]
-            lib.pcst_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            _libs[name] = open_library(build_all([name])[name], name)
         return _libs[name]
 
 

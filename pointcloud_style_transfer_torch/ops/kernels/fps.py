@@ -7,7 +7,11 @@ iterations, each an update of every point's distance and an argmax over the
 cloud. As the TPU kept the cloud in VMEM, the kernel keeps it in the
 registers of a thread-block cluster (``fps_plan``: S blocks, PER points per
 thread), loaded once; each iteration's argmax crosses the cluster through
-distributed shared memory behind one cluster barrier.
+distributed shared memory behind one cluster barrier. A cloud above
+``MAX_POINTS`` does not fit those registers: its plan has PER = 0
+(``STREAM``), a kernel of the same source that keeps the running distances
+in a global scratch [B, N] (L2-resident) and re-reads the coordinates every
+iteration, with the same slices and reductions, so any N >= 1 is taken.
 
 Both versions take the start index per cloud from the caller, store the
 current index before updating the distances (initialised to 1e10), and pick
@@ -23,8 +27,10 @@ from ._common import check_points, launch
 
 CLUSTER_SIZES = (1, 2, 4, 8)  # ranks per cluster (the portable sizes)
 PERS = (1, 2, 4, 8)           # points per thread the kernel is built for
+STREAM = 0  # PER of the streaming kernel: distances in scratch, any N
 MAX_THREADS = 1024
-MAX_POINTS = CLUSTER_SIZES[-1] * MAX_THREADS * PERS[-1]  # 64 * 1024
+# the largest cloud a cluster's registers hold: 64 * 1024
+MAX_POINTS = CLUSTER_SIZES[-1] * MAX_THREADS * PERS[-1]
 _RANK_POINTS = 4096  # a rank's points beyond which the cluster grows
 _INIT_DIST = 1e10
 
@@ -56,7 +62,10 @@ def fps_plan(n: int) -> tuple[int, int, int]:
     block), else the smallest cluster whose ranks hold at most
     ``_RANK_POINTS`` points each; then half as many threads as points, up to
     512 (1,024 where 512 cannot hold the slice), and the fewest points per
-    thread that hold it."""
+    thread that hold it. Above ``MAX_POINTS``: the streaming kernel on the
+    largest cluster, (8, 1024, ``STREAM``)."""
+    if n > MAX_POINTS:
+        return CLUSTER_SIZES[-1], MAX_THREADS, STREAM
     if n <= MAX_THREADS * PERS[-1]:
         S = 1
     else:
@@ -74,9 +83,9 @@ def fps_plan(n: int) -> tuple[int, int, int]:
 
 def _check_plan(plan: tuple[int, int, int], n: int) -> None:
     S, threads, per = plan
-    if (S not in CLUSTER_SIZES or per not in PERS
+    if (S not in CLUSTER_SIZES or per not in PERS + (STREAM,)
             or not 32 <= threads <= MAX_THREADS or threads & (threads - 1)
-            or threads * per < -(-n // S)):
+            or (per != STREAM and threads * per < -(-n // S))):
         raise ValueError(f"bad FPS launch plan {plan} for {n} points")
 
 
@@ -87,8 +96,8 @@ def fps_cuda(xyz: torch.Tensor, npoint: int, start: torch.Tensor,
     [B] tensor on the same device, each entry in [0, N)."""
     check_points(xyz, "xyz")
     B, N, _ = xyz.shape
-    if not 0 < N <= MAX_POINTS:
-        raise ValueError(f"the FPS kernel takes 1..{MAX_POINTS} points, got {N}")
+    if N == 0:
+        raise ValueError("the FPS kernel needs at least one point")
     if (start.device != xyz.device or start.dtype != torch.int32
             or start.shape != (B,) or not start.is_contiguous()):
         raise ValueError("start must be a contiguous int32 [B] tensor on the "
@@ -97,8 +106,11 @@ def fps_cuda(xyz: torch.Tensor, npoint: int, start: torch.Tensor,
     _check_plan(plan, N)
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     if B and npoint:
+        scratch = (torch.empty((B, N), dtype=torch.float32, device=xyz.device)
+                   if plan[2] == STREAM else None)
         launch("fps", xyz.device, xyz.data_ptr(), start.data_ptr(),
-               out.data_ptr(), B, N, npoint, *plan)
+               out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+               B, N, npoint, *plan)
     return out
 
 

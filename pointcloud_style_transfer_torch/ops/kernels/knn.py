@@ -8,12 +8,16 @@ FP32 issue rate. A few thousand queries (the kd-grid's patches) give too few
 threads to fill the card with one thread per query, so ``knn_topk_plan``
 splits the ref axis across a thread-block cluster of S blocks, whose rank 0
 merges the ranks' lists through distributed shared memory in one launch.
-The JAX wrapper's query chunking exists only to dodge a TPU VMEM limit and
-has no counterpart here.
+Above ``MAX_K`` the lists no longer fit the registers: a second kernel of
+the same source keeps each query's sorted list in the output itself (global
+memory, [B, Nq, k]) and its k-th distance in a register, with the same scan
+and no cluster. The JAX wrapper's query chunking exists only to dodge a TPU
+VMEM limit and has no counterpart here.
 
 Both versions return ascending squared distances [B, Nq, k] float32 and
-indices [B, Nq, k] int32 with ties to the lowest ref index; slots no ref
-fills (k > M) hold (1e30, 0); indices are clipped to [0, M-1].
+indices [B, Nq, k] int32 with ties to the lowest ref index, for any
+k >= 1; slots no ref fills (k > M) hold (1e30, 0); a NaN distance is never
+taken; indices are clipped to [0, M-1].
 """
 
 from __future__ import annotations
@@ -22,12 +26,13 @@ import torch
 
 from ._common import check_points, launch, pairwise_sq_dist
 
-MAX_K = 16  # the kernel is instantiated for 1 <= k <= 16
+MAX_K = 16  # lists in registers for 1 <= k <= 16; above, in global memory
 CLUSTER_SIZES = (1, 2, 4, 8)  # ranks per cluster (the portable sizes)
 THREADS = 128        # queries per block, as in csrc/knn_topk.cu
 _SMS = 132           # streaming multiprocessors of an H100
 _MIN_SLICE = 1024    # refs a rank scans at least
 _BIG = 1e30  # the running top-k's initial distance, as on the TPU
+_NAN_KEY = 0x7F800000 << 32  # a NaN distance's key: +inf's bits, never taken
 _CHUNK_ELEMS = 1 << 23  # plain version: distance-matrix elements per chunk
 
 
@@ -38,7 +43,8 @@ def knn_topk_plain(query: torch.Tensor, ref: torch.Tensor, k: int
     Selection is exact on (distance, index): the float32 distance bits (a
     non-negative float orders like its bit pattern) and the index are packed
     into one int64 key, so ``topk`` over unique keys keeps the lowest index
-    on equal distances."""
+    on equal distances. A NaN, whatever its sign bit, takes +inf's key, and
+    an entry at or above 1e30 becomes the start entry (1e30, 0)."""
     query = query.float()
     ref = ref.float()
     B, N, _ = query.shape
@@ -52,6 +58,7 @@ def knn_topk_plain(query: torch.Tensor, ref: torch.Tensor, k: int
         for s in range(0, N, chunk):
             d = pairwise_sq_dist(query[b, s:s + chunk], ref[b])
             keys = (d.view(torch.int32).to(torch.int64) << 32) | ids
+            keys = keys.masked_fill(torch.isnan(d), _NAN_KEY)
             top = torch.topk(keys, kk, dim=1, largest=False, sorted=True).values
             dd = (top >> 32).to(torch.int32).view(torch.float32)
             ii = (top & 0xFFFFFFFF).to(torch.int32)
@@ -91,18 +98,24 @@ def knn_topk_plan(B: int, nq: int, m: int) -> int:
 def knn_topk_cuda(query: torch.Tensor, ref: torch.Tensor, k: int,
                   plan: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/knn_topk.cu`` on the current stream, with
-    ``knn_topk_plan``'s cluster size unless ``plan`` (S) is given."""
+    ``knn_topk_plan``'s cluster size unless ``plan`` (S) is given. Above
+    ``MAX_K`` the global-list kernel runs, which takes no cluster (S = 1)."""
     check_points(query, "query")
     check_points(ref, "ref")
     B, N, _ = query.shape
     M = ref.shape[1]
     if ref.shape[0] != B or ref.device != query.device:
         raise ValueError("query and ref must share batch size and device")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"the kNN kernel takes 1 <= k <= {MAX_K}, got {k}")
+    if k < 1:
+        raise ValueError(f"the kNN kernel takes k >= 1, got {k}")
     if M == 0:
         raise ValueError("kNN needs at least one ref point")
-    S = knn_topk_plan(B, N, M) if plan is None else plan
+    if k > MAX_K:
+        S = 1 if plan is None else plan
+        if S != 1:
+            raise ValueError(f"k = {k} > {MAX_K} takes no cluster, got S={S}")
+    else:
+        S = knn_topk_plan(B, N, M) if plan is None else plan
     if S not in CLUSTER_SIZES:
         raise ValueError(f"bad kNN cluster size {S}")
     d = torch.empty((B, N, k), dtype=torch.float32, device=query.device)

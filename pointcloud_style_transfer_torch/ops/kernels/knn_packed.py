@@ -97,7 +97,9 @@ def _keys_plain(query: torch.Tensor, ref: torch.Tensor, k: int, m_total: int,
                 keys = (((bits + 0x00800000) & 0xFFFFFFFF) & ~0x7FFF) | cols
             else:
                 keys = ((bits >> 16) << idx_bits) | cols
-                keys = torch.where(torch.isnan(d), start, keys)
+            # a NaN, whatever its sign bit (a set one would wrap the
+            # f32-packed key below every distance), is never taken
+            keys = torch.where(torch.isnan(d), start, keys)
             keys = torch.cat([keys.clamp(max=start),
                               keys.new_full((keys.shape[0], k), start)], dim=1)
             top = torch.topk(keys, k, dim=1, largest=False, sorted=True).values

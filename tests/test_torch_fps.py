@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from pointcloud_style_transfer_torch.ops import farthest_point_sample
-from pointcloud_style_transfer_torch.ops.kernels import fps_plain
+from pointcloud_style_transfer_torch.ops.kernels import (
+    farthest_point_sample_kernel, fps_plain)
 from pointcloud_style_transfer_tpu.ops.pallas.fps import \
     pallas_farthest_point_sample
 
@@ -48,3 +49,19 @@ def test_farthest_point_sample_draws_start_from_generator(rng):
     assert torch.equal(c[:, 0], start.int())
     assert torch.equal(c, farthest_point_sample(xyz, 16, start=start,
                                                 use_kernel=False))
+
+
+def test_fps_past_the_register_cap_matches_pallas(rng):
+    """70,000 points, past the CUDA kernel's register-resident 65,536 (the
+    streaming kernel's range): the wrapper's CPU path against the TPU
+    kernel, which takes any N. Lattice points make every distance exact in
+    both arithmetics and tie many of them."""
+    n = 70000
+    xyz = np.round(rng.standard_normal((2, n, 3)) * 8).astype(np.float32) / 8
+    start = rng.integers(0, n, 2).astype(np.int32)
+    want = pallas_farthest_point_sample(
+        jnp.asarray(xyz), 8, jax.random.PRNGKey(0), interpret=True,
+        start=jnp.asarray(start))
+    got = farthest_point_sample_kernel(torch.from_numpy(xyz), 8,
+                                       torch.from_numpy(start))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

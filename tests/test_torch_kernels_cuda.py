@@ -12,10 +12,14 @@ card are within 1e-6 relative of the CPU's (the card's scatter-add into the
 refs uses atomics, so its sums are taken in another order). The grid
 kernels' distances
 and positions are identical to their plain versions' (on rows with k
-candidates), their interpolated values within rtol 1e-6 and
+candidates), with and without the layout's real-row counts and under every
+staging chunk, their interpolated values within rtol 1e-6 and
 atol 1e-6 * max|v|. The packed kNN kernels' raw keys, decoded indices and
 recomputed distances and the pruned pass kernel's state are identical to
-their plain versions', NaN coordinates included.
+their plain versions', NaN coordinates included. No kernel of the kNN family
+takes a NaN distance, whatever its sign bit. The kNN kernel past k = 16 and
+FPS past 65,536 points (their global-memory variants) are identical to the
+plain versions too.
 """
 
 import numpy as np
@@ -104,6 +108,7 @@ def test_knn_kernel_plans_identical_to_plain(rng, cuda, b, n, m, k, plan):
     nan_ref = m // 2 if m > 2 * tail else None
     if nan_ref is not None:
         r[0, nan_ref, 1] = np.nan
+        r[0, nan_ref + 1, 0] = -np.nan  # the sign bit set
     qt, rt = torch.from_numpy(q).to(cuda), torch.from_numpy(r).to(cuda)
     before = LAUNCH_COUNTS["knn_topk"]
     d, i = knn_topk_cuda(qt, rt, k, plan=plan)
@@ -112,7 +117,32 @@ def test_knn_kernel_plans_identical_to_plain(rng, cuda, b, n, m, k, plan):
     assert torch.equal(i, i_p)
     assert torch.equal(d.view(torch.int32), d_p.view(torch.int32))
     if nan_ref is not None:
-        assert not (i[0] == nan_ref).any()
+        assert not ((i[0] == nan_ref) | (i[0] == nan_ref + 1)).any()
+
+
+@pytest.mark.parametrize("b,n,m,k", [
+    (1, 2500, 30000, 17), (2, 700, 3001, 32), (1, 900, 5000, 64),
+    (1, 300, 40, 64),  # k > M: fill slots
+])
+def test_knn_kernel_past_16_identical_to_plain(rng, cuda, b, n, m, k):
+    """k > 16: the global-list kernel, one launch, indices and distance bits
+    identical, with zero-distance ties and a NaN of each sign never
+    taken."""
+    r = points(rng, b, m)
+    q = points(rng, b, n)
+    q[:, : n // 5] = r[:, rng.choice(m, n // 5)]
+    r[0, 3, 1] = np.nan
+    r[0, 5, 2] = -np.nan
+    qt, rt = torch.from_numpy(q).to(cuda), torch.from_numpy(r).to(cuda)
+    before = LAUNCH_COUNTS["knn_topk"]
+    d, i = knn_topk(qt, rt, k)
+    assert LAUNCH_COUNTS["knn_topk"] == before + 1
+    d_p, i_p = knn_topk_plain(qt, rt, k)
+    assert torch.equal(i, i_p)
+    assert torch.equal(d.view(torch.int32), d_p.view(torch.int32))
+    taken = d[0] < 1e29
+    assert not ((i[0] == 3) | (i[0] == 5))[taken].any()
+    assert (d[..., 1:] >= d[..., :-1]).all()
 
 
 @pytest.mark.parametrize("b,n,npoint,plan", [
@@ -121,6 +151,10 @@ def test_knn_kernel_plans_identical_to_plain(rng, cuda, b, n, m, k, plan):
     (1, 30000, 512, None), (3, 30000, 512, (4, 1024, 8)),
     (1, 30000, 512, (8, 1024, 4)), (3, 30000, 300, (8, 512, 8)),
     (1, 65536, 512, None), (3, 65536, 128, (8, 1024, 8)),
+    # the streaming kernel (PER = 0): past the registers' 65,536 points,
+    # and forced on small clouds
+    (1, 70000, 64, None), (2, 70000, 32, (4, 512, 0)),
+    (3, 1000, 50, (4, 256, 0)), (1, 7, 12, (2, 32, 0)),
 ])
 def test_fps_kernel_plans_identical_to_plain(rng, cuda, b, n, npoint, plan):
     """Lattice clouds whose first half repeats in the second: tied maxima
@@ -165,7 +199,9 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         knn_topk_cuda(x.double(), x, 3)
     with pytest.raises(ValueError):
-        knn_topk_cuda(x, x, 17)
+        knn_topk_cuda(x, x, 0)
+    with pytest.raises(ValueError):
+        knn_topk_cuda(x, x, 17, plan=2)  # past 16: no cluster
     with pytest.raises(ValueError):
         rowmin_cuda(x, x[:, :0])
     with pytest.raises(ValueError):
@@ -240,31 +276,113 @@ def grid_inputs(rng, cuda, m, nq, grid_shape, slot_cap, C=3):
     en[-2, 0] += 1
     vals = torch.from_numpy(rng.standard_normal((s.M_pad, C)).astype(
         np.float32)).to(cuda)
-    return sl.q_pad, s.refs_pad, vals, st, en
+    return sl.q_pad, s.refs_pad, vals, st, en, sl.n_real
 
 
-@pytest.mark.parametrize("grid_shape,slot_cap,k,C", [
-    ((16, 12, 8), 384, 3, 3),  # y-run slots, the sampler's config
-    ((4, 4, 5), 128, 3, 2),    # windowed z-runs
-    ((16, 12, 8), 384, 1, 3),
-    ((16, 12, 8), 384, 8, 4)])
-def test_grid_kernels_match_plain(rng, cuda, grid_shape, slot_cap, k, C):
-    q, refs, vals, st, en = grid_inputs(rng, cuda, 6500, 9000, grid_shape,
-                                        slot_cap, C)
+def check_grid_kernels(q, refs, vals, st, en, k, n_real=None):
+    """Both grid kernels, one launch each, against the plain versions:
+    distances identical on every row, positions on rows with k candidates,
+    values within rtol 1e-6, atol 1e-6 * max|v|; returns (d, i)."""
     before = dict(LAUNCH_COUNTS)
-    v, d = grid_interp_cuda(q, refs, vals, st, en, k)
-    d_t, i_t = grid_topk_cuda(q, refs, st, en, k)
+    v, d = grid_interp_cuda(q, refs, vals, st, en, k, n_real=n_real)
+    d_t, i_t = grid_topk_cuda(q, refs, st, en, k, n_real=n_real)
     assert LAUNCH_COUNTS["grid_interp"] == before["grid_interp"] + 1
     assert LAUNCH_COUNTS["grid_topk"] == before["grid_topk"] + 1
-    v_p, d_p = grid_interp_plain(q, refs, vals, st, en, k)
-    d_tp, i_tp = grid_topk_plain(q, refs, st, en, k)
-    assert torch.equal(d, d_p) and torch.equal(d_t, d_tp)
+    v_p, d_p = grid_interp_plain(q, refs, vals, st, en, k, n_real=n_real)
+    d_tp, i_tp = grid_topk_plain(q, refs, st, en, k, n_real=n_real)
+    assert torch.equal(d.view(torch.int32), d_p.view(torch.int32))
+    assert torch.equal(d_t.view(torch.int32), d_tp.view(torch.int32))
     full = d_p[:, -1] < 1e29
     assert full.any() and not full.all()
     assert torch.equal(i_t[full], i_tp[full])
     assert torch.isfinite(v).all()
     tol = 1e-6 * v_p[full].abs().max().item()
     assert ((v - v_p)[full].abs() <= tol + 1e-6 * v_p[full].abs()).all()
+    return d_t, i_t
+
+
+@pytest.mark.parametrize("with_n_real", [False, True])
+@pytest.mark.parametrize("grid_shape,slot_cap,k,C", [
+    ((16, 12, 8), 384, 3, 3),  # y-run slots, the sampler's config
+    ((4, 4, 5), 128, 3, 2),    # windowed z-runs
+    ((16, 12, 8), 384, 1, 3),
+    ((16, 12, 8), 384, 8, 4)])
+def test_grid_kernels_match_plain(rng, cuda, grid_shape, slot_cap, k, C,
+                                  with_n_real):
+    q, refs, vals, st, en, n_real = grid_inputs(rng, cuda, 6500, 9000,
+                                                grid_shape, slot_cap, C)
+    assert (n_real < 128).any() and (n_real == 0).any()  # padding to skip
+    d, _ = check_grid_kernels(q, refs, vals, st, en, k,
+                              n_real if with_n_real else None)
+    if with_n_real:  # padding rows keep the start list
+        pad = (torch.arange(128, device=cuda)[None, :]
+               >= n_real[:, None]).reshape(-1)
+        assert (d[pad] == 1e30).all()
+
+
+@pytest.mark.parametrize("n_slots", [1, 3])
+def test_grid_kernels_tiles_past_one_chunk(rng, cuda, n_slots):
+    """Tiles of several staging chunks: every tile but the last (empty)
+    one sees all of the grid's ~6,500 sorted refs in n_slots disjoint runs,
+    so chunk boundaries fall inside the staging order's pieces."""
+    q, refs, vals, _, _, n_real = grid_inputs(rng, cuda, 6500, 9000,
+                                              (16, 12, 8), 384)
+    T, M = n_real.shape[0], refs.shape[0]
+    cuts = torch.linspace(0, M, n_slots + 1).round().int().to(cuda)
+    st = cuts[:-1].expand(T, -1).contiguous()
+    en = cuts[1:].expand(T, -1).contiguous()
+    en[-1] = st[-1]
+    check_grid_kernels(q, refs, vals, st, en, 3, n_real)
+    check_grid_kernels(q, refs, vals, st, en, 8, n_real)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_grid_kernels_never_take_nan(rng, cuda, k):
+    """A NaN ref of each sign inside the runs of many tiles: never taken,
+    the lists ascending, everything else as the plain versions."""
+    q, refs, vals, st, en, n_real = grid_inputs(rng, cuda, 6500, 9000,
+                                                (16, 12, 8), 384)
+    # set on the host: a -nan scalar written on the card loses its sign
+    r = refs.cpu().numpy().copy()
+    nan_pos = sorted({int(st[t, 0]) + 1 for t in range(0, 60, 3)})
+    for j, p in enumerate(nan_pos):
+        r[p, j % 3] = np.nan if j % 2 else -np.nan
+    refs = torch.from_numpy(r).to(cuda)
+    assert torch.signbit(refs[nan_pos[0], 0])
+    d, i = check_grid_kernels(q, refs, vals, st, en, k, n_real)
+    taken = d < 1e29
+    assert not torch.isin(i, torch.tensor(nan_pos, device=cuda))[taken].any()
+    assert (d[:, 1:] >= d[:, :-1]).all()
+
+
+@pytest.mark.parametrize("tq", [1, 63, 64, 127, 1024])
+def test_grid_kernels_any_tile_width(rng, cuda, tq):
+    """Tiles of one row to 1,024 (partial warps, one thread a row), random
+    disjoint runs in a shuffled slot order, with and without n_real."""
+    r = torch.from_numpy(points(rng, 1, 3000)[0]).to(cuda)
+    T = 5
+    q = torch.from_numpy(points(rng, 1, T * tq)[0]).to(cuda)
+    # four disjoint runs a tile, in a shuffled slot order
+    st = (np.arange(4) * 700 + rng.integers(0, 200, (T, 4))).astype(np.int32)
+    en = st + rng.integers(0, 500, (T, 4)).astype(np.int32)
+    order = np.argsort(rng.random((T, 4)), axis=1)
+    st = torch.from_numpy(np.take_along_axis(st, order, 1)).to(cuda)
+    en = torch.from_numpy(np.take_along_axis(en, order, 1)).to(cuda)
+    en[:, 1] = st[:, 1]  # an empty run
+    vals = torch.randn((3000, 2), device=cuda)
+    n_real = torch.from_numpy(rng.integers(0, tq + 1, T).astype(np.int32)
+                              ).to(cuda)
+    n_real[0] = tq
+    for nr in (None, n_real):
+        v, d = grid_interp_cuda(q, r, vals, st, en, 3, n_real=nr)
+        d_t, i_t = grid_topk_cuda(q, r, st, en, 3, n_real=nr)
+        v_p, d_p = grid_interp_plain(q, r, vals, st, en, 3, n_real=nr)
+        d_tp, i_tp = grid_topk_plain(q, r, st, en, 3, n_real=nr)
+        assert torch.equal(d.view(torch.int32), d_p.view(torch.int32))
+        assert torch.equal(d_t, d_tp) and torch.equal(i_t, i_tp)
+        full = d_p[:, -1] < 1e29
+        tol = 1e-6 * v_p[full].abs().max().item() if full.any() else 0.0
+        assert ((v - v_p)[full].abs() <= tol + 1e-6 * v_p[full].abs()).all()
 
 
 def test_grid_paths_launch_kernels(rng, cuda):
@@ -308,6 +426,12 @@ def test_grid_wrappers_reject_bad_inputs(cuda):
         grid_interp_cuda(q, refs, vals[:64], st, st, 3)
     with pytest.raises(ValueError):
         grid_interp_cuda(q, refs, vals.t(), st, st, 3)
+    n_real = torch.zeros(2, dtype=torch.int32, device=cuda)
+    grid_topk_cuda(q, refs, st, st, 3, n_real=n_real)  # accepted
+    with pytest.raises(ValueError):
+        grid_topk_cuda(q, refs, st, st, 3, n_real=n_real[:1])
+    with pytest.raises(ValueError):
+        grid_topk_cuda(q, refs, st, st, 3, n_real=n_real.long())
 
 
 @pytest.mark.parametrize("b,n,m,k,tr", [
@@ -319,7 +443,9 @@ def test_packed_knn_kernels_match_plain(rng, cuda, b, n, m, k, tr):
     q = points(rng, b, n)
     q[:, : n // 5] = r[:, rng.choice(m, n // 5)]  # zero distances
     q[0, -1, 1] = np.nan  # a NaN query keeps the start keys
-    r[0, 0, 2] = np.nan   # a NaN ref is never selected
+    r[0, 0, 2] = np.nan   # a NaN ref is never selected,
+    if m > 2:
+        r[0, 1, 0] = -np.nan  # whatever its sign bit
     qt, rt = torch.from_numpy(q).to(cuda), torch.from_numpy(r).to(cuda)
     m_total = -(-m // tr) * tr
     for name, kernel, plain, whole in (
@@ -339,6 +465,8 @@ def test_packed_knn_kernels_match_plain(rng, cuda, b, n, m, k, tr):
         assert torch.equal(torch.isnan(d).cpu(), nan) and nan[0, -1].all()
         assert torch.equal(d.cpu()[~nan], d_c[~nan])
         assert not (i[0, :-1] == 0).any()
+        if m > 2:
+            assert not (i[0, :-1] == 1).any()
 
 
 def test_packed_wrappers_reject_bad_inputs(cuda):

@@ -11,6 +11,7 @@ import torch
 from pointcloud_style_transfer_torch.ops import knn
 from pointcloud_style_transfer_torch.ops.kernels import knn_topk, knn_topk_plain
 from pointcloud_style_transfer_tpu.ops.pallas import pallas_knn
+from torch_parity import xla_cpu_distances
 
 
 def tie_inputs(rng, b, n, m):
@@ -73,3 +74,22 @@ def test_knn_dispatch(rng):
     assert i.dtype == torch.int32 and i.shape == want[1].shape
     with pytest.raises(ValueError):
         knn(qt, rt, 3, backend="nope")
+
+
+@pytest.mark.parametrize("k,m", [(17, 10), (17, 300), (20, 300)])
+def test_knn_past_16_matches_pallas(rng, k, m):
+    """Past the register lists' 16 (the CUDA global-list kernel's range;
+    k > m leaves (1e30, 0) slots): the wrapper's CPU path against the TPU
+    kernel, which takes any k, with XLA's CPU distances so that both
+    select from the same bits. (The TPU kernel unrolls a k x k insert
+    network: interpret mode compiles k = 20 in ~12 s and k = 33 in over
+    200 s, so larger k is held against numpy in
+    test_torch_kernel_repairs.py.)"""
+    q, r = tie_inputs(rng, 1, 64, m)
+    d_j, i_j = pallas_knn(jnp.asarray(q), jnp.asarray(r), k=k, interpret=True)
+    with xla_cpu_distances():
+        d_t, i_t = knn_topk(torch.from_numpy(q), torch.from_numpy(r), k)
+    assert d_t.shape == (1, 64, k) and i_t.dtype == torch.int32
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_array_equal(d_t.numpy().view(np.int32),
+                                  np.asarray(d_j).view(np.int32))

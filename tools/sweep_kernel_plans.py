@@ -1,21 +1,41 @@
-"""Time every launch the kNN and FPS kernels take, at the shapes their plans
-are chosen for, on one CUDA card.
+"""Time every launch the kNN, FPS and kd-grid kernels take, at the shapes
+their plans are chosen for, on one CUDA card.
 
 ``knn_topk``: every cluster size S at the kd-grid's patch sizes (500 to
 32,768 rows), the brute path's 90,000 rows and the Chamfer gradient's 30,000
 rows, each x 30,000 refs, k = 3 and (30,000 rows) k = 1. ``fps``: every
 (S, threads, PER) that holds the cloud, at 30,000 -> 512, 8,192 -> 512,
-512 -> 128 and 65,536 -> 512, in us per iteration. Every launch's result is
-held identical to the plan's. The clouds are ``chip_smoke.py``'s.
+512 -> 128 and 65,536 -> 512, in us per iteration. ``grid_interp`` and
+``grid_topk``: ``csrc/grid_fused.cu`` rebuilt for every staging chunk from
+256 to 3,072 refs (``-DPCST_GRID_CHUNK``) on the slot tables of the grid's
+own layout pass (90,000 queries, 30,000 refs, the sampler's grid), with
+the layout's real-row counts, and the built-in chunk without them, in
+device time (the profiler's: below ~0.08 ms the wrapper's host time, not
+the kernel, paces back-to-back calls); the wrapper's host
+time a call; the heaviest tile alone and the 132 heaviest (one an SM); and
+(``[grid inserts]``) how often a warp of 32 queries passes the eight-ref
+filter and runs an insert, counted with plain tensor ops for the runs in
+slot order and in the kernel's staging order.
+Every launch's result is held identical to the plan's (the built-in
+chunk's). The clouds are
+``chip_smoke.py``'s.
 
 Run from the root of a checkout on a machine with the CUDA toolkit:
 ``python3 tools/sweep_kernel_plans.py``. It prints one line per shape and
-the card's name and power limit.
+the card's name and power limit. ``--parent DIR`` instead times the grid
+kernels of the checkout at DIR (an earlier commit, e.g. a ``git archive``
+under ``build/``) against this checkout's, in turns (DIR, this, this, DIR),
+each turn a fresh process that builds its own kernels: device time of each
+kernel at the main path's shape and call (``[grid compare]``).
 """
 
 from __future__ import annotations
 
+import json
+import re
+import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -23,12 +43,16 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import card_line, cuda_ms, make_cloud  # noqa: E402
+from chip_smoke import card_line, cuda_ms, device_ms, make_cloud  # noqa: E402
 from pointcloud_style_transfer_torch.data import \
     normalize_point_cloud  # noqa: E402
-from pointcloud_style_transfer_torch.ops import index_points  # noqa: E402
+from chip_smoke import GRID_SHAPE, GRID_TQ, SLOT_CAP  # noqa: E402
+from pointcloud_style_transfer_torch.ops import (grid_knn,  # noqa: E402
+                                                 index_points)
 from pointcloud_style_transfer_torch.ops.kernels import (  # noqa: E402
-    build_all, fps_cuda, knn_topk_cuda)
+    build_all, fps_cuda, grid_interp_cuda, grid_topk_cuda, knn_topk_cuda)
+from pointcloud_style_transfer_torch.ops.kernels import \
+    _common  # noqa: E402
 from pointcloud_style_transfer_torch.ops.kernels.fps import (  # noqa: E402
     CLUSTER_SIZES as FPS_CLUSTER_SIZES, PERS, fps_plan)
 from pointcloud_style_transfer_torch.ops.kernels.knn import (  # noqa: E402
@@ -86,11 +110,222 @@ def sweep_fps(ref: torch.Tensor, big: torch.Tensor) -> None:
                   f"{S}/{t}/{p} {u:.3f}" for (S, t, p), u in times.items()))
 
 
+# refs staged at a time: 16 bytes each in at most 48 KB of static shared
+# memory; GRID_CHUNK is the source's own
+GRID_CHUNKS = (256, 512, 768, 1024, 1536, 2048, 3072)
+GRID_CHUNK = int(re.search(r"#define PCST_GRID_CHUNK (\d+)", (
+    _common.CSRC / "grid_fused.cu").read_text()).group(1))
+
+
+def grid_libraries(chunks) -> dict:
+    """``csrc/grid_fused.cu`` built once per staging chunk, one ``nvcc``
+    each, all started together -> chunk: loaded library."""
+    procs = {}
+    for chunk in chunks:
+        out = _common.BUILD_ROOT / f"grid_fused-chunk{chunk}" / \
+            "libgrid_fused.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        procs[chunk] = out, subprocess.Popen(
+            [_common.nvcc_path(), *_common.NVCC_FLAGS,
+             f"-DPCST_GRID_CHUNK={chunk}", "-o", str(out),
+             str(_common.CSRC / "grid_fused.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    libs = {}
+    for chunk, (out, proc) in procs.items():
+        log = proc.communicate()[0].decode()
+        if proc.returncode:
+            raise SystemExit(f"nvcc -DPCST_GRID_CHUNK={chunk} failed:\n{log}")
+        libs[chunk] = _common.open_library(out, "grid_fused")
+    return libs
+
+
+def sweep_grid(query: torch.Tensor, ref: torch.Tensor,
+               rng: np.random.Generator) -> None:
+    vals = torch.from_numpy(rng.standard_normal(
+        (ref.shape[1], 3)).astype(np.float32)).to(ref.device)
+    struct = grid_knn._build_struct(ref[0], GRID_SHAPE, skip_z_sort=True)
+    sl = grid_knn._layout_slots(struct, query[0], GRID_SHAPE, GRID_TQ,
+                                SLOT_CAP)
+    vals_pad = grid_knn._sorted_values(struct, vals)
+    plan_lib = _common.load_library("grid_fused")
+    libs = grid_libraries(GRID_CHUNKS)
+    for name, fn in (
+            ("grid_interp", lambda **kw: grid_interp_cuda(
+                sl.q_pad, struct.refs_pad, vals_pad, sl.st, sl.en, 3, **kw)),
+            ("grid_topk", lambda **kw: grid_topk_cuda(
+                sl.q_pad, struct.refs_pad, sl.st, sl.en, 3, **kw))):
+        want = fn(n_real=sl.n_real)
+        times = {}
+        try:
+            for chunk, lib in libs.items():
+                _common._libs["grid_fused"] = lib  # the wrappers launch it
+                got = fn(n_real=sl.n_real)
+                if not all(torch.equal(g.view(torch.int32),
+                                       w.view(torch.int32))
+                           for g, w in zip(got, want)):
+                    raise SystemExit(f"{name} chunk {chunk} differs")
+                times[chunk] = device_ms(lambda: fn(n_real=sl.n_real),
+                                         "grid_")
+        finally:
+            _common._libs["grid_fused"] = plan_lib
+        without = device_ms(lambda: fn(), "grid_")
+        best = min(times, key=times.get)
+        print(f"[grid sweep] {name} {query.shape[1]}x{ref.shape[1]} k=3, "
+              f"device ms: built-in chunk {GRID_CHUNK} "
+              f"{times[GRID_CHUNK]:.4f}, fastest chunk {best} "
+              f"{times[best]:.4f}, built-in without n_real {without:.4f}; by "
+              "chunk: " + " ".join(f"{c} {t:.4f}" for c, t in times.items()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        grid_topk_cuda(sl.q_pad, struct.refs_pad, sl.st, sl.en, 3,
+                       n_real=sl.n_real)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    # the heaviest tiles by real rows x candidates, alone
+    T = sl.st.shape[0]
+    work = sl.n_real.long() * (sl.en - sl.st).clamp(min=0).sum(1)
+    heavy = {}
+    for n in (1, 132):
+        idx = torch.argsort(work, descending=True)[:n].sort().values
+        q = sl.q_pad.view(T, GRID_TQ, 3)[idx].reshape(-1, 3).contiguous()
+        st, en = sl.st[idx].contiguous(), sl.en[idx].contiguous()
+        nr = sl.n_real[idx].contiguous()
+        heavy[n] = device_ms(lambda: grid_topk_cuda(
+            q, struct.refs_pad, st, en, 3, n_real=nr), "grid_")
+    print(f"[grid sweep] grid_topk host time {host_us:.1f} us a call "
+          f"(wrapper, no sync); device ms of the heaviest tile alone "
+          f"{heavy[1]:.4f}, of the 132 heaviest (one an SM) {heavy[132]:.4f}")
+    for order in ("slot", "staging"):
+        g, passed, bodies = insert_counts(sl, struct.refs_pad, order)
+        print(f"[grid inserts] k=3, runs in {order} order: {g} groups of "
+              f"eight refs x warps of 32 real rows; the filter passes for "
+              f"{100 * passed / g:.1f}% of them, {bodies / g:.2f} insert "
+              "bodies a group (refs some query of the warp takes)")
+
+
+def staging_order(st: list, en: list, m: int) -> list:
+    """A tile's candidates in ``csrc/grid_fused.cu``'s staging order."""
+    runs = [(max(a, 0), max(min(b, m) - max(a, 0), 0)) for a, b in zip(st, en)]
+    mid = len(runs) // 2
+    lo, n = runs[mid]
+    a, b = n // 3, 2 * n // 3
+    pieces = [(lo + a, b - a), (lo, a), (lo + b, n - b)] + [
+        r for s, r in enumerate(runs) if s != mid]
+    return [p for lo, n in pieces for p in range(lo, lo + n)]
+
+
+def insert_counts(sl, refs: torch.Tensor, order: str, k: int = 3
+                  ) -> tuple[int, int, int]:
+    """The kernel's scan, counted for all tiles at once with tensor ops:
+    for every group of eight candidates and warp of 32 rows holding a real
+    row, whether some real query's minimum of the eight is <= its k-th
+    distance (the filter passes) and how many of the eight some real query
+    takes (insert bodies the warp runs). Ties are ignored."""
+    keep = sl.n_real > 0
+    st, en = sl.st[keep].tolist(), sl.en[keep].tolist()
+    m = refs.shape[0]
+    lists = [staging_order(a, b, m) if order == "staging" else
+             [p for x, y in zip(a, b) for p in range(max(x, 0), min(y, m))]
+             for a, b in zip(st, en)]
+    W = max(len(c) for c in lists)
+    pos = torch.full((len(lists), W), -1, dtype=torch.long)
+    for t, c in enumerate(lists):
+        pos[t, :len(c)] = torch.tensor(c, dtype=torch.long)
+    pos = pos.to(refs.device)
+    q = sl.q_pad.view(-1, GRID_TQ, 3)[keep]
+    real = (torch.arange(GRID_TQ, device=refs.device)[None, :]
+            < sl.n_real[keep][:, None])
+    warps = real.view(len(lists), -1, 32).any(2)
+    D = torch.full((len(lists), GRID_TQ, k), 1e30, device=refs.device)
+    groups = passed = bodies = 0
+    for j0 in range(0, W - 7, 8):
+        P = pos[:, j0:j0 + 8]
+        d = ((q[:, :, None, :] - refs[P.clamp(min=0)][:, None]) ** 2).sum(-1)
+        d = torch.where((P >= 0)[:, None, :], d, float("inf"))
+        live = warps & (P[:, 7:8] >= 0)
+        lane = (d.min(2).values <= D[:, :, -1]) & real
+        groups += int(live.sum())
+        passed += int((lane.view(len(lists), -1, 32).any(2) & live).sum())
+        for u in range(8):
+            take = (d[:, :, u] < D[:, :, -1]) & real
+            bodies += int((take.view(len(lists), -1, 32).any(2) & live).sum())
+            both = torch.cat([D, d[:, :, u:u + 1]], 2).sort(2).values
+            D = torch.where(take[..., None], both[..., :k], D)
+    return groups, passed, bodies
+
+
+# One turn of --parent, run as ``python3 -c GRID_TURN ROOT`` so that it
+# imports ROOT's package and builds ROOT's kernels; it uses only what every
+# version of the grid has, plus the real-row counts where the layout has them
+# (the main path's call in that version).
+GRID_TURN = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from chip_smoke import make_cloud, GRID_SHAPE, GRID_TQ, SLOT_CAP
+from pointcloud_style_transfer_torch.data import normalize_point_cloud
+from pointcloud_style_transfer_torch.ops import grid_knn
+from pointcloud_style_transfer_torch.ops.kernels import (grid_interp_cuda,
+                                                         grid_topk_cuda)
+rng = np.random.default_rng(0)
+dev = torch.device("cuda")
+ref = torch.from_numpy(normalize_point_cloud(make_cloud(rng, 30000))[0])
+query = torch.from_numpy(normalize_point_cloud(make_cloud(rng, 90000))[0])
+ref, query = ref.to(dev), query.to(dev)
+vals = torch.from_numpy(np.random.default_rng(8).standard_normal(
+    (30000, 3)).astype(np.float32)).to(dev)
+s = grid_knn._build_struct(ref, GRID_SHAPE, skip_z_sort=True)
+sl = grid_knn._layout_slots(s, query, GRID_SHAPE, GRID_TQ, SLOT_CAP)
+vp = grid_knn._sorted_values(s, vals)
+kw = {"n_real": sl.n_real} if hasattr(sl, "n_real") else {}
+def device_ms(fn, reps=50):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and "grid_" in e.key]
+    count = sum(e.count for e in ev)  # the trace may drop a launch
+    assert reps // 2 <= count <= reps, count
+    return sum(e.self_device_time_total for e in ev) / 1e3 / count
+print(json.dumps({
+    "grid_interp": device_ms(lambda: grid_interp_cuda(
+        sl.q_pad, s.refs_pad, vp, sl.st, sl.en, 3, **kw)),
+    "grid_topk": device_ms(lambda: grid_topk_cuda(
+        sl.q_pad, s.refs_pad, sl.st, sl.en, 3, **kw)),
+    "n_real": bool(kw)}))
+"""
+
+
+def compare_grid(parent: Path) -> None:
+    here = Path(__file__).resolve().parents[1]
+    runs = []
+    for root in (parent, here, here, parent):
+        out = subprocess.run([sys.executable, "-c", GRID_TURN, str(root)],
+                             cwd=root, capture_output=True, text=True,
+                             check=True, timeout=900)
+        runs.append((root == parent, json.loads(out.stdout.splitlines()[-1])))
+    for name in ("grid_interp", "grid_topk"):
+        print(f"[grid compare] {name} 90000x30000 k=3, device ms in turns "
+              "(parent, change, change, parent): " + ", ".join(
+                  f"{'parent' if p else 'change'} {r[name]:.4f}"
+                  for p, r in runs))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    build_all(["knn_topk", "fps"])
+    if "--parent" in sys.argv:
+        compare_grid(Path(sys.argv[sys.argv.index("--parent") + 1]).resolve())
+        print(card_line())
+        return 0
+    build_all(["knn_topk", "fps", "grid_fused"])
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     ref = torch.from_numpy(normalize_point_cloud(make_cloud(
@@ -101,6 +336,7 @@ def main() -> int:
         rng, 65536))[0])[None].to(dev)
     sweep_knn(query, ref, rng)
     sweep_fps(ref, big)
+    sweep_grid(query, ref, np.random.default_rng(8))
     print(card_line())
     return 0
 
