@@ -21,11 +21,12 @@ def diffusion_loss(predicted_noise: torch.Tensor, actual_noise: torch.Tensor,
                    predicted_points_coarse: Optional[torch.Tensor] = None,
                    target_points_coarse: Optional[torch.Tensor] = None,
                    noise_weight: float = 1.0, chamfer_weight: float = 0.1,
-                   backend: str = "pallas"
+                   backend: str = "pallas", selections: Optional[dict] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, {"noise_loss", ["chamfer_loss"], "total_loss"}). The L1 is
     taken in float32; the Chamfer's row minima go through ``min_sq_dist``
-    with ``backend`` (``"pallas"``: the kernels' custom gradient)."""
+    with ``backend`` (``"pallas"``: the kernels' custom gradient, whose
+    argmins ``selections`` may pin: ``ops.chamfer_distance``)."""
     noise_loss = torch.mean(torch.abs(predicted_noise.float()
                                       - actual_noise.float()))
     total = noise_weight * noise_loss
@@ -33,7 +34,8 @@ def diffusion_loss(predicted_noise: torch.Tensor, actual_noise: torch.Tensor,
     if (chamfer_weight > 0 and predicted_points_coarse is not None
             and target_points_coarse is not None):
         cd = torch.mean(chamfer_distance(predicted_points_coarse,
-                                         target_points_coarse, backend))
+                                         target_points_coarse, backend,
+                                         selections))
         total = total + chamfer_weight * cd
         loss_dict["chamfer_loss"] = cd
     loss_dict["total_loss"] = total

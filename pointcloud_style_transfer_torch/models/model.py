@@ -58,7 +58,8 @@ class PointCloudDiffusionModel:
                 drop_u: Optional[torch.Tensor] = None,
                 style_dropout_mask: Optional[torch.Tensor] = None,
                 noise_dropout_masks: Optional[Sequence[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                selections: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                            Optional[Dict[str, torch.Tensor]]]:
         """The training forward (JAX ``PointCloudDiffusionModel.forward``):
@@ -79,14 +80,16 @@ class PointCloudDiffusionModel:
         order: ``cond_priority`` [B, Nc], ``fps_starts`` [2, B],
         ``style_dropout_mask`` [B, 512], ``drop_u`` [B, 1],
         ``noisy_priority`` [B, N], ``noise_dropout_masks`` (one
-        [B, M, feature_dim] per residual block)."""
+        [B, M, feature_dim] per residual block). ``selections`` (a dict)
+        pins the ReLU gates and max-pool argmaxes the gradient follows
+        (``networks.gated_relu``, ``networks.pooled_max``)."""
         M = self.config.global_points
         cond = condition_points
         if use_hierarchical and cond.shape[1] > M:
             cond, _ = voxel_downsample(cond, M, priority=cond_priority,
                                        generator=generator)
         style = self.net.encode_style(cond, fps_starts, generator, train,
-                                      style_dropout_mask)
+                                      style_dropout_mask, selections)
         if cond_drop_prob > 0:
             if drop_u is None:
                 drop_u = torch.rand((style.shape[0], 1), generator=generator,
@@ -98,6 +101,7 @@ class PointCloudDiffusionModel:
             noisy_points, idx = voxel_downsample(
                 noisy_points, M, priority=noisy_priority, generator=generator)
         pred = self.net.predict_noise(noisy_points, t, style, train,
-                                      noise_dropout_masks, generator)
+                                      noise_dropout_masks, generator,
+                                      selections)
         updates = dict(self.net.named_buffers()) if train else None
         return pred, idx, updates

@@ -21,6 +21,7 @@ predictor 1,874,691, total 2,549,827.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -31,23 +32,44 @@ from torch import nn
 from ..ops import farthest_point_sample, index_points, query_ball_point
 
 
+@functools.lru_cache(maxsize=None)
+def _frequencies(half: int, device: torch.device) -> torch.Tensor:
+    """exp(-log(10000) i / (half - 1)), i < half, computed on the CPU and
+    kept on ``device``: every device then embeds a timestep with the same
+    bits. (The card's exp differs from the CPU's in the last bit for some
+    i, and a timestep of 500 turns that into ~3e-5 in sin and cos.)"""
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32)
+                      * -(math.log(10000.0) / (half - 1)))
+    return freqs.to(device)
+
+
 def time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
     """Sinusoidal timestep embedding [B] -> [B, dim] float32."""
-    half = dim // 2
-    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=t.device)
-                      * -(math.log(10000.0) / (half - 1)))
+    freqs = _frequencies(dim // 2, t.device)
     args = t.float()[:, None] * freqs[None, :]
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
+# the standard deviation of a unit normal truncated to [-2, 2]
+# (jax.nn.initializers.variance_scaling's constant)
+_TRUNCATED_STD = 0.87962566103423978
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` with float32 parameters that computes in
-    ``compute_dtype``."""
+    ``compute_dtype``, initialised as Flax's ``nn.Dense``: a lecun_normal
+    kernel (a normal truncated at two standard deviations, variance
+    1 / in_features) and a zero bias."""
 
     def __init__(self, in_features: int, out_features: int,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features)
         self.compute_dtype = compute_dtype
+
+    def reset_parameters(self) -> None:
+        std = math.sqrt(1.0 / self.in_features) / _TRUNCATED_STD
+        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std)
+        nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -99,6 +121,42 @@ def dropout(x: torch.Tensor, train: bool, keep: Optional[torch.Tensor] = None,
     return torch.where(keep.to(x.device), x / KEEP_PROB, torch.zeros_like(x))
 
 
+def pooled_max(x: torch.Tensor, dim: int, selections: Optional[dict] = None,
+               key: str = "pool") -> torch.Tensor:
+    """``x.max(dim).values``. With ``selections`` (a dict) the argmax the
+    gradient follows is pinned: taken from ``selections[key]`` (the pooled
+    input of the step that recorded it; its argmax on its own device) when
+    the dict holds it, else ``x`` recorded there."""
+    if selections is None:
+        return x.max(dim=dim).values
+    if key in selections:
+        idx = selections[key].max(dim=dim).indices.to(x.device)
+        return x.gather(dim, idx.unsqueeze(dim)).squeeze(dim)
+    selections[key] = x.detach()
+    return x.max(dim=dim).values
+
+
+def gated_relu(x: torch.Tensor, selections: Optional[dict] = None,
+               key: str = "relu") -> torch.Tensor:
+    """``F.relu(x)``. With ``selections`` (a dict) the gate the gradient
+    follows is pinned: ``x * gate`` with the gate ``selections[key] > 0``
+    (the pre-activation of the step that recorded it) when the dict holds
+    it, else ``x`` recorded there.
+
+    The pinned selections (these, and the Chamfer's argmins in
+    ``ops.distance.MinSqDist``) let a training step on the card follow the
+    CPU's discrete choices at near-ties, so that the two differ only by
+    continuous rounding; a record holds what each choice was made on, so
+    that a choice of another step can be judged against it. Without
+    ``selections`` nothing changes."""
+    if selections is None:
+        return F.relu(x)
+    if key in selections:
+        return x * (selections[key] > 0).to(x.device, x.dtype)
+    selections[key] = x.detach()
+    return F.relu(x)
+
+
 class SetAbstraction(nn.Module):
     """PointNet++ set abstraction: FPS -> ball query -> group (centered) ->
     per-point Dense+BN+ReLU -> max-pool over neighbours. ``group_all`` pools
@@ -121,7 +179,11 @@ class SetAbstraction(nn.Module):
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
                 fps_start: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                train: bool = False):
+                train: bool = False, selections: Optional[dict] = None,
+                key: str = "sa"):
+        """``selections`` pins the ReLU gates and the max-pool's argmaxes
+        under ``key``.relu<i> and ``key``.pool (``gated_relu``,
+        ``pooled_max``)."""
         B = xyz.shape[0]
         if self.group_all:
             new_xyz = xyz.new_zeros((B, 1, 3))
@@ -140,9 +202,9 @@ class SetAbstraction(nn.Module):
                 grouped = torch.cat([grouped, index_points(points, group_idx)],
                                     dim=-1)
         x = grouped
-        for lin, bn in zip(self.linears, self.bns):
-            x = F.relu(bn(lin(x), train))
-        return new_xyz, x.max(dim=2).values  # [B, S, C']
+        for i, (lin, bn) in enumerate(zip(self.linears, self.bns)):
+            x = gated_relu(bn(lin(x), train), selections, f"{key}.relu{i}")
+        return new_xyz, pooled_max(x, 2, selections, f"{key}.pool")
 
 
 class PointNet2Encoder(nn.Module):
@@ -162,13 +224,19 @@ class PointNet2Encoder(nn.Module):
     def forward(self, xyz: torch.Tensor,
                 fps_starts: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False,
+                selections: Optional[dict] = None) -> torch.Tensor:
         """``fps_starts`` [2, B]: the start indices of the two FPS calls
-        (drawn from ``generator`` when not given)."""
+        (drawn from ``generator`` when not given). ``selections`` pins the
+        three set abstractions' gates and argmaxes under ``sa1``, ``sa2``,
+        ``sa3``."""
         s1, s2 = (None, None) if fps_starts is None else fps_starts
-        l1_xyz, l1_points = self.sa1(xyz, None, s1, generator, train)
-        l2_xyz, l2_points = self.sa2(l1_xyz, l1_points, s2, generator, train)
-        _, global_feat = self.sa3(l2_xyz, l2_points, train=train)
+        l1_xyz, l1_points = self.sa1(xyz, None, s1, generator, train,
+                                     selections, "sa1")
+        l2_xyz, l2_points = self.sa2(l1_xyz, l1_points, s2, generator, train,
+                                     selections, "sa2")
+        _, global_feat = self.sa3(l2_xyz, l2_points, train=train,
+                                  selections=selections, key="sa3")
         return global_feat.reshape(xyz.shape[0], -1)
 
 
@@ -187,11 +255,14 @@ class StyleEncoder(nn.Module):
                 fps_starts: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 train: bool = False,
-                dropout_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``dropout_mask`` [B, 512]: the head's keep mask in train mode."""
-        feat = self.encoder(points, fps_starts, generator, train)
-        x = dropout(F.relu(self.fc1(feat)), train, dropout_mask, generator)
-        return F.relu(self.fc2(x))
+                dropout_mask: Optional[torch.Tensor] = None,
+                selections: Optional[dict] = None) -> torch.Tensor:
+        """``dropout_mask`` [B, 512]: the head's keep mask in train mode;
+        ``selections``: the pinned gates and argmaxes (``gated_relu``)."""
+        feat = self.encoder(points, fps_starts, generator, train, selections)
+        x = dropout(gated_relu(self.fc1(feat), selections, "fc1.relu"), train,
+                    dropout_mask, generator)
+        return gated_relu(self.fc2(x), selections, "fc2.relu")
 
 
 class NoisePredictor(nn.Module):
@@ -220,19 +291,25 @@ class NoisePredictor(nn.Module):
     def forward(self, noisy_points: torch.Tensor, t: torch.Tensor,
                 style_feat: torch.Tensor, train: bool = False,
                 dropout_masks: Optional[Sequence[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                selections: Optional[dict] = None) -> torch.Tensor:
         """``dropout_masks``: one [B, N, feature_dim] keep mask per residual
-        block in train mode (drawn from ``generator`` when not given)."""
+        block in train mode (drawn from ``generator`` when not given);
+        ``selections``: the pinned ReLU gates (``gated_relu``)."""
         masks = dropout_masks or [None] * len(self.blocks)
+        sel = selections
         pe0, pe1, pe2 = self.point_encoder
-        x = pe2(F.relu(pe1(F.relu(pe0(noisy_points)))))
+        x = gated_relu(pe0(noisy_points), sel, "pe0.relu")
+        x = pe2(gated_relu(pe1(x), sel, "pe1.relu"))
         t_feat = self.time_proj(time_embedding(t, self.time_embed_dim))
         s_feat = self.style_proj(style_feat)
         x = x + t_feat[:, None, :] + s_feat[:, None, :]
-        for (fc1, fc2), keep in zip(self.blocks, masks):
-            x = dropout(fc2(F.relu(fc1(x))), train, keep, generator) + x
+        for i, ((fc1, fc2), keep) in enumerate(zip(self.blocks, masks)):
+            h = gated_relu(fc1(x), sel, f"block{i}.relu")
+            x = dropout(fc2(h), train, keep, generator) + x
         o0, o1, o2 = self.output_mlp
-        return o2(F.relu(o1(F.relu(o0(x)))))
+        x = gated_relu(o0(x), sel, "out0.relu")
+        return o2(gated_relu(o1(x), sel, "out1.relu"))
 
 
 class DiffusionNet(nn.Module):
@@ -251,15 +328,15 @@ class DiffusionNet(nn.Module):
                      fps_starts: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None,
                      train: bool = False,
-                     dropout_mask: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     dropout_mask: Optional[torch.Tensor] = None,
+                     selections: Optional[dict] = None) -> torch.Tensor:
         return self.style_encoder(cond_points, fps_starts, generator, train,
-                                  dropout_mask)
+                                  dropout_mask, selections)
 
     def predict_noise(self, noisy_points: torch.Tensor, t: torch.Tensor,
                       style_feat: torch.Tensor, train: bool = False,
                       dropout_masks: Optional[Sequence[torch.Tensor]] = None,
-                      generator: Optional[torch.Generator] = None
-                      ) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      selections: Optional[dict] = None) -> torch.Tensor:
         return self.noise_predictor(noisy_points, t, style_feat, train,
-                                    dropout_masks, generator)
+                                    dropout_masks, generator, selections)

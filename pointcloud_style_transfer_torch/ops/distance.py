@@ -13,6 +13,8 @@ oracles, so they must select the same neighbours at near-ties.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .grid_knn import grid_knn
@@ -41,17 +43,30 @@ class MinSqDist(torch.autograd.Function):
     lowest index) is saved, as ``_min_sq_dist_fwd`` does. Backward
     (``_min_sq_dist_bwd``): dq = 2 (q - r[argmin]) g, and -dq scatter-added
     into the refs. The gather and the scatter stay ``torch.gather`` /
-    ``index_add_``, as JAX computes them outside any Pallas kernel."""
+    ``index_add_``, as JAX computes them outside any Pallas kernel.
+
+    ``selections`` (a dict, or None) pins the argmin the backward follows:
+    the one under ``key`` is replayed when the dict holds it, else the
+    kernel's is recorded there, with the points it was chosen on under
+    ``key.query`` and ``key.ref``. A step on the card can so follow the
+    CPU's choices at near-ties; the forward values stay the kernel's."""
 
     @staticmethod
     def forward(ctx, query: torch.Tensor, ref: torch.Tensor,
-                grad_enabled: bool) -> torch.Tensor:
+                grad_enabled: bool, selections: Optional[dict] = None,
+                key: str = "argmin") -> torch.Tensor:
         q = query.float().contiguous()
         r = ref.float().contiguous()
         if not (grad_enabled and any(ctx.needs_input_grad[:2])):
             return rowmin_kernel(q, r)
         d, idx = knn_topk(q, r, 1)
-        ctx.save_for_backward(q, r, idx[..., 0].long())
+        idx = idx[..., 0].long()
+        if selections is not None and key in selections:
+            idx = selections[key].to(idx.device)
+        elif selections is not None:
+            selections.update({key: idx, f"{key}.query": q.detach(),
+                               f"{key}.ref": r.detach()})
+        ctx.save_for_backward(q, r, idx)
         ctx.dtypes = (query.dtype, ref.dtype)
         return d[..., 0].clamp_min(0.0)
 
@@ -64,29 +79,35 @@ class MinSqDist(torch.autograd.Function):
         flat = (idx + torch.arange(B, device=idx.device)[:, None] * M)
         dr = torch.zeros_like(r).view(B * M, 3).index_add_(
             0, flat.reshape(-1), -dq.reshape(-1, 3)).view(B, M, 3)
-        return dq.to(ctx.dtypes[0]), dr.to(ctx.dtypes[1]), None
+        return (dq.to(ctx.dtypes[0]), dr.to(ctx.dtypes[1]), None, None,
+                None)
 
 
 def min_sq_dist(query: torch.Tensor, ref: torch.Tensor,
-                backend: str = "pallas") -> torch.Tensor:
+                backend: str = "pallas", selections: Optional[dict] = None,
+                key: str = "argmin") -> torch.Tensor:
     """Per-query min squared distance: query [B, N, 3], ref [B, M, 3] ->
     [B, N] float32, >= 0. ``backend="pallas"`` is ``MinSqDist`` (the kernels
-    on CUDA tensors, their plain versions on CPU tensors); ``"jnp"`` the
-    plain row minimum everywhere, differentiated by autograd
-    (``Config.use_pallas=False``)."""
+    on CUDA tensors, their plain versions on CPU tensors; ``selections`` and
+    ``key`` pin its argmin under grad); ``"jnp"`` the plain row minimum
+    everywhere, differentiated by autograd (``Config.use_pallas=False``)."""
     if backend == "pallas":
-        return MinSqDist.apply(query, ref, torch.is_grad_enabled())
+        return MinSqDist.apply(query, ref, torch.is_grad_enabled(),
+                               selections, key)
     if backend == "jnp":
         return rowmin_plain(query, ref)
     raise ValueError(f"unknown min_sq_dist backend: {backend!r}")
 
 
 def chamfer_distance(pred: torch.Tensor, target: torch.Tensor,
-                     backend: str = "pallas") -> torch.Tensor:
+                     backend: str = "pallas",
+                     selections: Optional[dict] = None) -> torch.Tensor:
     """[B] bidirectional squared-L2 Chamfer (the training loss's):
-    mean_n min_m |p_n - t_m|^2 + mean_m min_n |t_m - p_n|^2."""
-    d_pt = min_sq_dist(pred, target, backend)
-    d_tp = min_sq_dist(target, pred, backend)
+    mean_n min_m |p_n - t_m|^2 + mean_m min_n |t_m - p_n|^2. ``selections``
+    pins the two argmins (``min_sq_dist``) under the keys ``chamfer_pt`` and
+    ``chamfer_tp``."""
+    d_pt = min_sq_dist(pred, target, backend, selections, "chamfer_pt")
+    d_tp = min_sq_dist(target, pred, backend, selections, "chamfer_tp")
     return d_pt.mean(dim=1) + d_tp.mean(dim=1)
 
 

@@ -9,20 +9,26 @@ and loaded with ``ctypes``. Nothing is built on import: the first launch builds
 its library, and ``build_all`` builds every library at once, one ``nvcc``
 process per source, all started together.
 
+A source's plan constants are ``#define PCST_...`` lines, read by
+``source_define`` and overridden at build time with ``-D`` (``build_variants``
+builds a source once per set of overrides, for the plan sweeps and tests).
+
 Every wrapper adds one to its kernel's entry of ``LAUNCH_COUNTS`` after each
 launch, so a run can show that a path really went through the kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
 
 import torch
 
@@ -98,36 +104,67 @@ def nvcc_path() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str) -> Path:
+def source_define(name: str, macro: str) -> int:
+    """The integer a ``#define <macro> <n>`` line of ``csrc/<name>.cu``
+    gives: a plan constant of the source as built without overrides."""
+    found = re.search(rf"^#define {macro} (\d+)$",
+                      (CSRC / f"{name}.cu").read_text(), re.M)
+    if found is None:
+        raise KeyError(f"csrc/{name}.cu defines no {macro}")
+    return int(found.group(1))
+
+
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
+    """Where ``csrc/<name>.cu`` built with ``defines`` (``-D`` flags) goes."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join([*NVCC_FLAGS, *defines])
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_ROOT / f"{name}-{digest[:16]}" / f"lib{name}.so"
 
 
-def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path]:
-    out = library_path(name)
+def _start_build(name: str, defines: Sequence[str] = ()
+                 ) -> tuple[subprocess.Popen, Path, Path]:
+    out = library_path(name, defines)
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".so.tmp{os.getpid()}")
     log = out.with_suffix(".log")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     with open(log, "w") as f:
         proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
     return proc, tmp, out
 
 
-def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
-    """Build every missing library in parallel; returns name -> .so path.
-    Raises with nvcc's log if any build fails."""
-    pending = {n: _start_build(n) for n in names if not library_path(n).exists()}
+def _finish_builds(pending: dict) -> None:
+    """Wait for ``_start_build``'s processes (label -> its triple); raise
+    with nvcc's log if any failed."""
     errors = []
-    for name, (proc, tmp, out) in pending.items():
+    for label, (proc, tmp, out) in pending.items():
         if proc.wait() != 0:
-            errors.append(f"{name}:\n{out.with_suffix('.log').read_text()}")
+            errors.append(f"{label}:\n{out.with_suffix('.log').read_text()}")
             continue
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("nvcc failed for " + "\n".join(errors))
+
+
+def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
+    """Build every missing library in parallel; returns name -> .so path.
+    Raises with nvcc's log if any build fails."""
+    _finish_builds({n: _start_build(n) for n in names
+                    if not library_path(n).exists()})
     return {n: library_path(n) for n in names}
+
+
+def build_variants(name: str, variants: dict) -> dict:
+    """``csrc/<name>.cu`` built once per variant (label -> its ``-D``
+    flags), one ``nvcc`` each, all started together -> label: loaded
+    library, for ``launching``."""
+    _finish_builds({label: _start_build(name, flags)
+                    for label, flags in variants.items()
+                    if not library_path(name, flags).exists()})
+    return {label: open_library(library_path(name, flags), name)
+            for label, flags in variants.items()}
 
 
 def open_library(path: Path, name: str) -> ctypes.CDLL:
@@ -149,6 +186,18 @@ def load_library(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = open_library(build_all([name])[name], name)
         return _libs[name]
+
+
+@contextlib.contextmanager
+def launching(name: str, lib: ctypes.CDLL):
+    """Within the block the wrappers of ``csrc/<name>.cu`` launch ``lib``
+    (a ``build_variants`` library) instead of the source's own build."""
+    own = load_library(name)
+    _libs[name] = lib
+    try:
+        yield
+    finally:
+        _libs[name] = own
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -2,10 +2,15 @@
 
 Replaces ``pointcloud_style_transfer_tpu/ops/pallas/distance_topk.py::
 _ballquery_kernel`` (wrappers ``_ballquery_single``, ``pallas_ball_query``);
-kernel source ``csrc/ball_query.cu``. It is latency-bound on the card (a few
-hundred independent scans): one warp per center appends in-radius indices in
-ascending order with a ballot prefix and stops once ``nsample`` slots are
-full.
+kernel source ``csrc/ball_query.cu``. It is bound by latency on the card: a
+few hundred independent scans, and a call lasts as long as its longest one
+(a center with fewer than ``nsample`` points inside reads the whole cloud).
+One block of warps serves one center and takes the points in ascending
+rounds, each warp a contiguous run with all its loads in flight before its
+first ballot; a ballot prefix within the warp and an exclusive prefix of
+the warps' counts in shared memory append the in-radius indices in
+ascending order, and the block stops after the round that fills
+``nsample`` slots.
 
 Both versions return [B, S, nsample] int32: the nsample LOWEST indices with
 squared distance <= float32(radius**2), ascending, empty slots backfilled

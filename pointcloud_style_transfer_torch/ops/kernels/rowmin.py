@@ -2,17 +2,24 @@
 
 Replaces ``pointcloud_style_transfer_tpu/ops/pallas/distance_topk.py::
 _rowmin_kernel`` (wrappers ``_rowmin_single``, ``pallas_min_sq_dist``'s
-primal); kernel source ``csrc/rowmin.cu``. It is compute-bound on the card
-(1.44e10 pairs for the compare CLI's 120k x 120k call against 2.9 MB of
-inputs): one thread per query keeps a running minimum in a register while the
-block streams ref tiles through shared memory.
+primal); kernel source ``csrc/rowmin.cu``. It is bound by operations at the
+card's FP32 issue rate: 8 float ops per pair that the bit-identical contract
+keeps out of FMAs (1.44e10 pairs for the compare CLI's 120k x 120k call
+against 2.9 MB of inputs). Each thread keeps Q queries' minima in registers
+while the block streams ref tiles through shared memory, so one broadcast
+shared load serves Q pairs, and the NaN-keeping minimum is one instruction
+(PTX ``min.NaN.f32``). A thread-block cluster of S blocks splits the ref
+axis, so that the Chamfer loss's 30,000 points fill the card, and its rank 0
+merges the ranks' minima through distributed shared memory in the same
+launch. S and Q are constants of the source (``PCST_ROWMIN_S`` = 8,
+``PCST_ROWMIN_Q`` = 4), chosen with ``tools/sweep_kernel_plans.py``.
 
 Both versions return [B, Nq] float32: min over refs of the squared distance
 in the kernels' form (``_common.pairwise_sq_dist``), capped at the scan's
 initial 1e30 and clamped at >= 0; a NaN distance makes its row NaN, as
 ``jnp.minimum``/``jnp.maximum`` propagate it on the TPU. The values are
 identical between the two, not merely close: a minimum of non-NaN floats does
-not depend on the order of the scan.
+not depend on the order of the scan, nor on how it is split.
 """
 
 from __future__ import annotations

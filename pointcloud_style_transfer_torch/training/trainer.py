@@ -64,7 +64,11 @@ def compute_losses(model: PointCloudDiffusionModel,
     """q_sample -> forward -> L1 on the gathered coarse noise (+ Chamfer of
     pred_x0 against the clean coarse points). ``draws`` may hold ``t`` [B],
     ``noise`` [B, N, 3] and any draw of ``PointCloudDiffusionModel.forward``;
-    the rest come from ``generator`` (t, then noise, then the forward's)."""
+    the rest come from ``generator`` (t, then noise, then the forward's).
+    ``draws["selections"]``, a dict, pins the discrete selections the
+    gradient follows (the ReLU gates, the style encoder's max-pool argmaxes,
+    the Chamfer's argmins): each is replayed from it when it holds one, else
+    recorded into it."""
     cfg = model.config
     if train and cfg.use_augmentation:
         raise NotImplementedError(
@@ -82,12 +86,13 @@ def compute_losses(model: PointCloudDiffusionModel,
     if noise is None:
         noise = torch.randn(batch_sim.shape, generator=generator, device=dev)
     noise = noise.to(dev)
+    selections = draws.pop("selections", None)
     noisy = q_sample(schedule, batch_sim, t, noise)
 
     pred, idx, _ = model.forward(
         noisy, t, batch_real, cond_drop_prob=cond_drop_prob,
         use_hierarchical=cfg.use_hierarchical, train=train,
-        generator=generator, **draws)
+        generator=generator, selections=selections, **draws)
     backend = "pallas" if cfg.use_pallas else "jnp"
     if idx is None:
         return diffusion_loss(pred, noise, chamfer_weight=0.0)
@@ -100,7 +105,8 @@ def compute_losses(model: PointCloudDiffusionModel,
         b = schedule.sqrt_one_minus_alphas_cumprod[t][:, None, None]
         pred_x0_coarse = (noisy_coarse - b * pred.float()) / (a + 1e-8)
     return diffusion_loss(pred, noise_coarse, pred_x0_coarse, sim_coarse,
-                          chamfer_weight=chamfer_weight, backend=backend)
+                          chamfer_weight=chamfer_weight, backend=backend,
+                          selections=selections)
 
 
 def train_step(model: PointCloudDiffusionModel, schedule: DiffusionSchedule,

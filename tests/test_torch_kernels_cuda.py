@@ -7,7 +7,12 @@ without it run ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 relative (same float32 arithmetic, no FMA); under every cluster size the kNN
 kernel's indices and distance bits, and under every launch plan FPS's
 indices, are identical to the plain versions'. The row minimum is identical
-to its plain version, NaN rows included; ``MinSqDist``'s gradients on the
+to its plain version, NaN rows included, built with every cluster size S
+and queries a thread Q; the ball query kernel's indices are identical to
+its plain version's on rows with no hit, hits in the last partial round or
+ending on a round or warp boundary, fewer points than nsample, NaN points
+and centers of both signs, built with the source's and four other (warps,
+steps a round); ``MinSqDist``'s gradients on the
 card are within 1e-6 relative of the CPU's (the card's scatter-add into the
 refs uses atomics, so its sums are taken in another order). The grid
 kernels' distances
@@ -35,6 +40,7 @@ from pointcloud_style_transfer_torch.ops.kernels import (
     knn_pruned_pass_cuda, knn_pruned_pass_plain, knn_topk, knn_topk_cuda,
     knn_topk_plain, rowmin_cuda, rowmin_plain)
 from pointcloud_style_transfer_torch.ops import pruned_knn
+from pointcloud_style_transfer_torch.ops.kernels import _common
 
 pytestmark = pytest.mark.cuda
 
@@ -194,6 +200,77 @@ def test_ball_query_kernel_matches_plain(rng, cuda, s, n, radius, ns):
                        ball_query_plain(radius, ns, xt, ct))
 
 
+def edge_cloud(rng, b, n, hits):
+    """Points inside radius 0.5 of the origin at the indices ``hits``, the
+    others well outside; NaN coordinates of both signs set on the host (a
+    -nan written on the card loses its sign bit)."""
+    x = (rng.uniform(2.0, 4.0, (b, n, 3))
+         * rng.choice([-1.0, 1.0], (b, n, 3))).astype(np.float32)
+    sel = sorted(hits)
+    x[:, sel] = rng.uniform(-0.2, 0.2, (b, len(sel), 3)).astype(np.float32)
+    return x
+
+
+# the source's (warps, steps a round) and its round of points
+# (csrc/ball_query.cu)
+BQ_PLAN = (_common.source_define("ball_query", "PCST_BQ_WARPS"),
+           _common.source_define("ball_query", "PCST_BQ_UNROLL"))
+BQ_ROUND = 32 * BQ_PLAN[0] * BQ_PLAN[1]
+BQ_PLANS = [BQ_PLAN, (1, 1), (4, 2), (8, 8), (32, 1)]
+# the row minimum's (S, Q): the source's, every other S at its Q, the other
+# Q at its S (csrc/rowmin.cu)
+ROWMIN_PLAN = (_common.source_define("rowmin", "PCST_ROWMIN_S"),
+               _common.source_define("rowmin", "PCST_ROWMIN_Q"))
+ROWMIN_PLANS = sorted(
+    {(S, ROWMIN_PLAN[1]) for S in (1, 2, 4, 8)}
+    | {(ROWMIN_PLAN[0], Q) for Q in (1, 2, 4, 8)})
+
+
+@pytest.fixture(scope="module")
+def variants():
+    """The ball query and the row minimum built with every plan above, all
+    at once -> {(source, plan): library}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels run only on the card)")
+    bq = _common.build_variants("ball_query", {
+        p: (f"-DPCST_BQ_WARPS={p[0]}", f"-DPCST_BQ_UNROLL={p[1]}")
+        for p in BQ_PLANS})
+    rm = _common.build_variants("rowmin", {
+        p: (f"-DPCST_ROWMIN_S={p[0]}", f"-DPCST_ROWMIN_Q={p[1]}")
+        for p in ROWMIN_PLANS})
+    return ({("ball_query", p): lib for p, lib in bq.items()}
+            | {("rowmin", p): lib for p, lib in rm.items()})
+
+
+@pytest.mark.parametrize("plan", BQ_PLANS)
+@pytest.mark.parametrize("n,hits,ns", [
+    (2 * BQ_ROUND + 5, set(), 32),                          # no hit
+    (2 * BQ_ROUND + 77, {2 * BQ_ROUND + 3, 2 * BQ_ROUND + 76}, 8),  # last
+    (3 * BQ_ROUND, set(range(BQ_ROUND - 32, BQ_ROUND)), 32),  # ends on a round
+    (3 * BQ_ROUND, set(range(96, 128)), 32),                 # ends on a warp
+    (2 * BQ_ROUND, set(range(120, 140)) | {BQ_ROUND - 1, BQ_ROUND}, 64),
+    (20, {0, 7, 19}, 64),                                    # n < ns
+    (BQ_ROUND + 33, set(range(0, BQ_ROUND + 33, 41)), 32),   # ragged round
+])
+def test_ball_query_kernel_rounds(rng, cuda, variants, n, hits, ns, plan):
+    x = edge_cloud(rng, 3, n, hits)
+    neg = np.copysign(np.float32(np.nan), np.float32(-1.0))
+    if hits:
+        h = sorted(hits)
+        x[0, h[0], 1] = neg  # a hit that a NaN takes out, both signs
+        x[1, h[-1], 0] = np.nan
+    c = np.zeros((3, 2, 3), np.float32)
+    c[2, 1, 2] = neg  # a NaN center: an empty row
+    xt, ct = torch.from_numpy(x).to(cuda), torch.from_numpy(c).to(cuda)
+    before = LAUNCH_COUNTS["ball_query"]
+    with _common.launching("ball_query", variants[("ball_query", plan)]):
+        got = ball_query_cuda(0.5, ns, xt, ct)
+    assert LAUNCH_COUNTS["ball_query"] == before + 1
+    want = ball_query_plain(0.5, ns, xt, ct)
+    assert torch.equal(got, want)
+    assert (want[2, 1] == n).all()
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     x = torch.zeros((1, 10, 3), device=cuda)
     with pytest.raises(ValueError):
@@ -230,6 +307,35 @@ def test_rowmin_kernel_identical_to_plain(rng, cuda, b, n, m):
     assert torch.equal(torch.isnan(d), nan) and nan.sum().item() == 1
     assert torch.equal(d[~nan], d_p[~nan])
     assert (d[:, : n // 5] == 0).all()
+
+
+@pytest.mark.parametrize("plan", ROWMIN_PLANS)
+def test_rowmin_kernel_plans_identical_to_plain(rng, cuda, variants, plan):
+    """Built with every (S, Q): a NaN ref in one rank's slice only (cloud
+    0), a -nan query (cloud 1), rows at the 1e30 cap (cloud 2), Nq not a
+    multiple of the 128 Q queries of a block; and M smaller than S."""
+    b, n, m = 3, 517, 3000
+    r = points(rng, b, m)
+    q = points(rng, b, n)
+    q[:, : n // 5] = r[:, rng.choice(m, n // 5)]
+    S = plan[0]
+    r[0, (S - 1) * -(-m // S) + 3, 2] = np.nan  # in the last rank's slice
+    q[1, 100, 0] = np.copysign(np.float32(np.nan), np.float32(-1.0))
+    q[2, :7] = 1e16  # every distance ~1e32: capped at 1e30
+    qt, rt = torch.from_numpy(q).to(cuda), torch.from_numpy(r).to(cuda)
+    before = LAUNCH_COUNTS["rowmin"]
+    with _common.launching("rowmin", variants[("rowmin", plan)]):
+        d = rowmin_cuda(qt, rt)
+        few = rt[:, :3].contiguous()  # fewer refs than slices
+        d_few = rowmin_cuda(qt[2:], few[2:])
+    assert LAUNCH_COUNTS["rowmin"] == before + 2
+    d_p = rowmin_plain(qt, rt)
+    nan = torch.isnan(d_p)
+    assert nan[0].all() and nan[1].sum().item() == 1 and not nan[2].any()
+    assert torch.equal(torch.isnan(d), nan)
+    assert torch.equal(d[~nan], d_p[~nan])
+    assert (d[2, :7] == np.float32(1e30)).all()
+    assert torch.equal(d_few, rowmin_plain(qt[2:], few[2:]))
 
 
 def test_min_sq_dist_kernels_and_grads(rng, cuda):

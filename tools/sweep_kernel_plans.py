@@ -1,5 +1,5 @@
-"""Time every launch the kNN, FPS and kd-grid kernels take, at the shapes
-their plans are chosen for, on one CUDA card.
+"""Time every launch the kNN, FPS, kd-grid, ball query and row-min kernels
+take, at the shapes their plans are chosen for, on one CUDA card.
 
 ``knn_topk``: every cluster size S at the kd-grid's patch sizes (500 to
 32,768 rows), the brute path's 90,000 rows and the Chamfer gradient's 30,000
@@ -15,24 +15,32 @@ the kernel, paces back-to-back calls); the wrapper's host
 time a call; the heaviest tile alone and the 132 heaviest (one an SM); and
 (``[grid inserts]``) how often a warp of 32 queries passes the eight-ref
 filter and runs an insert, counted with plain tensor ops for the runs in
-slot order and in the kernel's staging order.
+slot order and in the kernel's staging order. ``ball_query``:
+``csrc/ball_query.cu`` rebuilt for every (warps, steps a round)
+(``-DPCST_BQ_WARPS``, ``-DPCST_BQ_UNROLL``) at the style encoder's two
+calls, in device time. ``rowmin``: ``csrc/rowmin.cu`` rebuilt for every
+cluster size S and number of queries a thread Q (``-DPCST_ROWMIN_S``,
+``-DPCST_ROWMIN_Q``) at 120,000 x 120,000, 30,000 x 30,000 and
+4,096 x 4,096, in device time.
 Every launch's result is held identical to the plan's (the built-in
-chunk's). The clouds are
-``chip_smoke.py``'s.
+constants'), and the ball query's and row minimum's to their plain
+versions. The clouds are ``chip_smoke.py``'s.
 
 Run from the root of a checkout on a machine with the CUDA toolkit:
-``python3 tools/sweep_kernel_plans.py``. It prints one line per shape and
-the card's name and power limit. ``--parent DIR`` instead times the grid
-kernels of the checkout at DIR (an earlier commit, e.g. a ``git archive``
-under ``build/``) against this checkout's, in turns (DIR, this, this, DIR),
-each turn a fresh process that builds its own kernels: device time of each
-kernel at the main path's shape and call (``[grid compare]``).
+``python3 tools/sweep_kernel_plans.py [--only NAME,...]``, NAME among knn,
+fps, grid, ball_query, rowmin (all by default). It prints one line per
+shape and the card's name and power limit. ``--parent DIR`` instead times
+the grid, ball query and row-min kernels of the checkout at DIR (an earlier
+commit, e.g. a ``git archive`` under ``build/``) against this checkout's,
+in turns (DIR, this, this, DIR), each turn a fresh process that builds its
+own kernels: device time of each kernel at the main path's shapes and
+calls (``[grid compare]``, ``[ball_query compare]``, ``[rowmin compare]``;
+``--only`` picks among them too).
 """
 
 from __future__ import annotations
 
 import json
-import re
 import subprocess
 import sys
 import time
@@ -50,13 +58,18 @@ from chip_smoke import GRID_SHAPE, GRID_TQ, SLOT_CAP  # noqa: E402
 from pointcloud_style_transfer_torch.ops import (grid_knn,  # noqa: E402
                                                  index_points)
 from pointcloud_style_transfer_torch.ops.kernels import (  # noqa: E402
-    build_all, fps_cuda, grid_interp_cuda, grid_topk_cuda, knn_topk_cuda)
+    ball_query_cuda, ball_query_plain, build_all, fps_cuda, grid_interp_cuda,
+    grid_topk_cuda, knn_topk_cuda, rowmin_cuda, rowmin_plain)
 from pointcloud_style_transfer_torch.ops.kernels import \
     _common  # noqa: E402
 from pointcloud_style_transfer_torch.ops.kernels.fps import (  # noqa: E402
     CLUSTER_SIZES as FPS_CLUSTER_SIZES, PERS, fps_plan)
 from pointcloud_style_transfer_torch.ops.kernels.knn import (  # noqa: E402
     CLUSTER_SIZES, knn_topk_plan)
+from chip_smoke import (BQ_UNROLL, BQ_WARPS, ROWMIN_Q,  # noqa: E402
+                        ROWMIN_S)
+
+SWEEPS = ("knn", "fps", "grid", "ball_query", "rowmin")
 
 ROWS = (500, 1825, 2500, 4096, 16384, 32768, 90000, 30000)
 
@@ -113,30 +126,7 @@ def sweep_fps(ref: torch.Tensor, big: torch.Tensor) -> None:
 # refs staged at a time: 16 bytes each in at most 48 KB of static shared
 # memory; GRID_CHUNK is the source's own
 GRID_CHUNKS = (256, 512, 768, 1024, 1536, 2048, 3072)
-GRID_CHUNK = int(re.search(r"#define PCST_GRID_CHUNK (\d+)", (
-    _common.CSRC / "grid_fused.cu").read_text()).group(1))
-
-
-def grid_libraries(chunks) -> dict:
-    """``csrc/grid_fused.cu`` built once per staging chunk, one ``nvcc``
-    each, all started together -> chunk: loaded library."""
-    procs = {}
-    for chunk in chunks:
-        out = _common.BUILD_ROOT / f"grid_fused-chunk{chunk}" / \
-            "libgrid_fused.so"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        procs[chunk] = out, subprocess.Popen(
-            [_common.nvcc_path(), *_common.NVCC_FLAGS,
-             f"-DPCST_GRID_CHUNK={chunk}", "-o", str(out),
-             str(_common.CSRC / "grid_fused.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    libs = {}
-    for chunk, (out, proc) in procs.items():
-        log = proc.communicate()[0].decode()
-        if proc.returncode:
-            raise SystemExit(f"nvcc -DPCST_GRID_CHUNK={chunk} failed:\n{log}")
-        libs[chunk] = _common.open_library(out, "grid_fused")
-    return libs
+GRID_CHUNK = _common.source_define("grid_fused", "PCST_GRID_CHUNK")
 
 
 def sweep_grid(query: torch.Tensor, ref: torch.Tensor,
@@ -147,8 +137,8 @@ def sweep_grid(query: torch.Tensor, ref: torch.Tensor,
     sl = grid_knn._layout_slots(struct, query[0], GRID_SHAPE, GRID_TQ,
                                 SLOT_CAP)
     vals_pad = grid_knn._sorted_values(struct, vals)
-    plan_lib = _common.load_library("grid_fused")
-    libs = grid_libraries(GRID_CHUNKS)
+    libs = _common.build_variants("grid_fused", {
+        c: (f"-DPCST_GRID_CHUNK={c}",) for c in GRID_CHUNKS})
     for name, fn in (
             ("grid_interp", lambda **kw: grid_interp_cuda(
                 sl.q_pad, struct.refs_pad, vals_pad, sl.st, sl.en, 3, **kw)),
@@ -156,9 +146,8 @@ def sweep_grid(query: torch.Tensor, ref: torch.Tensor,
                 sl.q_pad, struct.refs_pad, sl.st, sl.en, 3, **kw))):
         want = fn(n_real=sl.n_real)
         times = {}
-        try:
-            for chunk, lib in libs.items():
-                _common._libs["grid_fused"] = lib  # the wrappers launch it
+        for chunk, lib in libs.items():
+            with _common.launching("grid_fused", lib):
                 got = fn(n_real=sl.n_real)
                 if not all(torch.equal(g.view(torch.int32),
                                        w.view(torch.int32))
@@ -166,8 +155,6 @@ def sweep_grid(query: torch.Tensor, ref: torch.Tensor,
                     raise SystemExit(f"{name} chunk {chunk} differs")
                 times[chunk] = device_ms(lambda: fn(n_real=sl.n_real),
                                          "grid_")
-        finally:
-            _common._libs["grid_fused"] = plan_lib
         without = device_ms(lambda: fn(), "grid_")
         best = min(times, key=times.get)
         print(f"[grid sweep] {name} {query.shape[1]}x{ref.shape[1]} k=3, "
@@ -202,6 +189,76 @@ def sweep_grid(query: torch.Tensor, ref: torch.Tensor,
               f"eight refs x warps of 32 real rows; the filter passes for "
               f"{100 * passed / g:.1f}% of them, {bodies / g:.2f} insert "
               "bodies a group (refs some query of the warp takes)")
+
+
+BQ_PLANS = [(w, u) for w in (4, 8, 16, 32) for u in (1, 2, 4, 8)]
+
+
+def encoder_calls(ref: torch.Tensor) -> list:
+    """The style encoder's two ball queries on ``ref``'s FPS centers:
+    (points, centers, radius, nsample) each."""
+    start = torch.zeros(1, dtype=torch.int32, device=ref.device)
+    c1 = index_points(ref, fps_cuda(ref, 512, start)).contiguous()
+    c2 = index_points(c1, fps_cuda(c1, 128, start)).contiguous()
+    return [(ref, c1, 0.2, 32), (c1, c2, 0.4, 64)]
+
+
+def sweep_ball_query(ref: torch.Tensor) -> None:
+    calls = encoder_calls(ref)
+    libs = _common.build_variants("ball_query", {
+        p: (f"-DPCST_BQ_WARPS={p[0]}", f"-DPCST_BQ_UNROLL={p[1]}")
+        for p in BQ_PLANS})
+    times = {}
+    for plan, lib in libs.items():
+        with _common.launching("ball_query", lib):
+            for points, centers, radius, ns in calls:
+                got = ball_query_cuda(radius, ns, points, centers)
+                if not torch.equal(got, ball_query_plain(radius, ns, points,
+                                                         centers)):
+                    raise SystemExit(f"ball_query {plan} differs")
+            times[plan] = [device_ms(lambda: ball_query_cuda(
+                radius, ns, points, centers), "ball_query_kernel")
+                for points, centers, radius, ns in calls]
+    for i, (points, centers, radius, ns) in enumerate(calls):
+        best = min(times, key=lambda p: times[p][i])
+        built_in = times[(BQ_WARPS, BQ_UNROLL)][i]
+        print(f"[ball_query sweep] {centers.shape[1]}x{points.shape[1]} "
+              f"r={radius} ns={ns}, device ms: built-in "
+              f"({BQ_WARPS}, {BQ_UNROLL}) {built_in:.5f}, fastest {best} "
+              f"{times[best][i]:.5f}; by (warps, steps): " + " ".join(
+                  f"{w}/{u} {t[i]:.5f}" for (w, u), t in times.items()))
+
+
+ROWMIN_PLANS = [(S, Q) for S in (1, 2, 4, 8) for Q in (1, 2, 4, 8)]
+
+
+def sweep_rowmin(rng: np.random.Generator, dev: torch.device) -> None:
+    libs = _common.build_variants("rowmin", {
+        p: (f"-DPCST_ROWMIN_S={p[0]}", f"-DPCST_ROWMIN_Q={p[1]}")
+        for p in ROWMIN_PLANS})
+    for n in (120000, 30000, 4096):
+        q = torch.from_numpy(normalize_point_cloud(make_cloud(
+            rng, n))[0])[None].to(dev)
+        r = torch.from_numpy(normalize_point_cloud(make_cloud(
+            rng, n))[0])[None].to(dev)
+        q[0, 77, 1] = float("nan")
+        want = rowmin_plain(q, r)
+        nan = torch.isnan(want)
+        times = {}
+        for (S, Q), lib in libs.items():
+            with _common.launching("rowmin", lib):
+                got = rowmin_cuda(q, r)
+                if not (torch.equal(torch.isnan(got), nan)
+                        and torch.equal(got[~nan], want[~nan])):
+                    raise SystemExit(f"rowmin {n}x{n} S={S} Q={Q} differs")
+                times[(S, Q)] = device_ms(lambda: rowmin_cuda(q, r),
+                                          "rowmin", reps=10)
+        built_in = (ROWMIN_S, ROWMIN_Q)
+        best = min(times, key=times.get)
+        print(f"[rowmin sweep] {n}x{n}, device ms: built-in (S, Q) "
+              f"{built_in} {times[built_in]:.4f}, fastest {best} "
+              f"{times[best]:.4f}; by S/Q: " + " ".join(
+                  f"{S}/{Q} {t:.4f}" for (S, Q), t in times.items()))
 
 
 def staging_order(st: list, en: list, m: int) -> list:
@@ -255,11 +312,11 @@ def insert_counts(sl, refs: torch.Tensor, order: str, k: int = 3
     return groups, passed, bodies
 
 
-# One turn of --parent, run as ``python3 -c GRID_TURN ROOT`` so that it
-# imports ROOT's package and builds ROOT's kernels; it uses only what every
-# version of the grid has, plus the real-row counts where the layout has them
-# (the main path's call in that version).
-GRID_TURN = r"""
+# One turn of --parent, run as ``python3 -c TURN ROOT`` so that it imports
+# ROOT's package and builds ROOT's kernels; it uses only what every version
+# of these kernels has, plus the real-row counts where the layout has them
+# (the main path's call in that version), and each wrapper's own plan.
+TURN = r"""
 import json, sys
 sys.path.insert(0, sys.argv[1])
 import numpy as np, torch
@@ -267,21 +324,15 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from chip_smoke import make_cloud, GRID_SHAPE, GRID_TQ, SLOT_CAP
 from pointcloud_style_transfer_torch.data import normalize_point_cloud
-from pointcloud_style_transfer_torch.ops import grid_knn
-from pointcloud_style_transfer_torch.ops.kernels import (grid_interp_cuda,
-                                                         grid_topk_cuda)
+from pointcloud_style_transfer_torch.ops import grid_knn, index_points
+from pointcloud_style_transfer_torch.ops.kernels import (
+    ball_query_cuda, fps_cuda, grid_interp_cuda, grid_topk_cuda, rowmin_cuda)
 rng = np.random.default_rng(0)
 dev = torch.device("cuda")
 ref = torch.from_numpy(normalize_point_cloud(make_cloud(rng, 30000))[0])
 query = torch.from_numpy(normalize_point_cloud(make_cloud(rng, 90000))[0])
 ref, query = ref.to(dev), query.to(dev)
-vals = torch.from_numpy(np.random.default_rng(8).standard_normal(
-    (30000, 3)).astype(np.float32)).to(dev)
-s = grid_knn._build_struct(ref, GRID_SHAPE, skip_z_sort=True)
-sl = grid_knn._layout_slots(s, query, GRID_SHAPE, GRID_TQ, SLOT_CAP)
-vp = grid_knn._sorted_values(s, vals)
-kw = {"n_real": sl.n_real} if hasattr(sl, "n_real") else {}
-def device_ms(fn, reps=50):
+def device_ms(fn, name, reps=50):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -289,31 +340,57 @@ def device_ms(fn, reps=50):
             fn()
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and "grid_" in e.key]
+          if e.device_type == DeviceType.CUDA and name in e.key]
     count = sum(e.count for e in ev)  # the trace may drop a launch
     assert reps // 2 <= count <= reps, count
     return sum(e.self_device_time_total for e in ev) / 1e3 / count
-print(json.dumps({
-    "grid_interp": device_ms(lambda: grid_interp_cuda(
-        sl.q_pad, s.refs_pad, vp, sl.st, sl.en, 3, **kw)),
-    "grid_topk": device_ms(lambda: grid_topk_cuda(
-        sl.q_pad, s.refs_pad, sl.st, sl.en, 3, **kw)),
-    "n_real": bool(kw)}))
+out = {}
+if "grid" in sys.argv[2]:
+    vals = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (30000, 3)).astype(np.float32)).to(dev)
+    s = grid_knn._build_struct(ref, GRID_SHAPE, skip_z_sort=True)
+    sl = grid_knn._layout_slots(s, query, GRID_SHAPE, GRID_TQ, SLOT_CAP)
+    vp = grid_knn._sorted_values(s, vals)
+    kw = {"n_real": sl.n_real} if hasattr(sl, "n_real") else {}
+    out["grid_interp"] = device_ms(lambda: grid_interp_cuda(
+        sl.q_pad, s.refs_pad, vp, sl.st, sl.en, 3, **kw), "grid_")
+    out["grid_topk"] = device_ms(lambda: grid_topk_cuda(
+        sl.q_pad, s.refs_pad, sl.st, sl.en, 3, **kw), "grid_")
+if "ball_query" in sys.argv[2]:
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+    r3 = ref[None]
+    c1 = index_points(r3, fps_cuda(r3, 512, start)).contiguous()
+    c2 = index_points(c1, fps_cuda(c1, 128, start)).contiguous()
+    out["ball_query 512x30000"] = device_ms(
+        lambda: ball_query_cuda(0.2, 32, r3, c1), "ball_query_kernel")
+    out["ball_query 128x512"] = device_ms(
+        lambda: ball_query_cuda(0.4, 64, c1, c2), "ball_query_kernel")
+if "rowmin" in sys.argv[2]:
+    for n in (120000, 30000):
+        a = torch.from_numpy(normalize_point_cloud(make_cloud(rng, n))[0])
+        b = torch.from_numpy(normalize_point_cloud(make_cloud(rng, n))[0])
+        a, b = a[None].to(dev), b[None].to(dev)
+        out[f"rowmin {n}x{n}"] = device_ms(lambda: rowmin_cuda(a, b),
+                                           "rowmin", reps=10)
+print(json.dumps(out))
 """
 
 
-def compare_grid(parent: Path) -> None:
+def compare(parent: Path, names: list) -> None:
     here = Path(__file__).resolve().parents[1]
     runs = []
     for root in (parent, here, here, parent):
-        out = subprocess.run([sys.executable, "-c", GRID_TURN, str(root)],
+        out = subprocess.run([sys.executable, "-c", TURN, str(root),
+                              ",".join(names)],
                              cwd=root, capture_output=True, text=True,
                              check=True, timeout=900)
         runs.append((root == parent, json.loads(out.stdout.splitlines()[-1])))
-    for name in ("grid_interp", "grid_topk"):
-        print(f"[grid compare] {name} 90000x30000 k=3, device ms in turns "
-              "(parent, change, change, parent): " + ", ".join(
-                  f"{'parent' if p else 'change'} {r[name]:.4f}"
+    for key in runs[0][1]:
+        tag = key.split()[0].split("_")[0]
+        tag = {"grid": "grid", "ball": "ball_query", "rowmin": "rowmin"}[tag]
+        print(f"[{tag} compare] {key}, device ms in turns (parent, change, "
+              "change, parent): " + ", ".join(
+                  f"{'parent' if p else 'change'} {r[key]:.5f}"
                   for p, r in runs))
 
 
@@ -321,11 +398,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
+    names = list(SWEEPS)
+    if "--only" in sys.argv:
+        names = sys.argv[sys.argv.index("--only") + 1].split(",")
+        if not set(names) <= set(SWEEPS):
+            raise SystemExit(f"--only takes names among {SWEEPS}")
     if "--parent" in sys.argv:
-        compare_grid(Path(sys.argv[sys.argv.index("--parent") + 1]).resolve())
+        compare(Path(sys.argv[sys.argv.index("--parent") + 1]).resolve(),
+                [n for n in names if n in ("grid", "ball_query", "rowmin")])
         print(card_line())
         return 0
-    build_all(["knn_topk", "fps", "grid_fused"])
+    build_all(["knn_topk", "fps", "grid_fused", "ball_query", "rowmin"])
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     ref = torch.from_numpy(normalize_point_cloud(make_cloud(
@@ -334,9 +417,16 @@ def main() -> int:
         rng, 90000))[0])[None].to(dev)
     big = torch.from_numpy(normalize_point_cloud(make_cloud(
         rng, 65536))[0])[None].to(dev)
-    sweep_knn(query, ref, rng)
-    sweep_fps(ref, big)
-    sweep_grid(query, ref, np.random.default_rng(8))
+    if "knn" in names:
+        sweep_knn(query, ref, rng)
+    if "fps" in names:
+        sweep_fps(ref, big)
+    if "grid" in names:
+        sweep_grid(query, ref, np.random.default_rng(8))
+    if "ball_query" in names:
+        sweep_ball_query(ref)
+    if "rowmin" in names:
+        sweep_rowmin(np.random.default_rng(9), dev)
     print(card_line())
     return 0
 
