@@ -6,8 +6,8 @@ Phases, each printing one line per result:
 
 1. build — compile every CUDA kernel from ``csrc/`` (one nvcc per source, in
    parallel) and an empty kernel for the launch floor; each instantiation's
-   registers and spill stores (none allowed in the kNN, FPS, grid, ball
-   query and row-min kernels); the card's name and power limit.
+   registers and spill stores (none allowed in any kernel of the port);
+   the card's name and power limit.
 2. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes (numpy-seeded inputs with exact duplicate points,
    to force ties): the brute-force kNN's indices and distance bits identical
@@ -38,9 +38,14 @@ Phases, each printing one line per result:
    against the brute-force kNN; the packed-key kNN kernels (raw keys,
    decoded indices and recomputed distances identical to the plain
    versions at 90,000 x 30,000 and on a 2,500-row patch, every departure
-   from the exact kernel a near-tie) and the pruned kNN (both passes
+   from the exact kernel a near-tie; in device time, the f32-packed one
+   with its plan's cluster size S) and the pruned kNN (both passes
    identical to the plain version, the result's distances identical to the
-   brute-force kernel's, the tile pairs skipped and evaluated);
+   brute-force kernel's, the tile pairs skipped and the pairs visited,
+   which its bound counts, the least, mean and largest count of unskipped
+   ref tiles a query tile in each pass, the pairs its warps' chunk box
+   test leaves to scan; each pass in device time, with the source's
+   cluster size S);
    ``grid_knn(exact=False)``; kernel, plain, library and bound times.
 3. reference — clouds through the sampler on the card (kernels) and on the
    CPU (plain versions) with the same draws, float32, Chamfer-L2 <= 1e-3
@@ -154,6 +159,10 @@ BQ_WARPS = source_define("ball_query", "PCST_BQ_WARPS")
 BQ_UNROLL = source_define("ball_query", "PCST_BQ_UNROLL")
 ROWMIN_S = source_define("rowmin", "PCST_ROWMIN_S")
 ROWMIN_Q = source_define("rowmin", "PCST_ROWMIN_Q")
+# csrc/knn_pruned.cu's blocks per cluster and refs a staging chunk (the
+# f32-packed kernel's cluster size is knn_topk_plan's)
+PRUNED_S = source_define("knn_pruned", "PCST_PRUNED_S")
+PRUNED_CHUNK = source_define("knn_pruned", "PCST_PRUNED_CHUNK")
 STEPS, GUIDANCE = 50, 7.5
 # the grid's defaults, which the sampler uses
 GRID_SHAPE, GRID_TQ, SLOT_CAP = (16, 12, 8), 128, 384
@@ -196,21 +205,26 @@ def device_ms(fn, name: str, reps: int = 30) -> float:
     whose name contains ``name``, over the launches the profiler's trace
     holds (it may drop one): the kernel's own time. ``cuda_ms`` times
     back-to-back calls, which the wrapper's host time paces once the kernel
-    is shorter than it (~0.05-0.08 ms)."""
+    is shorter than it (~0.05-0.08 ms). A trace that holds fewer than half
+    of the launches (the card's tracer has once kept 10 of 30) is taken
+    again, at most twice, and noted on stderr."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and name in e.key]
-    count = sum(e.count for e in events)
-    if not reps // 2 <= count <= reps:
-        fail(f"device_ms: {count} '{name}' kernels traced in {reps} calls")
-    return sum(e.self_device_time_total for e in events) / 1e3 / count
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and name in e.key]
+        count = sum(e.count for e in events)
+        if reps // 2 <= count <= reps:
+            return sum(e.self_device_time_total for e in events) / 1e3 / count
+        print(f"device_ms: {count} '{name}' kernels traced in {reps} calls "
+              f"(trace {attempt + 1} of at most 3)", file=sys.stderr)
+    fail(f"device_ms: {count} '{name}' kernels traced in {reps} calls")
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -242,6 +256,22 @@ def make_cloud(rng: np.random.Generator, n: int, dup_frac: float = 0.01,
     return pts
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name in its mangled symbol, template arguments written
+    out (``knn_topk_kernel<3>``). The name is the ``*_kernel`` identifier
+    whose length is the digits before it; the anonymous namespace may put
+    a hexadecimal hash that ends in digits right before those."""
+    for run in re.finditer(r"\d+", mangled):
+        for i in range(len(run.group())):
+            end = run.end() + int(run.group()[i:])
+            ident = mangled[run.end():end]
+            if re.fullmatch(r"[a-z][a-z0-9_]*_kernel", ident):
+                args = re.match(r"I((?:Li\d+E)+)E", mangled[end:])
+                args = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+                return ident + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
 def ptxas_usage(log: str) -> list[tuple[str, int, int]]:
     """(kernel, registers, spill-store bytes) per entry function of an
     ``-Xptxas -v`` log; template arguments written out, e.g. ``<3,4>``."""
@@ -249,12 +279,7 @@ def ptxas_usage(log: str) -> list[tuple[str, int, int]]:
     for ln in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", ln)
         if entry:
-            mangled, spill = entry.group(1), 0
-            short = re.search(r"([a-z_]+_kernel)(I((?:Li\d+E)+)E)?", mangled)
-            name = mangled
-            if short:
-                args = re.findall(r"Li(\d+)E", short.group(3) or "")
-                name = short.group(1) + (f"<{','.join(args)}>" if args else "")
+            name, spill = kernel_name(entry.group(1)), 0
             continue
         found = re.search(r"(\d+) bytes spill stores", ln)
         if found and name:
@@ -267,7 +292,8 @@ def ptxas_usage(log: str) -> list[tuple[str, int, int]]:
 
 
 # the kernels whose every instantiation must keep its state in registers
-NO_SPILL_SOURCES = ("knn_topk", "fps", "grid_fused", "ball_query", "rowmin")
+NO_SPILL_SOURCES = ("knn_topk", "fps", "grid_fused", "ball_query", "rowmin",
+                    "knn_packed", "knn_pruned")
 
 
 # an empty kernel, the launch floor of the ball query's grid; built beside
@@ -1021,28 +1047,32 @@ def phase_packed_kernels(query: torch.Tensor, ref: torch.Tensor,
                          exact_record: dict) -> dict:
     """The packed-key kNN kernels at the sampler's 90,000 x 30,000, k = 3
     (the clouds carry 1% exact duplicates and 500 queries on refs) and on a
-    2,500-row patch, the grid fallback's size: raw keys identical to the
-    plain version, hence the decoded indices and recomputed distances;
-    every departure from the exact kernel a near-tie within the key's
-    resolution."""
+    2,500-row patch, the grid fallback's size (its refs padded to the
+    grid's 2,048 tile): raw keys identical to the plain version, hence the
+    decoded indices and recomputed distances; every departure from the
+    exact kernel a near-tie within the key's resolution; device time (the
+    patch is shorter than its wrapper's host time), events beside it."""
     records = {}
     nq, m = query.shape[1], ref.shape[1]
     d_e, i_e = knn_topk_cuda(query, ref, 3)
     patch = query[:, :2500].contiguous()
+    n_patch = patch.shape[1]
     for name, (kernel, plain, tr, res, line) in PACKED.items():
         m_total = knn_packed.padded_refs(m, tr)
+        m_patch = knn_packed.padded_refs(m, 2048)
         idx_bits = 15 if name == "knn_f32packed" \
             else knn_packed.packed_idx_bits(m_total)
-        for q in (query, patch):
-            keys = kernel(q, ref, 3, m_total)
-            keys_p = plain(q, ref, 3, m_total)
+        for q, m_t in ((query, m_total), (patch, m_patch)):
+            keys = kernel(q, ref, 3, m_t)
+            keys_p = plain(q, ref, 3, m_t)
             torch.cuda.synchronize()
             check_equal(f"{name} {q.shape[1]}x{m}", keys.view(torch.int32),
                         keys_p.view(torch.int32), "raw keys")
-            d, i = knn_packed.decode_keys(q, ref, keys.view(torch.int32),
-                                          idx_bits)
+            bits = 15 if name == "knn_f32packed" \
+                else knn_packed.packed_idx_bits(m_t)
+            d, i = knn_packed.decode_keys(q, ref, keys.view(torch.int32), bits)
             d_p, i_p = knn_packed.decode_keys(q, ref, keys_p.view(torch.int32),
-                                              idx_bits)
+                                              bits)
             check_equal(f"{name} {q.shape[1]}x{m}", i, i_p)
             check_equal(f"{name} {q.shape[1]}x{m}", d.view(torch.int32),
                         d_p.view(torch.int32), "recomputed distances")
@@ -1056,32 +1086,47 @@ def phase_packed_kernels(query: torch.Tensor, ref: torch.Tensor,
         differ = (torch.sort(i, dim=2).values
                   != torch.sort(i_e, dim=2).values).any(dim=2)
         farther = (d != d_e).any(dim=2)
-        ms = cuda_ms(lambda: kernel(query, ref, 3, m_total), reps=20)
-        patch_ms = cuda_ms(lambda: kernel(patch, ref, 3, m_total), reps=20)
+        trace_name = f"{name}_kernel"
+        ms = device_ms(lambda: kernel(query, ref, 3, m_total), trace_name)
+        patch_ms = device_ms(lambda: kernel(patch, ref, 3, m_patch),
+                             trace_name)
+        ev_ms = cuda_ms(lambda: kernel(query, ref, 3, m_total), reps=20)
+        ev_patch = cuda_ms(lambda: kernel(patch, ref, 3, m_patch), reps=20)
         decode_ms = cuda_ms(lambda: knn_packed.decode_keys(
             query, ref, keys.view(torch.int32), idx_bits), reps=10)
         plain_ms = cuda_ms(lambda: plain(query, ref, 3, m_total), reps=2)
         b_ms, b_by = bound_ms((nq + m) * 12 + nq * 3 * 4, 8.0 * nq * m)
+        nf_ms = no_fma_ms(8.0 * nq * m)
+        nf_patch = no_fma_ms(8.0 * n_patch * m)
+        plan = (dict(S=knn_topk_plan(1, nq, m),
+                     S_patch=knn_topk_plan(1, n_patch, m))
+                if name == "knn_f32packed" else None)
         records[name] = dict(
             name=name, route="cuda",
             source="pointcloud_style_transfer_torch/csrc/knn_packed.cu",
             replaces="pointcloud_style_transfer_tpu/ops/pallas/"
                      f"distance_topk.py:{line}",
-            shape=f"{nq}x{m} k=3", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by,
-            bound_no_fma_ms=no_fma_ms(8.0 * nq * m),
+            shape=f"{nq}x{m} k=3", plan=plan, max_abs_err=0.0, ms=ms,
+            events_ms=ev_ms, patch_ms=patch_ms, patch_events_ms=ev_patch,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            bound_no_fma_ms=nf_ms, patch_bound_no_fma_ms=nf_patch,
             library_ms=exact_record["library_ms"])
-        print(f"[kernels] {name} {nq}x{m} k=3 (padded to {m_total}): raw "
-              f"keys, indices and recomputed distances identical at {nq} and "
-              f"2500 rows; neighbour set differs from knn_topk's on "
-              f"{int(differ.sum())} rows ({100 * differ.float().mean():.3f}%), "
-              f"{int(farther.sum())} of them with a farther set, each within "
-              f"{res} relative; kernel {ms:.4f} ms (knn_topk "
-              f"{exact_record['ms']:.4f} ms), 2500-row patch {patch_ms:.4f} ms,"
-              f" decode + recompute + sort {decode_ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, library (cdist+topk) "
-              f"{exact_record['library_ms']:.3f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}; no-FMA {no_fma_ms(8.0 * nq * m):.4f} ms)")
+        plan_txt = (f"plan S={plan['S']} (patch S={plan['S_patch']}); "
+                    if plan else "")
+        print(f"[kernels] {name} {nq}x{m} k=3 (padded to {m_total}; patch "
+              f"{m_patch}): raw keys, indices and recomputed distances "
+              f"identical at {nq} and {n_patch} rows; neighbour set differs "
+              f"from knn_topk's on {int(differ.sum())} rows "
+              f"({100 * differ.float().mean():.3f}%), {int(farther.sum())} of "
+              f"them with a farther set, each within {res} relative; "
+              f"{plan_txt}device {ms:.4f} ms ({100 * nf_ms / ms:.1f}% of the "
+              f"no-FMA bound; events {ev_ms:.4f}; knn_topk events "
+              f"{exact_record['ms']:.4f} ms), {n_patch}-row patch device "
+              f"{patch_ms:.4f} ms ({100 * nf_patch / patch_ms:.1f}% of its "
+              f"no-FMA bound {nf_patch:.4f}; events {ev_patch:.4f}), decode + "
+              f"recompute + sort {decode_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"library (cdist+topk) {exact_record['library_ms']:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}; no-FMA {nf_ms:.4f} ms)")
 
     # row 8's entry point, its own path: counts read around it
     reset_launch_counts()
@@ -1096,11 +1141,45 @@ def phase_packed_kernels(query: torch.Tensor, ref: torch.Tensor,
     return records
 
 
+def box_test_pairs(qs: torch.Tensor, rs: torch.Tensor, skip: torch.Tensor,
+                   kth_start: torch.Tensor, kth_end: torch.Tensor, tq: int,
+                   tr: int, n_real: int, m_real: int) -> tuple:
+    """A pass's real pairs in the (32-query warp, staging chunk) blocks
+    it visits, and of them those in blocks whose box some query of the warp
+    is nearer than its k-th distance at the pass's start (the most the
+    kernel's box test leaves it to scan) and at its end (the least)."""
+    C = PRUNED_CHUNK
+    nc = rs.shape[0] // C
+    chunks = rs.view(nc, C, 3)
+    lo, hi = chunks.amin(1), chunks.amax(1)
+    g = torch.maximum(torch.maximum(lo[None] - qs[:, None], qs[:, None]
+                                    - hi[None]), torch.zeros_like(lo[None]))
+    lb = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) + g[..., 2] * g[..., 2]
+    rows = torch.arange(qs.shape[0], device=qs.device)
+    real_q = (rows < n_real).view(-1, 32).sum(1)
+    real_r = (torch.arange(nc * C, device=qs.device) < m_real).view(nc, C
+                                                                    ).sum(1)
+    pairs = real_q[:, None] * real_r[None, :]
+    visit = (skip == 0).repeat_interleave(tr // C, 1).repeat_interleave(
+        tq // 32, 0)
+    counts = [int((pairs * visit).sum())]
+    for kth in (kth_start, kth_end):
+        near = (lb < kth[:, None]).view(-1, 32, nc).any(1)
+        counts.append(int((pairs * (visit & near)).sum()))
+    return tuple(counts)
+
+
 def phase_pruned_kernel(query: torch.Tensor, ref: torch.Tensor,
                         exact_record: dict) -> dict:
     """The pruned kNN at 90,000 x 30,000, k = 3, default tiles: both passes
     of the kernel against the plain version, then the whole call against the
-    brute-force kernel."""
+    brute-force kernel; each pass in device time, events beside it, the
+    unskipped ref tiles a query tile in each pass, and the pairs the warps'
+    chunk box test leaves to scan. The bound counts the pairs the function
+    visits: every real pair of the tiles the skip matrices leave, as the TPU
+    kernel and the plain version scan them. Beside it, and apart from it,
+    the pairs the box test leaves at the passes' final k-th distances, and
+    the no-FMA time they would take."""
     k, tq, tr = 3, 512, 2048
     nq_pts, m = query.shape[1], ref.shape[1]
     q, r = query[0], ref[0]
@@ -1145,10 +1224,20 @@ def phase_pruned_kernel(query: torch.Tensor, ref: torch.Tensor,
     real_r = (m - torch.arange(nr, device=q.device) * tr).clamp(0, tr)
     visits = (skip1 == 0).long() + (skip2 == 0).long()
     pairs = int((visits * real_q[:, None] * real_r[None, :]).sum())
-    ms1 = cuda_ms(lambda: knn_pruned_pass_cuda(qs, rs, skip1, d0, i0, k, tq,
-                                               tr), reps=20)
-    ms2 = cuda_ms(lambda: knn_pruned_pass_cuda(qs, rs, skip2, d1, i1, k, tq,
-                                               tr), reps=20)
+    if tq % 32 or tr % PRUNED_CHUNK:
+        fail(f"knn_pruned: tiles {tq}x{tr} do not hold whole warps and chunks")
+    boxed = [box_test_pairs(qs, rs, sk, k0, k1, tq, tr, nq_pts, m)
+             for sk, k0, k1 in ((skip1, d0[:, -1], d1[:, -1]),
+                                (skip2, d1[:, -1], d2[:, -1]))]
+    needed = boxed[0][2] + boxed[1][2]
+    passes = ((skip1, d0, i0), (skip2, d1, i1))
+    ms1, ms2 = (device_ms(lambda: knn_pruned_pass_cuda(
+        qs, rs, sk, di, ii, k, tq, tr), "knn_pruned_pass_kernel")
+        for sk, di, ii in passes)
+    ev1, ev2 = (cuda_ms(lambda: knn_pruned_pass_cuda(
+        qs, rs, sk, di, ii, k, tq, tr), reps=20) for sk, di, ii in passes)
+    spread = [(int(n.min()), float(n.float().mean()), int(n.max()))
+              for n in ((skip1 == 0).sum(1), (skip2 == 0).sum(1))]
     call_ms = cuda_ms(lambda: knn(query, ref, k, backend="pallas_pruned"),
                       reps=10)
     plain_ms = cuda_ms(lambda: (
@@ -1158,31 +1247,52 @@ def phase_pruned_kernel(query: torch.Tensor, ref: torch.Tensor,
     launch_bytes = (qs.numel() + rs.numel() + skip1.numel()) * 4 \
         + 4 * d0.numel() * 4
     b_ms, b_by = bound_ms(2 * launch_bytes, 8.0 * pairs)
+    nf_ms = no_fma_ms(8.0 * pairs)
+    nfn_ms = no_fma_ms(8.0 * needed)
     print(f"[kernels] knn_pruned {nq_pts}x{m} k={k}, tiles {tq}x{tr} "
-          f"({nq}x{nr} tile pairs): both passes identical to the plain "
+          f"({nq}x{nr} tile pairs), S={PRUNED_S}: "
+          "unskipped tiles a query "
+          f"tile (least/mean/largest) pass 1 {spread[0][0]}/"
+          f"{spread[0][1]:.2f}/{spread[0][2]}, pass 2 {spread[1][0]}/"
+          f"{spread[1][1]:.2f}/{spread[1][2]}; pairs the (warp, chunk) box "
+          f"test leaves to scan, of those visited: pass 1 {boxed[0][2]}-"
+          f"{boxed[0][1]} of {boxed[0][0]}, pass 2 {boxed[1][2]}-"
+          f"{boxed[1][1]} of {boxed[1][0]}; launches device {ms1:.4f} + "
+          f"{ms2:.4f} ms ({100 * nf_ms / (ms1 + ms2):.1f}% of the no-FMA "
+          f"bound on the pairs visited, {100 * nfn_ms / (ms1 + ms2):.1f}% of "
+          f"that on the pairs the box test leaves; events {ev1:.4f} + "
+          f"{ev2:.4f})")
+    print(f"[kernels] knn_pruned {nq_pts}x{m} k={k}: both passes identical to "
+          "the plain "
           f"version; result distances identical to knn_topk's, ids identical "
           f"on the {int(distinct.sum())} rows whose {k + 1} nearest distances "
           f"are distinct ({int((i != i_e).any(-1).sum())} rows differ in all)"
           f"; pass 1 visits {tiles1} tile pairs, pass 2 {tiles2} and skips "
           f"{pruned} of the other {nq * nr - tiles1} "
-          f"({100 * pruned / (nq * nr - tiles1):.1f}%); {pairs} pairs "
-          f"evaluated ({100 * pairs / (nq_pts * m):.1f}% of brute force's); "
-          f"launches {ms1:.4f} + {ms2:.4f} ms, whole call (sorts, boxes, "
-          f"masks, two launches, un-sort) {call_ms:.4f} ms (knn_topk "
-          f"{exact_record['ms']:.4f} ms), plain passes {plain_ms:.3f} ms, "
-          f"library (cdist+topk) {exact_record['library_ms']:.3f} ms, bound "
-          f"for both launches {b_ms:.4f} ms ({b_by}; no-FMA "
-          f"{no_fma_ms(8.0 * pairs):.4f} ms)")
+          f"({100 * pruned / (nq * nr - tiles1):.1f}%); {pairs} pairs in "
+          f"the visited tiles ({100 * pairs / (nq_pts * m):.1f}% of brute "
+          "force's); "
+          f"whole call (sorts, boxes, masks, two launches, un-sort) "
+          f"{call_ms:.4f} ms (knn_topk {exact_record['ms']:.4f} ms), plain "
+          f"passes {plain_ms:.3f} ms, library (cdist+topk) "
+          f"{exact_record['library_ms']:.3f} ms, bound for both launches "
+          f"{b_ms:.4f} ms ({b_by}; no-FMA {nf_ms:.4f} ms) on the {pairs} "
+          f"pairs visited; no-FMA {nfn_ms:.4f} ms on the {needed} the box "
+          "test leaves")
     return dict(
         name="knn_pruned", route="cuda",
         source="pointcloud_style_transfer_torch/csrc/knn_pruned.cu",
         replaces="pointcloud_style_transfer_tpu/ops/pallas/pruned_knn.py:66",
         shape=f"{nq_pts}x{m} k={k}; ms, plain_ms and bound_ms are the mean "
               "of one call's two launches, library_ms is the whole call's",
-        max_abs_err=0.0, ms=(ms1 + ms2) / 2, plain_ms=plain_ms / 2,
-        bound_ms=b_ms / 2, bound_by=b_by,
-        bound_no_fma_ms=no_fma_ms(8.0 * pairs) / 2,
-        library_ms=exact_record["library_ms"])
+        plan=dict(S=PRUNED_S),
+        max_abs_err=0.0, ms=(ms1 + ms2) / 2,
+        ms_passes=[ms1, ms2], events_ms_passes=[ev1, ev2],
+        unskipped_tiles_passes=spread, plain_ms=plain_ms / 2,
+        bound_ms=b_ms / 2, bound_by=b_by, bound_no_fma_ms=nf_ms / 2,
+        pairs_visited=pairs, pairs_needed=needed,
+        needed_no_fma_ms=nfn_ms / 2,
+        box_test_pairs_passes=boxed, library_ms=exact_record["library_ms"])
 
 
 def phase_grid_inexact(query: torch.Tensor, ref: torch.Tensor) -> None:

@@ -54,7 +54,7 @@ SIGNATURES = {
     },
     "knn_packed": {
         "pcst_knn_f32packed": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-                               _VP],
+                               _INT, _VP],
         "pcst_knn_packed": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
                             _VP],
     },

@@ -15,9 +15,15 @@ kernel's only between neighbours within about 2^-8 (f32-packed) or 2^-7
 (int-packed) relative distance. The wrappers then decode the index, recompute
 the exact distance of each selected ref and sort the k results ascending
 (stable), as the TPU wrappers do outside their kernels. Both are
-compute-bound on the card like the exact kernel (``knn.py``) and share its
-design: one thread per query, k keys in registers, ref tiles through shared
-memory.
+compute-bound on the card like the exact kernel (``knn.py``): 8 float ops a
+pair that the bit-identical contract keeps out of FMAs. The f32-packed
+kernel takes the exact kernel's design: one thread a query, its k keys in
+registers, ref tiles through shared memory, the ref axis split across a
+thread-block cluster of S blocks (``knn_topk_plan``'s S, or ``plan``) whose
+rank 0 merges the ranks' keys, and an eight-ref filter on the float
+distance against a threshold derived from the k-th key, so that keys are
+built only for distances that can enter. The int-packed kernel is the first design: one
+thread a query over the whole ref axis.
 
 The TPU wrappers pad the refs to a multiple of their ref tile ``tr`` with
 points at 1e15; the padded count ``m_total`` bounds the index budget (at most
@@ -47,7 +53,7 @@ from __future__ import annotations
 import torch
 
 from ._common import check_points, launch, pairwise_sq_dist
-from .knn import MAX_K
+from .knn import CLUSTER_SIZES, MAX_K, knn_topk_plan
 
 MAX_REFS = 1 << 15  # the index budget of both keys
 _FAR = 1e15  # the padding refs' coordinate
@@ -138,14 +144,22 @@ def _check_launch_args(query, ref, k, m_total, what) -> None:
 
 
 def knn_f32packed_keys_cuda(query: torch.Tensor, ref: torch.Tensor, k: int,
-                            m_total: int) -> torch.Tensor:
-    """Launch ``pcst_knn_f32packed`` on the current stream."""
+                            m_total: int, plan: int | None = None
+                            ) -> torch.Tensor:
+    """Launch ``pcst_knn_f32packed`` on the current stream, with
+    ``knn_topk_plan``'s cluster size unless ``plan`` (S) is given: the
+    kernels share their scan's shape, and S = 2 at the sampler's 90,000
+    rows, 8 at the grid's patches."""
     _check_launch_args(query, ref, k, m_total, "f32-packed")
     B, N, _ = query.shape
+    M = ref.shape[1]
+    S = knn_topk_plan(B, N, M) if plan is None else plan
+    if S not in CLUSTER_SIZES:
+        raise ValueError(f"bad f32-packed kNN cluster size {S}")
     keys = torch.empty((B, N, k), dtype=torch.float32, device=query.device)
     if B * N:
         launch("knn_f32packed", query.device, query.data_ptr(),
-               ref.data_ptr(), keys.data_ptr(), B, N, ref.shape[1], m_total, k)
+               ref.data_ptr(), keys.data_ptr(), B, N, M, m_total, k, S)
     return keys
 
 

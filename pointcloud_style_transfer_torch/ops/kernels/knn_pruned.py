@@ -11,7 +11,15 @@ top-k after the unskipped tiles: ascending distances and sorted ref positions
 (unclipped). A candidate enters only on strict '<' against the k-th entry,
 ref tiles ascending and sorted positions ascending inside a tile, so on equal
 distances an earlier pass's entry stays first, then the lowest sorted
-position. It is compute-bound on the pairs the skip matrix leaves.
+position. It is compute-bound on the pairs the skip matrix leaves. The
+kernel gives 128 queries of a query tile a thread-block cluster of S blocks
+(``PCST_PRUNED_S``, a constant of the source) that share the row's unskipped
+ref tiles by ordinal, and merges the ranks' lists in rank 0 in an order that
+keeps those ties; the query tiles with the most unskipped tiles start first;
+a warp of 32 queries lets a chunk of 1,024 refs go when none of them is
+nearer the chunk's bounding box than its k-th distance (exact: the box
+distance bounds every ref's from below in the same rounding); the scan
+tries eight refs per insert test.
 
 NaN: a NaN distance is never taken (the TPU kernel's tile minimum would
 propagate it and drop that whole tile for the query; the port does not follow

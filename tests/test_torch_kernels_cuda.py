@@ -21,7 +21,10 @@ candidates), with and without the layout's real-row counts and under every
 staging chunk, their interpolated values within rtol 1e-6 and
 atol 1e-6 * max|v|. The packed kNN kernels' raw keys, decoded indices and
 recomputed distances and the pruned pass kernel's state are identical to
-their plain versions', NaN coordinates included. No kernel of the kNN family
+their plain versions', NaN coordinates included; so are the f32-packed
+kernel's keys built with every queries a thread Q and launched with every
+cluster size S, and both pruned passes built with every S, at 1, 127, 2,500
+and 90,000 rows x 30,000 refs for k = 1, 3, 9 and 16. No kernel of the kNN family
 takes a NaN distance, whatever its sign bit. The kNN kernel past k = 16 and
 FPS past 65,536 points (their global-memory variants) are identical to the
 plain versions too.
@@ -40,7 +43,8 @@ from pointcloud_style_transfer_torch.ops.kernels import (
     knn_pruned_pass_cuda, knn_pruned_pass_plain, knn_topk, knn_topk_cuda,
     knn_topk_plain, rowmin_cuda, rowmin_plain)
 from pointcloud_style_transfer_torch.ops import pruned_knn
-from pointcloud_style_transfer_torch.ops.kernels import _common
+from pointcloud_style_transfer_torch.ops.kernels import _common, knn_packed
+from pointcloud_style_transfer_torch.ops.kernels.knn import CLUSTER_SIZES
 
 pytestmark = pytest.mark.cuda
 
@@ -224,12 +228,18 @@ ROWMIN_PLAN = (_common.source_define("rowmin", "PCST_ROWMIN_S"),
 ROWMIN_PLANS = sorted(
     {(S, ROWMIN_PLAN[1]) for S in (1, 2, 4, 8)}
     | {(ROWMIN_PLAN[0], Q) for Q in (1, 2, 4, 8)})
+# the pruned pass built for every cluster size (csrc/knn_pruned.cu), and at
+# the source's with too little scratch for the longest-first order, so that
+# every shape below takes the query tiles in their own order (nq + nr + 3 >
+# 16); the f32-packed kernel's S is the launch's plan
+PRUNED_PLANS = {f"S={S}": (f"-DPCST_PRUNED_S={S}",) for S in (1, 2, 4, 8)}
+PRUNED_PLANS["own order"] = ("-DPCST_PRUNED_SCRATCH=16",)
 
 
 @pytest.fixture(scope="module")
 def variants():
-    """The ball query and the row minimum built with every plan above, all
-    at once -> {(source, plan): library}."""
+    """The ball query, the row minimum and the pruned pass built with every
+    plan above, all at once -> {(source, plan): library}."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels run only on the card)")
     bq = _common.build_variants("ball_query", {
@@ -238,8 +248,10 @@ def variants():
     rm = _common.build_variants("rowmin", {
         p: (f"-DPCST_ROWMIN_S={p[0]}", f"-DPCST_ROWMIN_Q={p[1]}")
         for p in ROWMIN_PLANS})
+    pr = _common.build_variants("knn_pruned", PRUNED_PLANS)
     return ({("ball_query", p): lib for p, lib in bq.items()}
-            | {("rowmin", p): lib for p, lib in rm.items()})
+            | {("rowmin", p): lib for p, lib in rm.items()}
+            | {("knn_pruned", p): lib for p, lib in pr.items()})
 
 
 @pytest.mark.parametrize("plan", BQ_PLANS)
@@ -575,9 +587,119 @@ def test_packed_knn_kernels_match_plain(rng, cuda, b, n, m, k, tr):
             assert not (i[0, :-1] == 1).any()
 
 
+NEG_NAN = np.copysign(np.float32(np.nan), np.float32(-1.0))
+
+
+@pytest.fixture(scope="module")
+def sampler_clouds():
+    """90,000 queries and 30,000 refs (the sampler's upsample) with exact
+    duplicates and queries on refs, NaN refs in the first and the last
+    slice and NaN queries, both signs, set on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels run only on the card)")
+    rng = np.random.default_rng(8)
+    r = points(rng, 1, 30000)
+    q = points(rng, 1, 90000)
+    q[:, 300:3000] = r[:, rng.choice(30000, 2700)]
+    r[0, 7, 1] = NEG_NAN
+    r[0, 29990, 0] = np.nan
+    q[0, 60, 2] = NEG_NAN
+    q[0, 100, 0] = np.nan
+    return (torch.from_numpy(q).to("cuda"), torch.from_numpy(r).to("cuda"))
+
+
+@pytest.mark.parametrize("k", [1, 3, 9, 16])
+@pytest.mark.parametrize("rows", [1, 127, 2500, 90000])
+def test_f32packed_every_plan_identical_to_plain(cuda, sampler_clouds,
+                                                 rows, k):
+    """The f32-packed kernel launched with every S: raw keys identical to
+    the plain version's at the sampler's and the grid patch's shapes (the
+    patch's refs padded to its 2,048 tile)."""
+    q, r = sampler_clouds
+    q = q[:, :rows].contiguous()
+    m_total = knn_packed.padded_refs(r.shape[1], 2048 if rows == 2500
+                                     else 4096)
+    want = knn_f32packed_keys_plain(q, r, k, m_total).view(torch.int32)
+    before = LAUNCH_COUNTS["knn_f32packed"]
+    for S in CLUSTER_SIZES:
+        got = knn_f32packed_keys_cuda(q, r, k, m_total, plan=S)
+        assert torch.equal(got.view(torch.int32), want), S
+    assert LAUNCH_COUNTS["knn_f32packed"] == before + len(CLUSTER_SIZES)
+    if rows > 100:
+        assert (want[0, [60, 100]] == 0x7149F2CA).all()  # NaN rows: start
+    idx = want & 0x7FFF
+    assert not ((idx == 7) | (idx == 29990)).any()
+
+
+@pytest.mark.parametrize("m,k", [(5, 8), (37, 3), (1100, 16)])
+def test_f32packed_every_plan_few_refs(rng, cuda, m, k):
+    """Slices shorter than k, empty slices (M < S) and padding refs."""
+    r = points(rng, 2, m)
+    q = points(rng, 2, 300)
+    q[:, :50] = r[:, rng.choice(m, 50)]
+    qt, rt = torch.from_numpy(q).to(cuda), torch.from_numpy(r).to(cuda)
+    want = knn_f32packed_keys_plain(qt, rt, k, 2048).view(torch.int32)
+    for S in CLUSTER_SIZES:
+        got = knn_f32packed_keys_cuda(qt, rt, k, 2048, plan=S)
+        assert torch.equal(got.view(torch.int32), want), S
+
+
+@pytest.mark.parametrize("k", [1, 3, 9, 16])
+@pytest.mark.parametrize("rows", [1, 127, 2500, 90000])
+def test_pruned_every_cluster_size_identical_to_plain(
+        cuda, variants, sampler_clouds, rows, k):
+    """The pruned pass built for every S (and with the query tiles in
+    their own order), both passes at the default tiles
+    (512 x 2,048): state identical to the plain version's, with NaN refs and
+    queries of both signs, and a second skip matrix with a row of every
+    tile skipped, a row of none and a row of one tile."""
+    q, r = sampler_clouds
+    ok = ~torch.isnan(q[0]).any(1)
+    ok[rows:] = False
+    qs, rs, _, _ = pruned_knn.sort_and_pad(q[0][ok], r[0, 8:29990], 512,
+                                           2048)
+    qs_h, rs_h = qs.cpu().numpy(), rs.cpu().numpy()
+    rs_h[7, 1], rs_h[20000, 0] = NEG_NAN, np.nan  # set on the host
+    if rows > 100:
+        qs_h[60, 2], qs_h[100, 0] = NEG_NAN, np.nan
+    qs, rs = torch.from_numpy(qs_h).to(cuda), torch.from_numpy(rs_h).to(cuda)
+    nq, nr = qs.shape[0] // 512, rs.shape[0] // 2048
+    in_window = pruned_knn.window_mask(nq, nr, 2, cuda)
+    d0 = qs.new_full((qs.shape[0], k), 1e30)
+    i0 = torch.zeros((qs.shape[0], k), dtype=torch.int32, device=cuda)
+    skip1 = (~in_window).int().contiguous()
+    d1, i1 = knn_pruned_pass_plain(qs, rs, skip1, d0, i0, k, 512, 2048)
+    skip2 = (pruned_knn.prune_mask(qs, rs, d1, k, 512, 2048)
+             | in_window).int()
+    skip2[0] = 1
+    skip2[-1] = 0
+    if nq > 2:
+        skip2[1] = 1
+        skip2[1, nr // 2] = 0
+    skip2 = skip2.contiguous()
+    d2, i2 = knn_pruned_pass_plain(qs, rs, skip2, d1, i1, k, 512, 2048)
+    before = LAUNCH_COUNTS["knn_pruned"]
+    for plan in PRUNED_PLANS:
+        with _common.launching("knn_pruned", variants[("knn_pruned", plan)]):
+            for skip, di, ii, dw, iw in ((skip1, d0, i0, d1, i1),
+                                         (skip2, d1, i1, d2, i2)):
+                d, i = knn_pruned_pass_cuda(qs, rs, skip, di, ii, k, 512,
+                                            2048)
+                assert torch.equal(d.view(torch.int32),
+                                   dw.view(torch.int32)), plan
+                assert torch.equal(i, iw), plan
+    assert LAUNCH_COUNTS["knn_pruned"] == before + 2 * len(PRUNED_PLANS)
+    if rows > 100:
+        assert (d2[[60, 100]] == np.float32(1e30)).all()
+    assert not ((i2 == 7) | (i2 == 20000)).any()
+
+
 def test_packed_wrappers_reject_bad_inputs(cuda):
     x = torch.zeros((1, 10, 3), device=cuda)
     big = torch.zeros((1, 32769, 3), device=cuda)
+    for plan in (0, 3, 16):
+        with pytest.raises(ValueError):
+            knn_f32packed_keys_cuda(x, x, 3, 2048, plan=plan)
     for kernel in (knn_f32packed_keys_cuda, knn_intpacked_keys_cuda):
         kernel(x, x, 3, 2048)  # accepted
         with pytest.raises(ValueError):

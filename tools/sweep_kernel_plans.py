@@ -1,5 +1,6 @@
-"""Time every launch the kNN, FPS, kd-grid, ball query and row-min kernels
-take, at the shapes their plans are chosen for, on one CUDA card.
+"""Time every launch the kNN, FPS, kd-grid, ball query, row-min, f32-packed
+and pruned kNN kernels take, at the shapes their plans are chosen for, on
+one CUDA card.
 
 ``knn_topk``: every cluster size S at the kd-grid's patch sizes (500 to
 32,768 rows), the brute path's 90,000 rows and the Chamfer gradient's 30,000
@@ -21,20 +22,29 @@ slot order and in the kernel's staging order. ``ball_query``:
 calls, in device time. ``rowmin``: ``csrc/rowmin.cu`` rebuilt for every
 cluster size S and number of queries a thread Q (``-DPCST_ROWMIN_S``,
 ``-DPCST_ROWMIN_Q``) at 120,000 x 120,000, 30,000 x 30,000 and
-4,096 x 4,096, in device time.
+4,096 x 4,096, in device time. ``f32packed``: the f32-packed kernel
+launched with every cluster size S at the sampler's 90,000 x 30,000 and
+the grid patch's 2,500 x 30,000, k = 3, in device time. ``pruned``:
+``csrc/knn_pruned.cu`` rebuilt for every cluster size S
+(``-DPCST_PRUNED_S``), both passes of the pruned kNN at 90,000 x 30,000,
+k = 3, default tiles, in device time, each also with the pass's own result
+as its state (the scan alone), with the least, mean and largest count of
+unskipped ref tiles a query tile in each pass.
 Every launch's result is held identical to the plan's (the built-in
 constants'), and the ball query's and row minimum's to their plain
 versions. The clouds are ``chip_smoke.py``'s.
 
 Run from the root of a checkout on a machine with the CUDA toolkit:
 ``python3 tools/sweep_kernel_plans.py [--only NAME,...]``, NAME among knn,
-fps, grid, ball_query, rowmin (all by default). It prints one line per
-shape and the card's name and power limit. ``--parent DIR`` instead times
-the grid, ball query and row-min kernels of the checkout at DIR (an earlier
-commit, e.g. a ``git archive`` under ``build/``) against this checkout's,
-in turns (DIR, this, this, DIR), each turn a fresh process that builds its
-own kernels: device time of each kernel at the main path's shapes and
-calls (``[grid compare]``, ``[ball_query compare]``, ``[rowmin compare]``;
+fps, grid, ball_query, rowmin, f32packed, pruned (all by default). It
+prints one line per shape and the card's name and power limit. ``--parent
+DIR`` instead times the grid, ball query, row-min, f32-packed and pruned
+kernels of the checkout at DIR (an earlier commit, e.g. a ``git archive``
+under ``build/``) against this checkout's, in turns (DIR, this, this, DIR),
+each turn a fresh process that builds its own kernels: device time of each
+kernel at the main path's shapes and calls (``[grid compare]``,
+``[ball_query compare]``, ``[rowmin compare]``, ``[f32packed compare]``
+with the int-packed kernel's ``[packed compare]``, ``[pruned compare]``;
 ``--only`` picks among them too).
 """
 
@@ -56,20 +66,26 @@ from pointcloud_style_transfer_torch.data import \
     normalize_point_cloud  # noqa: E402
 from chip_smoke import GRID_SHAPE, GRID_TQ, SLOT_CAP  # noqa: E402
 from pointcloud_style_transfer_torch.ops import (grid_knn,  # noqa: E402
-                                                 index_points)
+                                                 index_points, pruned_knn)
 from pointcloud_style_transfer_torch.ops.kernels import (  # noqa: E402
     ball_query_cuda, ball_query_plain, build_all, fps_cuda, grid_interp_cuda,
-    grid_topk_cuda, knn_topk_cuda, rowmin_cuda, rowmin_plain)
+    grid_topk_cuda, knn_f32packed_keys_cuda, knn_pruned_pass_cuda,
+    knn_topk_cuda, rowmin_cuda, rowmin_plain)
+from pointcloud_style_transfer_torch.ops.kernels.knn_packed import \
+    padded_refs  # noqa: E402
 from pointcloud_style_transfer_torch.ops.kernels import \
     _common  # noqa: E402
 from pointcloud_style_transfer_torch.ops.kernels.fps import (  # noqa: E402
     CLUSTER_SIZES as FPS_CLUSTER_SIZES, PERS, fps_plan)
 from pointcloud_style_transfer_torch.ops.kernels.knn import (  # noqa: E402
     CLUSTER_SIZES, knn_topk_plan)
-from chip_smoke import (BQ_UNROLL, BQ_WARPS, ROWMIN_Q,  # noqa: E402
-                        ROWMIN_S)
+from chip_smoke import (BQ_UNROLL, BQ_WARPS, PRUNED_S,  # noqa: E402
+                        ROWMIN_Q, ROWMIN_S)
 
-SWEEPS = ("knn", "fps", "grid", "ball_query", "rowmin")
+SWEEPS = ("knn", "fps", "grid", "ball_query", "rowmin", "f32packed",
+          "pruned")
+# the sweeps that --parent compares in turns
+COMPARED = ("grid", "ball_query", "rowmin", "f32packed", "pruned")
 
 ROWS = (500, 1825, 2500, 4096, 16384, 32768, 90000, 30000)
 
@@ -261,6 +277,84 @@ def sweep_rowmin(rng: np.random.Generator, dev: torch.device) -> None:
                   f"{S}/{Q} {t:.4f}" for (S, Q), t in times.items()))
 
 
+def sweep_f32packed(query: torch.Tensor, ref: torch.Tensor) -> None:
+    m = ref.shape[1]
+    for rows, tr in ((query.shape[1], 4096), (2500, 2048)):
+        q = query[:, :rows].contiguous()
+        m_total = padded_refs(m, tr)
+        plan = knn_topk_plan(1, rows, m)
+        want = knn_f32packed_keys_cuda(q, ref, 3, m_total).view(torch.int32)
+        times = {}
+        for S in CLUSTER_SIZES:
+            got = knn_f32packed_keys_cuda(q, ref, 3, m_total, plan=S)
+            if not torch.equal(got.view(torch.int32), want):
+                raise SystemExit(f"knn_f32packed {rows}x{m} S={S} differs")
+            times[S] = device_ms(lambda: knn_f32packed_keys_cuda(
+                q, ref, 3, m_total, plan=S), "knn_f32packed_kernel")
+        best = min(times, key=times.get)
+        print(f"[f32packed sweep] {rows}x{m} k=3 (padded to {m_total}), "
+              f"device ms: plan S={plan} {times[plan]:.4f}, fastest S={best} "
+              f"{times[best]:.4f}; by S: " + " ".join(
+                  f"{S} {t:.4f}" for S, t in times.items()))
+
+
+PRUNED_SIZES = (1, 2, 4, 8)
+
+
+def pruned_passes(query: torch.Tensor, ref: torch.Tensor, k: int = 3,
+                  tq: int = 512, tr: int = 2048) -> tuple:
+    """The pruned kNN's two pass launches on one cloud, as
+    ``ops/pruned_knn.py`` makes them: (qs, rs, [(skip, d_init, i_init) of
+    each pass])."""
+    qs, rs, _, _ = pruned_knn.sort_and_pad(query, ref, tq, tr)
+    nq, nr = qs.shape[0] // tq, rs.shape[0] // tr
+    in_window = pruned_knn.window_mask(nq, nr, 2, qs.device)
+    skip1 = (~in_window).int().contiguous()
+    d0 = qs.new_full((qs.shape[0], k), 1e30)
+    i0 = torch.zeros((qs.shape[0], k), dtype=torch.int32, device=qs.device)
+    d1, i1 = knn_pruned_pass_cuda(qs, rs, skip1, d0, i0, k, tq, tr)
+    skip2 = (pruned_knn.prune_mask(qs, rs, d1, k, tq, tr)
+             | in_window).int().contiguous()
+    return qs, rs, [(skip1, d0, i0), (skip2, d1, i1)]
+
+
+def sweep_pruned(query: torch.Tensor, ref: torch.Tensor) -> None:
+    """Every cluster size S, each also with the pass's own result as its
+    state, so that only the refs it keeps pass the eight-ref filter and the
+    box test lets go all it can: the scan alone."""
+    libs = _common.build_variants("knn_pruned", {
+        S: (f"-DPCST_PRUNED_S={S}",) for S in PRUNED_SIZES})
+    qs, rs, passes = pruned_passes(query[0], ref[0])
+    for p, (skip, d_i, i_i) in enumerate(passes, 1):
+        want = knn_pruned_pass_cuda(qs, rs, skip, d_i, i_i, 3, 512, 2048)
+        n = (skip == 0).sum(1)
+        times, alone = {}, {}
+        for S, lib in libs.items():
+            with _common.launching("knn_pruned", lib):
+                got = knn_pruned_pass_cuda(qs, rs, skip, d_i, i_i, 3, 512,
+                                           2048)
+                if not all(torch.equal(g.view(torch.int32),
+                                       w.view(torch.int32))
+                           for g, w in zip(got, want)):
+                    raise SystemExit(f"knn_pruned pass {p} S={S} differs")
+                times[S] = device_ms(lambda: knn_pruned_pass_cuda(
+                    qs, rs, skip, d_i, i_i, 3, 512, 2048),
+                    "knn_pruned_pass_kernel")
+                alone[S] = device_ms(lambda: knn_pruned_pass_cuda(
+                    qs, rs, skip, *want, 3, 512, 2048),
+                    "knn_pruned_pass_kernel")
+        best = min(times, key=times.get)
+        print(f"[pruned sweep] pass {p} {query.shape[1]}x{ref.shape[1]} k=3, "
+              f"tiles 512x2048: unskipped tiles a query tile (least/mean/"
+              f"largest) {int(n.min())}/{float(n.float().mean()):.2f}/"
+              f"{int(n.max())}, {int(n.sum())} in all; device ms: built-in "
+              f"S={PRUNED_S} {times[PRUNED_S]:.4f}, fastest S={best} "
+              f"{times[best]:.4f}; by S: " + " ".join(
+                  f"{S} {t:.4f}" for S, t in times.items())
+              + "; the scan alone: " + " ".join(
+                  f"{S} {t:.4f}" for S, t in alone.items()))
+
+
 def staging_order(st: list, en: list, m: int) -> list:
     """A tile's candidates in ``csrc/grid_fused.cu``'s staging order."""
     runs = [(max(a, 0), max(min(b, m) - max(a, 0), 0)) for a, b in zip(st, en)]
@@ -324,9 +418,12 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from chip_smoke import make_cloud, GRID_SHAPE, GRID_TQ, SLOT_CAP
 from pointcloud_style_transfer_torch.data import normalize_point_cloud
-from pointcloud_style_transfer_torch.ops import grid_knn, index_points
+from pointcloud_style_transfer_torch.ops import (grid_knn, index_points,
+                                                 pruned_knn)
 from pointcloud_style_transfer_torch.ops.kernels import (
-    ball_query_cuda, fps_cuda, grid_interp_cuda, grid_topk_cuda, rowmin_cuda)
+    ball_query_cuda, fps_cuda, grid_interp_cuda, grid_topk_cuda,
+    knn_f32packed_keys_cuda, knn_intpacked_keys_cuda, knn_pruned_pass_cuda,
+    rowmin_cuda)
 rng = np.random.default_rng(0)
 dev = torch.device("cuda")
 ref = torch.from_numpy(normalize_point_cloud(make_cloud(rng, 30000))[0])
@@ -365,6 +462,29 @@ if "ball_query" in sys.argv[2]:
         lambda: ball_query_cuda(0.2, 32, r3, c1), "ball_query_kernel")
     out["ball_query 128x512"] = device_ms(
         lambda: ball_query_cuda(0.4, 64, c1, c2), "ball_query_kernel")
+if "f32packed" in sys.argv[2]:
+    q3, r3 = query[None], ref[None]
+    p3 = query[None, :2500].contiguous()
+    out["knn_f32packed 90000x30000"] = device_ms(
+        lambda: knn_f32packed_keys_cuda(q3, r3, 3, 32768), "packed_kernel")
+    out["knn_f32packed 2500x30000"] = device_ms(
+        lambda: knn_f32packed_keys_cuda(p3, r3, 3, 30720), "packed_kernel")
+    out["knn_packed 90000x30000"] = device_ms(
+        lambda: knn_intpacked_keys_cuda(q3, r3, 3, 30720), "packed_kernel")
+if "pruned" in sys.argv[2]:
+    qs, rs, _, _ = pruned_knn.sort_and_pad(query, ref, 512, 2048)
+    nq, nr = qs.shape[0] // 512, rs.shape[0] // 2048
+    w = pruned_knn.window_mask(nq, nr, 2, dev)
+    s1 = (~w).int().contiguous()
+    d0 = qs.new_full((qs.shape[0], 3), 1e30)
+    i0 = torch.zeros((qs.shape[0], 3), dtype=torch.int32, device=dev)
+    d1, i1 = knn_pruned_pass_cuda(qs, rs, s1, d0, i0, 3, 512, 2048)
+    s2 = (pruned_knn.prune_mask(qs, rs, d1, 3, 512, 2048)
+          | w).int().contiguous()
+    for p, (s, di, ii) in enumerate(((s1, d0, i0), (s2, d1, i1)), 1):
+        out[f"knn_pruned pass {p} 90000x30000"] = device_ms(
+            lambda: knn_pruned_pass_cuda(qs, rs, s, di, ii, 3, 512, 2048),
+            "knn_pruned")
 if "rowmin" in sys.argv[2]:
     for n in (120000, 30000):
         a = torch.from_numpy(normalize_point_cloud(make_cloud(rng, n))[0])
@@ -385,9 +505,12 @@ def compare(parent: Path, names: list) -> None:
                              cwd=root, capture_output=True, text=True,
                              check=True, timeout=900)
         runs.append((root == parent, json.loads(out.stdout.splitlines()[-1])))
+    tags = {"grid_interp": "grid", "grid_topk": "grid",
+            "ball_query": "ball_query", "rowmin": "rowmin",
+            "knn_f32packed": "f32packed", "knn_packed": "packed",
+            "knn_pruned": "pruned"}
     for key in runs[0][1]:
-        tag = key.split()[0].split("_")[0]
-        tag = {"grid": "grid", "ball": "ball_query", "rowmin": "rowmin"}[tag]
+        tag = tags[key.split()[0]]
         print(f"[{tag} compare] {key}, device ms in turns (parent, change, "
               "change, parent): " + ", ".join(
                   f"{'parent' if p else 'change'} {r[key]:.5f}"
@@ -405,10 +528,10 @@ def main() -> int:
             raise SystemExit(f"--only takes names among {SWEEPS}")
     if "--parent" in sys.argv:
         compare(Path(sys.argv[sys.argv.index("--parent") + 1]).resolve(),
-                [n for n in names if n in ("grid", "ball_query", "rowmin")])
+                [n for n in names if n in COMPARED])
         print(card_line())
         return 0
-    build_all(["knn_topk", "fps", "grid_fused", "ball_query", "rowmin"])
+    build_all()
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     ref = torch.from_numpy(normalize_point_cloud(make_cloud(
@@ -427,6 +550,10 @@ def main() -> int:
         sweep_ball_query(ref)
     if "rowmin" in names:
         sweep_rowmin(np.random.default_rng(9), dev)
+    if "f32packed" in names:
+        sweep_f32packed(query, ref)
+    if "pruned" in names:
+        sweep_pruned(query, ref)
     print(card_line())
     return 0
 
