@@ -14,7 +14,8 @@ Phases, each printing one line per result:
    at 90,000 x 30,000, at the kd-grid's patch sizes (500 to 32,768 rows)
    and at 30,000 x 30,000 with k = 1, 9 and 16, with its cluster size S,
    one launch per call, and the plan's S against half and double S at each
-   shape, and past 16 (k = 17, 32, 64 at 90,000 and 2,500 rows); FPS
+   shape, and past 16 (k = 17, 32, 64 at 90,000 and 2,500 rows; the
+   packed-key, grid and pruned kernels at k = 17 and 32 too); FPS
    identical at 30,000 -> 512, 512 -> 128, 65,536 -> 512, on three lattice
    clouds and, past the registers' cap, at 70,000 and 120,000 -> 512, in us
    per iteration, with its launch (S, threads, PER) against its neighbours
@@ -38,8 +39,8 @@ Phases, each printing one line per result:
    against the brute-force kNN; the packed-key kNN kernels (raw keys,
    decoded indices and recomputed distances identical to the plain
    versions at 90,000 x 30,000 and on a 2,500-row patch, every departure
-   from the exact kernel a near-tie; in device time, the f32-packed one
-   with its plan's cluster size S) and the pruned kNN (both passes
+   from the exact kernel a near-tie; in device time, each with its plan's
+   cluster size S) and the pruned kNN (both passes
    identical to the plain version, the result's distances identical to the
    brute-force kernel's, the tile pairs skipped and the pairs visited,
    which its bound counts, the least, mean and largest count of unskipped
@@ -48,10 +49,18 @@ Phases, each printing one line per result:
    cluster size S);
    ``grid_knn(exact=False)``; kernel, plain, library and bound times.
 3. reference — clouds through the sampler on the card (kernels) and on the
-   CPU (plain versions) with the same draws, float32, Chamfer-L2 <= 1e-3
-   between the two: 4,096 points with the brute-force kNN, and 24,576 points
-   with ``knn_backend="auto"``, where 6,144 coarse points engage the grid;
-   the coarse displacement sampler (``--fast``) at 4,096 points.
+   CPU (plain versions) with the same draws, float32: 4,096 points with the
+   brute-force kNN, and 24,576 points with ``knn_backend="auto"``, where
+   6,144 coarse points engage the grid. The CPU run records its discrete
+   choices (each step's voxel order, the upsample's neighbours); the card
+   replays them, Chamfer-L2 <= 1e-3 to the CPU; the card's own choices on
+   the CPU's inputs of every step are the CPU's but for near-ties; the
+   card's own run (its launch counts held) is printed beside. The first case
+   also step by step (``[reference trace]``: the first step at which a
+   discrete choice of the card departs, with its margin, each stage's
+   largest card-vs-CPU difference before it, the library versions). The
+   coarse displacement sampler (``--fast``) at 4,096 points, whose choices
+   depend on the inputs alone: its own run, Chamfer-L2 <= 1e-3.
 4. main path — a seeded full-width checkpoint (``Config()`` defaults, bf16,
    ``knn_backend="auto"``: the kd-grid), 120,000-point source and condition
    clouds, 50 steps at guidance 7.5 through the inference CLI's ``main``:
@@ -117,11 +126,15 @@ from pointcloud_style_transfer_torch.data import (create_dataloaders,
 from pointcloud_style_transfer_torch.data.synthetic import lidar_scene_pair
 from pointcloud_style_transfer_torch.evaluation import metrics
 from pointcloud_style_transfer_torch.models import (
-    DiffusionNet, PointCloudDiffusionModel, ddim_sample_loop,
-    guided_sample_loop, guided_sample_loop_coarse, make_schedule)
-from pointcloud_style_transfer_torch.ops import (brute_knn, chamfer_distance,
-                                                 grid_knn, index_points, knn,
-                                                 min_sq_dist, pruned_knn)
+    DiffusionNet, PointCloudDiffusionModel, ddim_sample_loop, ddim_step,
+    ddim_timesteps, guided_sample_loop, guided_sample_loop_coarse,
+    make_schedule, networks, samplers, time_embedding)
+from pointcloud_style_transfer_torch.ops import (
+    brute_knn, chamfer_distance, farthest_point_sample, grid_knn,
+    index_points, knn, min_sq_dist, pruned_knn, query_ball_point,
+    voxel_downsample, voxel_downsample_partition)
+from pointcloud_style_transfer_torch.ops.voxel import (voxel_geometry,
+                                                       voxel_order)
 from pointcloud_style_transfer_torch.ops.kernels import (
     LAUNCH_COUNTS, ball_query_cuda, ball_query_plain, build_all, fps_cuda,
     fps_plain, grid_interp_cuda, grid_interp_plain, grid_topk_cuda,
@@ -435,11 +448,13 @@ def phase_kernels(rng: np.random.Generator, dev: torch.device) -> dict:
     phase_min_sq_dist(rng, dev)
     phase_knn_plans(query, ref, records["knn_topk"])
     phase_knn_large_k(query[:, :M_POINTS].contiguous(), ref)
-    phase_knn_past_16(query, ref, records["knn_topk"])
+    past_16 = phase_knn_past_16(query, ref, records["knn_topk"])
     records.update(phase_grid_kernels(rng, query, ref))
     records.update(phase_packed_kernels(query, ref, records["knn_topk"]))
     records["knn_pruned"] = phase_pruned_kernel(query, ref,
                                                 records["knn_topk"])
+    for name, times in past_16.items():
+        records[name]["k_past_16_ms"] = times
     phase_grid_inexact(query, ref)
     return records
 
@@ -654,11 +669,13 @@ def knn_neighbours(q: torch.Tensor, ref: torch.Tensor, k: int,
 
 
 def phase_knn_past_16(query: torch.Tensor, ref: torch.Tensor,
-                      record: dict) -> None:
+                      record: dict) -> dict:
     """The kNN kernel past the register lists' k = 16 (its global-list
     kernel, no cluster) at k = 17, 32 and 64, at the brute path's 90,000 x
     30,000 and on a 2,500-row patch: one launch per call, indices and
-    distance bits identical to the plain version."""
+    distance bits identical to the plain version. Then the packed-key,
+    grid and pruned kernels' global-list variants (``past_16_others``);
+    returns their records by kernel."""
     rng = np.random.default_rng(7)  # the phase's own, as below
     m = ref.shape[1]
     patch = query[:, torch.from_numpy(np.sort(rng.choice(
@@ -686,6 +703,95 @@ def phase_knn_past_16(query: torch.Tensor, ref: torch.Tensor,
                   f"distance bits identical, 1 launch; kernel {ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by}; no-FMA "
                   f"{no_fma_ms(8.0 * nq * m):.4f} ms)")
+    return past_16_others(query, ref, patch)
+
+
+def one_launch(name: str, fn):
+    """``fn()``'s result, failing unless it launched ``name`` once."""
+    before = LAUNCH_COUNTS[name]
+    out = fn()
+    if LAUNCH_COUNTS[name] - before != 1:
+        fail(f"{name}: {LAUNCH_COUNTS[name] - before} launches for one call")
+    return out
+
+
+def past_16_others(query: torch.Tensor, ref: torch.Tensor,
+                   patch: torch.Tensor) -> dict:
+    """The packed-key kernels (90,000 and 2,500 rows x 30,000 refs), the
+    grid kernels (the sampler's tables at 90,000 x 30,000) and both pruned
+    passes (90,000 x 30,000, default tiles) at k = 17 and 32, where their
+    lists leave the registers: one launch a call, results identical to
+    the plain versions (keys, distance bits, positions; the interpolated
+    values within rtol 1e-6, atol 1e-6 * max|v|), each timed once more
+    (events)."""
+    out = {name: {} for name in ("knn_f32packed", "knn_packed", "grid_interp",
+                                 "grid_topk", "knn_pruned")}
+    m = ref.shape[1]
+    rng = np.random.default_rng(11)  # the phase's own
+    struct, sl = grid_tables(query, ref)
+    vals = grid_knn._sorted_values(struct, torch.from_numpy(
+        rng.standard_normal((m, 3)).astype(np.float32)).to(ref.device))
+    tables = (sl.q_pad, struct.refs_pad)
+    qs, rs, _, _ = pruned_knn.sort_and_pad(query[0], ref[0], 512, 2048)
+    nq, nr = qs.shape[0] // 512, rs.shape[0] // 2048
+    in_window = pruned_knn.window_mask(nq, nr, 2, qs.device)
+    for k in (17, 32):
+        for name, tr in (("knn_f32packed", 4096), ("knn_packed", 2048)):
+            kernel, plain = PACKED[name][:2]
+            for q in (query, patch):
+                m_t = knn_packed.padded_refs(m, tr if q is query else 2048)
+                keys = one_launch(name, lambda: kernel(q, ref, k, m_t))
+                check_equal(f"{name} {q.shape[1]}x{m} k={k}",
+                            keys.view(torch.int32),
+                            plain(q, ref, k, m_t).view(torch.int32),
+                            "raw keys")
+                out[name][f"{q.shape[1]}x{m} k={k}"] = cuda_ms(
+                    lambda: kernel(q, ref, k, m_t), reps=1)
+        v, d = one_launch("grid_interp", lambda: grid_interp_cuda(
+            *tables, vals, sl.st, sl.en, k, n_real=sl.n_real))
+        d_t, i_t = one_launch("grid_topk", lambda: grid_topk_cuda(
+            *tables, sl.st, sl.en, k, n_real=sl.n_real))
+        v_p, d_p = grid_interp_plain(*tables, vals, sl.st, sl.en, k,
+                                     n_real=sl.n_real)
+        d_tp, i_tp = grid_topk_plain(*tables, sl.st, sl.en, k,
+                                     n_real=sl.n_real)
+        for what, got, want in (("grid_interp", d, d_p),
+                                ("grid_topk", d_t, d_tp)):
+            check_equal(f"{what} k={k}", got.view(torch.int32),
+                        want.view(torch.int32), "distance bits")
+        check_equal(f"grid_topk k={k}", i_t, i_tp, "positions")
+        full = d_p[:, -1] < 1e29
+        if not np.isfinite(values_err(v[full], v_p[full])):
+            fail(f"grid_interp k={k}: values differ from the plain version")
+        out["grid_interp"][f"k={k}"] = cuda_ms(lambda: grid_interp_cuda(
+            *tables, vals, sl.st, sl.en, k, n_real=sl.n_real), reps=1)
+        out["grid_topk"][f"k={k}"] = cuda_ms(lambda: grid_topk_cuda(
+            *tables, sl.st, sl.en, k, n_real=sl.n_real), reps=1)
+        d0 = qs.new_full((qs.shape[0], k), 1e30)
+        i0 = torch.zeros((qs.shape[0], k), dtype=torch.int32,
+                         device=qs.device)
+        skip = (~in_window).int().contiguous()
+        state = (d0, i0)
+        for p in (1, 2):
+            got = one_launch("knn_pruned", lambda: knn_pruned_pass_cuda(
+                qs, rs, skip, *state, k, 512, 2048))
+            want = knn_pruned_pass_plain(qs, rs, skip, *state, k, 512, 2048)
+            check_equal(f"knn_pruned pass {p} k={k}", got[0].view(torch.int32),
+                        want[0].view(torch.int32), "distance bits")
+            check_equal(f"knn_pruned pass {p} k={k}", got[1], want[1],
+                        "positions")
+            out["knn_pruned"][f"pass {p} k={k}"] = cuda_ms(
+                lambda: knn_pruned_pass_cuda(qs, rs, skip, *state, k, 512,
+                                             2048), reps=1)
+            skip = (pruned_knn.prune_mask(qs, rs, got[0], k, 512, 2048)
+                    | in_window).int().contiguous()
+            state = got
+    for name, times in out.items():
+        print(f"[kernels] {name} past k = 16 (global lists, no cluster): "
+              "identical to the plain version, 1 launch a call; ms (events, "
+              "one call): " + ", ".join(f"{key} {t:.4f}"
+                                        for key, t in times.items()))
+    return out
 
 
 def phase_knn_large_k(query: torch.Tensor, ref: torch.Tensor) -> None:
@@ -861,6 +967,15 @@ def phase_fps_plans(ref: torch.Tensor, record: dict) -> None:
                 S: t for S, t in by_s.items() if t is not None}
 
 
+def grid_tables(query: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """The grid's own layout pass of query [1, N, 3] against ref [1, M, 3]
+    at the sampler's grid: (its ref structure, its slot tables)."""
+    fz = grid_knn._full_z_ok(ref.shape[1], GRID_SHAPE, SLOT_CAP)
+    struct = grid_knn._build_struct(ref[0], GRID_SHAPE, skip_z_sort=fz)
+    return struct, grid_knn._layout_slots(struct, query[0], GRID_SHAPE,
+                                          GRID_TQ, SLOT_CAP)
+
+
 def phase_grid_kernels(rng: np.random.Generator, query: torch.Tensor,
                        ref: torch.Tensor) -> dict:
     """The grid's slot-run kernels on the tables of its own layout pass,
@@ -870,10 +985,7 @@ def phase_grid_kernels(rng: np.random.Generator, query: torch.Tensor,
     nq, m = query.shape[1], ref.shape[1]
     vals = torch.from_numpy(
         rng.standard_normal((m, 3)).astype(np.float32)).to(ref.device)
-    fz = grid_knn._full_z_ok(m, GRID_SHAPE, SLOT_CAP)
-    struct = grid_knn._build_struct(ref[0], GRID_SHAPE, skip_z_sort=fz)
-    sl = grid_knn._layout_slots(struct, query[0], GRID_SHAPE, GRID_TQ,
-                                SLOT_CAP)
+    struct, sl = grid_tables(query, ref)
     q_pad, refs_pad, st, en = sl.q_pad, struct.refs_pad, sl.st, sl.en
     n_real = sl.n_real
     vals_pad = grid_knn._sorted_values(struct, vals)
@@ -1098,9 +1210,8 @@ def phase_packed_kernels(query: torch.Tensor, ref: torch.Tensor,
         b_ms, b_by = bound_ms((nq + m) * 12 + nq * 3 * 4, 8.0 * nq * m)
         nf_ms = no_fma_ms(8.0 * nq * m)
         nf_patch = no_fma_ms(8.0 * n_patch * m)
-        plan = (dict(S=knn_topk_plan(1, nq, m),
-                     S_patch=knn_topk_plan(1, n_patch, m))
-                if name == "knn_f32packed" else None)
+        plan = dict(S=knn_topk_plan(1, nq, m),
+                    S_patch=knn_topk_plan(1, n_patch, m))
         records[name] = dict(
             name=name, route="cuda",
             source="pointcloud_style_transfer_torch/csrc/knn_packed.cu",
@@ -1111,8 +1222,7 @@ def phase_packed_kernels(query: torch.Tensor, ref: torch.Tensor,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             bound_no_fma_ms=nf_ms, patch_bound_no_fma_ms=nf_patch,
             library_ms=exact_record["library_ms"])
-        plan_txt = (f"plan S={plan['S']} (patch S={plan['S_patch']}); "
-                    if plan else "")
+        plan_txt = f"plan S={plan['S']} (patch S={plan['S_patch']}); "
         print(f"[kernels] {name} {nq}x{m} k=3 (padded to {m_total}; patch "
               f"{m_patch}): raw keys, indices and recomputed distances "
               f"identical at {nq} and {n_patch} rows; neighbour set differs "
@@ -1381,9 +1491,10 @@ def chamfer_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 def phase_reference(rng: np.random.Generator, dev: torch.device) -> None:
     """Sampler with kernels on the card vs plain versions on the CPU: the
     brute-force kNN at 4,096 points, the grid at 24,576 (its 6,144 coarse
-    points are the fewest that engage the default grid)."""
+    points are the fewest that engage the default grid); the first case
+    also step by step (``reference_trace``)."""
     for n, m, backend in ((4096, 1024, "pallas"), (24576, 6144, "auto")):
-        reference_run(rng, dev, n, m, backend)
+        reference_run(rng, dev, n, m, backend, trace=backend == "pallas")
     # a generator of its own: the phases that follow keep their clouds
     # whatever this run draws
     reference_run(np.random.default_rng(1), dev, 4096, 1024, "pallas",
@@ -1391,9 +1502,10 @@ def phase_reference(rng: np.random.Generator, dev: torch.device) -> None:
 
 
 def reference_run(rng: np.random.Generator, dev: torch.device, n: int,
-                  m: int, backend: str, fast: bool = False) -> None:
+                  m: int, backend: str, fast: bool = False,
+                  trace: bool = False) -> None:
     """``fast``: the coarse displacement sampler instead of the per-step
-    one."""
+    one; ``trace``: then ``reference_trace`` on the same inputs."""
     cfg = Config(total_points=n, global_points=m, use_amp=False,
                  knn_backend=backend)
     torch.manual_seed(1)
@@ -1420,26 +1532,353 @@ def reference_run(rng: np.random.Generator, dev: torch.device, n: int,
             rng.random((STEPS, 1, n), np.float32))
         want = ({"grid_interp": STEPS} if backend == "auto"
                 else {"grid_interp": 0, "knn_topk": STEPS})
-    outs = []
-    for device, net in (("cpu", net_cpu), (dev, net_gpu)):
+    def run(device, net, selections=None):
         model = PointCloudDiffusionModel(cfg, device, net=net)
-        reset_launch_counts()
-        outs.append(sampler(
+        kw = {} if selections is None else dict(selections=selections)
+        return sampler(
             model, make_schedule(cfg), src, cond, num_inference_steps=STEPS,
             guidance_scale=GUIDANCE,
-            **{k: v.to(model.device) for k, v in draws.items()}).cpu())
-    counts = dict(LAUNCH_COUNTS)  # the card's run
+            **{k: v.to(model.device) for k, v in draws.items()}, **kw).cpu()
+
+    # the per-step sampler's CPU run records its discrete choices
+    cpu_sel = None if fast else {}
+    outs = [run("cpu", net_cpu, cpu_sel)]
+    reset_launch_counts()
+    outs.append(run(dev, net_gpu))  # the card's own run
+    counts = dict(LAUNCH_COUNTS)
     if any(counts[k] != v for k, v in want.items()):
         fail(f"reference ({backend}): launches {counts}, expected {want}")
     cd = chamfer_l2(outs[0][0], outs[1][0])
     max_abs = (outs[0] - outs[1]).abs().max().item()
-    if not torch.isfinite(outs[1]).all() or cd > 1e-3:
-        fail(f"reference ({what}{backend}): card vs CPU Chamfer-L2 {cd:.3g} "
-             "(> 1e-3) or non-finite output")
-    print(f"[reference] {what}{n} points / {m} coarse, "
-          f"knn_backend={backend!r}, "
-          f"{STEPS} steps, float32: card (kernels, launches {counts}) vs CPU "
-          f"(plain) Chamfer-L2 {cd:.3g}, max |d| {max_abs:.3g}")
+    if not torch.isfinite(outs[1]).all():
+        fail(f"reference ({what}{backend}): non-finite output")
+    head = (f"[reference] {what}{n} points / {m} coarse, "
+            f"knn_backend={backend!r}, {STEPS} steps, float32: ")
+    if fast:  # its choices depend on the inputs alone: the own run is held
+        if cd > 1e-3:
+            fail(f"reference ({what}{backend}): card vs CPU Chamfer-L2 "
+                 f"{cd:.3g} (> 1e-3)")
+        print(f"{head}card (kernels, launches {counts}) vs CPU (plain) "
+              f"Chamfer-L2 {cd:.3g}, max |d| {max_abs:.3g}")
+    else:
+        replayed = {k: v for k, v in cpu_sel.items()
+                    if k.endswith((".voxel", ".knn"))}
+        n_replayed = len(replayed)  # the run adds the card's points
+        out = run(dev, net_gpu, replayed)
+        cd_r = chamfer_l2(outs[0][0], out[0])
+        if not torch.isfinite(out).all() or cd_r > 1e-3:
+            fail(f"reference ({backend}): card, replaying the CPU's choices, "
+                 f"vs CPU Chamfer-L2 {cd_r:.3g} (> 1e-3) or non-finite")
+        # the card's own choices on the CPU's inputs of every step: any
+        # that differs must be a near-tie, and few may
+        flipped, n_choices, worst = sampler_choices(cpu_sel, cpu_sel, cfg,
+                                                    draws, dev)
+        total, limit = sum(flipped.values()), FLIP_SHARE * n_choices
+        if worst > NEAR_TIE_ULPS or total > limit:
+            fail(f"reference ({backend}): the card's own choices on the "
+                 f"CPU's inputs depart from the CPU's: {flipped}, the CPU's "
+                 f"largest margin among them {worst:.3g} ulps of its scale "
+                 f"(limit {NEAR_TIE_ULPS}), {total} of {n_choices} (limit "
+                 f"{limit:.0f})")
+        # not held: on the replayed run's own trajectory
+        drift, _, drift_worst = sampler_choices(cpu_sel, replayed, cfg,
+                                                draws, dev)
+        print(f"{head}card (kernels), the CPU's {n_replayed} choices "
+              f"replayed, vs CPU (plain) Chamfer-L2 {cd_r:.3g}, max |d| "
+              f"{(out - outs[0]).abs().max().item():.3g}; the card's own "
+              f"choices on the CPU's inputs of each step: {total} of "
+              f"{n_choices} differ ({flipped}; limit {limit:.0f}), the CPU's "
+              f"largest margin among them {worst:.3g} ulps of its scale "
+              f"(limit {NEAR_TIE_ULPS}); not held: on the replayed run's "
+              f"trajectory {sum(drift.values())} of them differ (from step "
+              f"{min((int(k.split('.')[0][4:]) for k in drift), default='-')}"
+              f", the CPU's largest margin {drift_worst:.3g} ulps), and the "
+              f"card's own run (launches {counts}) vs CPU Chamfer-L2 "
+              f"{cd:.3g}, max |d| {max_abs:.3g}")
+    if trace:
+        reference_trace(cfg, (net_cpu, net_gpu), dev, src, cond, draws, outs)
+
+
+def traced_steps(model: PointCloudDiffusionModel, src: torch.Tensor,
+                 cond: torch.Tensor, draws: dict,
+                 forced: dict | None = None) -> dict:
+    """``guided_sample_loop``'s hierarchical branch with the draws passed
+    in, stage by stage on the model's device, every stage's output of every
+    step kept on the CPU: the encoder's discrete choices (the condition's
+    voxel keep set, both FPS and both ball queries), then per step the time
+    embedding, the voxel priority order, the noise predictor's output, the
+    CFG combine, the upsample's neighbours and interpolation weights, the
+    upsampled noise and the DDIM step. With ``forced`` (the CPU's records)
+    each stage also runs on the CPU's own inputs of that stage, so that its
+    difference to the CPU is the op's alone (``forced`` in the result)."""
+    cfg, dev = model.config, model.device
+    M, backend = cfg.global_points, samplers.resolve_sampler_knn_backend(cfg)
+    schedule = make_schedule(cfg).to(dev)
+    host = (lambda t: t.detach().cpu())  # noqa: E731
+    on = (lambda t: t.to(dev))  # noqa: E731
+    src, cond = on(src), on(cond)
+    starts = on(draws["fps_starts"])
+    cond_ds, cond_idx = voxel_downsample(cond, M,
+                                         priority=on(draws["cond_priority"]))
+    fps1 = farthest_point_sample(cond_ds, 512, start=starts[0])
+    l1 = index_points(cond_ds, fps1)
+    ball1 = query_ball_point(0.2, 32, cond_ds, l1)
+    fps2 = farthest_point_sample(l1, 128, start=starts[1])
+    ball2 = query_ball_point(0.4, 64, l1, index_points(l1, fps2))
+    rec = {"encoder": {k: host(v) for k, v in dict(
+        cond_keep=torch.sort(cond_idx, dim=1).values, fps1=fps1, ball1=ball1,
+        fps2=fps2, ball2=ball2).items()}, "steps": [], "forced": []}
+    style = model.encode_style(cond_ds, starts)
+    style_in = torch.cat([style, torch.zeros_like(style)], dim=0)
+    x = on(draws["x_init"])
+    ts = ddim_timesteps(cfg.num_timesteps, STEPS)
+    t_prev = np.where(ts > 0, np.concatenate([ts[1:], [-1]]), -1)
+
+    def stages(s, x, style_in, cpu=None):
+        """Step s's stages from state x; with ``cpu`` (the CPU's record of
+        the step) each stage takes the CPU's output of the stages before."""
+        t_in = torch.full((2,), int(ts[s]), dtype=torch.int64, device=dev)
+        out = dict(x=x, temb=time_embedding(t_in, cfg.time_embed_dim))
+        _, idx, unk, _ = voxel_downsample_partition(
+            x, M, priority=on(draws["step_priorities"][s]))
+        out["perm"] = torch.cat([idx, unk], dim=1)
+        if cpu is not None:
+            idx, unk = on(cpu["perm"][:, :M]), on(cpu["perm"][:, M:])
+        xc, unk_xyz = index_points(x, idx), index_points(x, unk)
+        out["noise"] = model.predict_noise(torch.cat([xc, xc]), t_in,
+                                           style_in).float()
+        if cpu is not None:  # and with the time embedding the CPU computes
+            with cpu_time_embedding():
+                out["noise_cpu_temb"] = model.predict_noise(
+                    torch.cat([xc, xc]), t_in, style_in).float()
+        nc, nu = (out["noise"] if cpu is None else on(cpu["noise"])).chunk(2)
+        out["guided"] = nu + GUIDANCE * (nc - nu)
+        sq_d, out["nbr"] = knn(unk_xyz, xc, 3, backend=backend)
+        w = 1.0 / (torch.sqrt(torch.clamp(sq_d, min=0.0)) + 1e-8)
+        out["w"] = w / torch.sum(w, dim=-1, keepdim=True)
+        out["final"] = samplers._upsample_unknown(
+            x, idx, out["guided"] if cpu is None else on(cpu["guided"]),
+            backend, unknown=unk, ref_xyz=xc, unknown_xyz=unk_xyz)
+        out["x_next"] = ddim_step(
+            schedule, x, out["final"] if cpu is None else on(cpu["final"]),
+            int(ts[s]), int(t_prev[s]), source_points=src,
+            content_anchor=cfg.content_anchor, target_range=cfg.target_range)
+        return out
+
+    for s in range(STEPS):
+        own = stages(s, x, style_in)
+        rec["steps"].append({k: host(v) for k, v in own.items()})
+        if forced is not None:
+            c = forced["steps"][s]
+            rec["forced"].append({k: host(v) for k, v in stages(
+                s, on(c["x"]), on(forced["style_in"]), c).items()})
+        x = own["x_next"]
+    rec["style_in"] = host(style_in)
+    rec["out"] = host(x)
+    return rec
+
+
+@contextlib.contextmanager
+def cpu_time_embedding():
+    """Within the block the noise predictor's time embedding is computed on
+    the CPU and moved to the input's device."""
+    orig = networks.time_embedding
+    networks.time_embedding = (
+        lambda t, dim: orig(t.cpu(), dim).to(t.device))  # noqa: E731
+    try:
+        yield
+    finally:
+        networks.time_embedding = orig
+
+
+def library_versions() -> str:
+    """torch, CUDA and cuBLAS versions and the float32 matmul settings."""
+    cublas = "not read"
+    try:  # the library torch has loaded
+        lib = ctypes.CDLL(f"libcublas.so.{str(torch.version.cuda)[:2]}")
+        val = ctypes.c_int()
+        parts = []
+        for prop in range(3):  # MAJOR_VERSION, MINOR_VERSION, PATCH_LEVEL
+            if lib.cublasGetProperty(prop, ctypes.byref(val)) != 0:
+                raise OSError("cublasGetProperty failed")
+            parts.append(str(val.value))
+        cublas = ".".join(parts)
+    except OSError as e:
+        cublas = f"not read ({e})"
+    prec = getattr(torch.backends.cuda.matmul, "fp32_precision", "n/a")
+    return (f"torch {torch.__version__}, CUDA {torch.version.cuda}, cuBLAS "
+            f"{cublas}, float32 matmul precision "
+            f"{torch.get_float32_matmul_precision()!r} (cuda.matmul "
+            f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+            f"fp32_precision={prec!r}; cudnn allow_tf32="
+            f"{torch.backends.cudnn.allow_tf32})")
+
+
+def voxel_margin(x_cpu: torch.Tensor, x_card: torch.Tensor, M: int
+                 ) -> tuple[int, float, bool]:
+    """The points [N, 3] whose voxel differs between the CPU's state and the
+    card's, each on its own voxel geometry: (how many, the largest CPU
+    margin among them in ulps of the largest voxel coordinate: how far the
+    CPU's coordinate lies from the boundary between the two voxels,
+    whether the voxel sizes are identical)."""
+    lo, vs = voxel_geometry(x_cpu, M)
+    f = (x_cpu - lo) / vs
+    lo_g, vs_g = voxel_geometry(x_card.to(x_cpu.device), M)
+    moved = torch.floor(f) != torch.floor((x_card.to(x_cpu.device) - lo_g)
+                                          / vs_g)
+    margin = (f - torch.round(f)).abs()[moved]
+    return (int(moved.any(1).sum()), ulps_of(margin, f.abs().max()),
+            torch.equal(vs, vs_g))
+
+
+def knn_margin(q: torch.Tensor, r: torch.Tensor, nbr_cpu: torch.Tensor,
+               nbr_card: torch.Tensor) -> tuple[int, float]:
+    """Rows [Nq] whose neighbour sets differ: (how many, the largest CPU
+    margin among them, the CPU's squared distance [q [Nq, 3], r [M, 3]] of
+    the card's farthest pick past its own k-th, in ulps of the largest
+    squared coordinate)."""
+    nbr_card = nbr_card.to(nbr_cpu.device)
+    rows = (torch.sort(nbr_cpu, dim=1).values
+            != torch.sort(nbr_card, dim=1).values).any(1)
+    d = pairwise_sq_dist(q[rows], r)
+    margin = (d.gather(1, nbr_card[rows].long()).amax(1)
+              - d.gather(1, nbr_cpu[rows].long()).amax(1))
+    scale = torch.maximum(q.abs().max(), r.abs().max()) ** 2
+    return int(rows.sum()), ulps_of(margin, scale)
+
+
+def sampler_choices(cpu: dict, points: dict, cfg: Config, draws: dict,
+                    dev: torch.device) -> tuple[dict, int, float]:
+    """The card's own choice at every step, made on the step's points in
+    ``points`` (the CPU's, or a card run's: each choice's ``.points``,
+    ``.query`` and ``.ref``), against the CPU's recorded one: ({choice:
+    how many differ}, how many choices in all, the CPU's largest margin
+    among the differing ones in ulps of its scale)."""
+    M, n_choices, flipped, worst = cfg.global_points, 0, {}, 0.0
+    backend = samplers.resolve_sampler_knn_backend(cfg)
+    for s in range(STEPS):
+        key = f"step{s}.voxel"
+        own = voxel_order(points[f"{key}.points"].to(dev), M,
+                          priority=draws["step_priorities"][s].to(dev))
+        keep = torch.sort(cpu[key][0, :M]).values
+        n = int((~torch.isin(keep, own[0, :M].to(keep.device))).sum())
+        n_choices += own.shape[1]
+        if n:
+            _, ulps, _ = voxel_margin(cpu[f"{key}.points"][0],
+                                      points[f"{key}.points"][0], M)
+            flipped[key] = n
+            worst = max(worst, ulps)
+        key = f"step{s}.knn"
+        q, r = points[f"{key}.query"].to(dev), points[f"{key}.ref"].to(dev)
+        own = knn(q, r, cpu[key].shape[-1], backend=backend)[1]
+        rows, ulps = knn_margin(cpu[f"{key}.query"][0], cpu[f"{key}.ref"][0],
+                                cpu[key][0], own[0])
+        n_choices += q.shape[1]
+        if rows:
+            flipped[key] = rows
+            worst = max(worst, ulps)
+    return flipped, n_choices, worst
+
+
+def ulps_of(margin: torch.Tensor, scale: float) -> float:
+    """The largest of ``margin`` in float32 ulps of ``scale``."""
+    if margin.numel() == 0:
+        return 0.0
+    return float(margin.max()) / float(np.spacing(np.float32(float(scale))))
+
+
+def reference_trace(cfg: Config, nets: tuple, dev: torch.device,
+                    src: torch.Tensor, cond: torch.Tensor, draws: dict,
+                    outs: list) -> None:
+    """[reference trace]: one reference case step by step, the CPU and the
+    card each on their own trajectory with the CPU's draws (``traced_steps``,
+    which must give the CPU sampler's output bit for bit). It names the first
+    step at which a discrete choice of the card differs from the CPU's (the
+    encoder's keep set, FPS or ball query picks; a step's voxel keep set or
+    the upsample's neighbours) with that choice's CPU margin in float32 ulps
+    of its scale: for the keep set, the points whose voxel differs, by how
+    far the CPU's voxel coordinate lies from the boundary between them
+    (scale: the largest voxel coordinate); for the neighbours, the CPU's
+    squared distance of the card's pick past its own k-th (scale: the
+    largest squared coordinate). For every stage before that step, the
+    largest card-vs-CPU difference on each device's own trajectory and
+    with the stage run on the CPU's inputs (the op's own difference)."""
+    recs = []
+    for device, net in (("cpu", nets[0]), (dev, nets[1])):
+        model = PointCloudDiffusionModel(cfg, device, net=net)
+        recs.append(traced_steps(model, src, cond, draws,
+                                 recs[0] if recs else None))
+    cpu, card = recs
+    if not torch.equal(cpu["out"], outs[0]):
+        fail("reference trace: the traced steps do not give the CPU "
+             "sampler's output")
+    card_same = torch.equal(card["out"], outs[1])
+    M = cfg.global_points
+    first, what = None, ""
+    enc = [k for k in cpu["encoder"]
+           if not torch.equal(cpu["encoder"][k], card["encoder"][k])]
+    if enc:
+        first, what = "encoder", f"encoder choices {enc} differ"
+    departures = 0
+    for s, (c, g) in enumerate(zip(cpu["steps"], card["steps"])):
+        keep_c = torch.sort(c["perm"][0, :M]).values
+        keep_g = torch.sort(g["perm"][0, :M]).values
+        n_keep = int((~torch.isin(keep_c, keep_g)).sum())
+        if n_keep:
+            departures += 1
+            if first is None:
+                moved, ulps, same = voxel_margin(c["x"][0], g["x"][0], M)
+                first = s
+                what = (f"voxel keep set, {n_keep} of {M} kept points "
+                        f"differ; {moved} points change voxel, the CPU's "
+                        f"margin at most {ulps:.1f} ulps of the largest voxel "
+                        f"coordinate; voxel sizes "
+                        f"{'identical' if same else 'differ'}")
+            continue
+        perm = c["perm"][0]
+        rows, ulps = knn_margin(c["x"][0][perm[M:]], c["x"][0][perm[:M]],
+                                c["nbr"][0], g["nbr"][0])
+        if rows:
+            departures += 1
+            if first is None:
+                first = s
+                what = (f"upsample neighbours, {rows} of {perm.numel() - M} "
+                        f"rows differ, the CPU's margin at most {ulps:.1f} "
+                        "ulps of the largest squared coordinate")
+    before = range(first if isinstance(first, int) else
+                   (0 if first == "encoder" else STEPS))
+    # the card's own choices on the CPU's inputs: a difference there is an
+    # op's, not the trajectory's
+    op_keep, op_nbr = (sum(not torch.equal(f[key], c[key]) for f, c in zip(
+        card["forced"], cpu["steps"])) for key in ("perm", "nbr"))
+    diffs = []
+    for key, name in (("temb", "time_embedding"), ("noise", "noise predictor"),
+                      ("guided", "CFG combine"),
+                      ("w", "interpolation weights"), ("final", "upsample"),
+                      ("x_next", "ddim_step")):
+        own, forced = ([float((run[s][key] - cpu["steps"][s][key]).abs().max())
+                        for s in before] or [0.0]
+                       for run in (card["steps"], card["forced"]))
+        diffs.append(f"{name} {max(own):.3g} / {max(forced):.3g}")
+    temb_cpu = max([float((card["forced"][s]["noise_cpu_temb"]
+                           - cpu["steps"][s]["noise"]).abs().max())
+                    for s in before] or [0.0])
+    diffs.append(f"noise predictor with the CPU's time embedding - / "
+                 f"{temb_cpu:.3g}")
+    where = (f"none in {STEPS} steps" if first is None else
+             f"at the encoder: {what}" if first == "encoder" else
+             f"at step {first} of {STEPS}: {what}")
+    print(f"[reference trace] {src.shape[1]} points / {M} coarse, "
+          f"knn_backend={cfg.knn_backend!r}, float32, the CPU's draws: "
+          f"first discrete departure of the card {where}; departures in "
+          f"{departures} of {STEPS} steps; on the CPU's inputs the card's "
+          f"voxel order differs in {op_keep} steps, its neighbours in "
+          f"{op_nbr}; before it, the largest |card - "
+          f"CPU| by stage, on each device's own trajectory / with the stage "
+          f"on the CPU's inputs: {', '.join(diffs)}; the traced steps give "
+          f"the CPU sampler's output bit for bit and the card sampler's "
+          f"{'bit for bit' if card_same else 'not bit for bit'}; "
+          f"{library_versions()}")
 
 
 def phase_main_path(rng: np.random.Generator, dev: torch.device,

@@ -52,6 +52,13 @@
 // ref array have no counterpart: the block reads its own slot row and scans
 // [st, en) exactly. The values are not staged: the epilogue reads the k
 // selected rows of vals from global memory (30k x 3 floats stay in L2).
+// Above k = 16 the lists leave the registers (GlobalList): each row's
+// sorted list lives in the output (d_out, and i_out or, for the
+// interpolation, a scratch of positions), its k-th entry in registers, with
+// the same staging, filter and tie order; the epilogue computes each weight
+// again where it needs it (the same bits every time). The interpolation
+// takes that kernel also for k = 9..16 on tiles wider than 512 rows, where
+// its register lists would spill.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,6 +66,7 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;  // tq: one thread per query of a tile
+constexpr int kWideThreads = 512;  // tq of the interpolation's k = 9..16
 constexpr int kUnroll = 8;         // refs tried together before any insert
 // refs staged at a time, a multiple of 8, 16 bytes each (24 KB): a whole
 // tile of the sampler's tables (at most ~1,400 candidates). On an H100 at
@@ -88,25 +96,70 @@ __device__ __forceinline__ bool before(float d, int p, float e, int q) {
   return d < e || (d == e && p < q);
 }
 
+// A row's running top-k in registers, ascending by (distance, position).
 template <int K>
-__device__ __forceinline__ void insert(float (&D)[K], int (&I)[K], float d,
-                                       int p) {
-  if (before(d, p, D[K - 1], I[K - 1])) {
-    D[K - 1] = d;
-    I[K - 1] = p;
+struct RegList {
+  float D[K];
+  int I[K];
+  __device__ __forceinline__ void reset() {
 #pragma unroll
-    for (int t = K - 1; t > 0; --t) {
-      if (before(D[t], I[t], D[t - 1], I[t - 1])) {
-        const float td = D[t];
-        D[t] = D[t - 1];
-        D[t - 1] = td;
-        const int ti = I[t];
-        I[t] = I[t - 1];
-        I[t - 1] = ti;
+    for (int u = 0; u < K; ++u) {
+      D[u] = kBig;
+      I[u] = 0;
+    }
+  }
+  __device__ __forceinline__ float kth() const { return D[K - 1]; }
+  __device__ __forceinline__ void insert(float d, int p) {
+    if (before(d, p, D[K - 1], I[K - 1])) {
+      D[K - 1] = d;
+      I[K - 1] = p;
+#pragma unroll
+      for (int t = K - 1; t > 0; --t) {
+        if (before(D[t], I[t], D[t - 1], I[t - 1])) {
+          const float td = D[t];
+          D[t] = D[t - 1];
+          D[t - 1] = td;
+          const int ti = I[t];
+          I[t] = I[t - 1];
+          I[t - 1] = ti;
+        }
       }
     }
   }
-}
+};
+
+// The same list of k entries in global memory (D[0..k-1], I[0..k-1]), its
+// k-th entry in registers; an insert shifts the entries after it by one.
+struct GlobalList {
+  float* D;
+  int* I;
+  int k;
+  float kd = kBig;
+  int kp = 0;
+  __device__ __forceinline__ void reset() {
+    for (int u = 0; u < k; ++u) {
+      D[u] = kBig;
+      I[u] = 0;
+    }
+    kd = kBig;
+    kp = 0;
+  }
+  __device__ __forceinline__ float kth() const { return kd; }
+  __device__ __forceinline__ void insert(float d, int p) {
+    if (before(d, p, kd, kp)) {
+      int t = k - 1;
+      while (t > 0 && before(d, p, D[t - 1], I[t - 1])) {
+        D[t] = D[t - 1];
+        I[t] = I[t - 1];
+        --t;
+      }
+      D[t] = d;
+      I[t] = p;
+      kd = D[k - 1];
+      kp = I[k - 1];
+    }
+  }
+};
 
 // The staged chunk: refs as x[], y[], z[] and position p[] (each array
 // 16-byte aligned, for the LDS.128 reads).
@@ -118,10 +171,9 @@ struct Stage {
 };
 
 // One staged chunk of n refs against this thread's query.
-template <int K>
+template <class List>
 __device__ __forceinline__ void scan_chunk(const Stage& st, int n, float qx,
-                                           float qy, float qz, float (&D)[K],
-                                           int (&I)[K]) {
+                                           float qy, float qz, List& list) {
   int j = 0;
   for (; j + kUnroll <= n; j += kUnroll) {
     float d[kUnroll];
@@ -139,13 +191,13 @@ __device__ __forceinline__ void scan_chunk(const Stage& st, int n, float qx,
     const float lowest =
         fminf(fminf(fminf(d[0], d[1]), fminf(d[2], d[3])),
               fminf(fminf(d[4], d[5]), fminf(d[6], d[7])));
-    if (lowest <= D[K - 1]) {
+    if (lowest <= list.kth()) {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) insert<K>(D, I, d[u], st.p[j + u]);
+      for (int u = 0; u < kUnroll; ++u) list.insert(d[u], st.p[j + u]);
     }
   }
   for (; j < n; ++j)
-    insert<K>(D, I, sq_dist(qx, qy, qz, st.x[j], st.y[j], st.z[j]), st.p[j]);
+    list.insert(sq_dist(qx, qy, qz, st.x[j], st.y[j], st.z[j]), st.p[j]);
 }
 
 // Piece i of the tile's staging order, [lo, lo + len) of the sorted refs:
@@ -171,17 +223,13 @@ __device__ __forceinline__ void piece(const int* st_row, const int* en_row,
 
 // The top-k of the tile's candidates for this thread's query, ascending;
 // the start list on a padding row.
-template <int K>
+template <class List>
 __device__ __forceinline__ void scan_tile(
     const float* __restrict__ q_pad, const float* __restrict__ refs,
     const int* __restrict__ st_tab, const int* __restrict__ en_tab,
     const int* __restrict__ n_real_tab, int n_slots, int m_pad, Stage& stage,
-    float (&D)[K], int (&I)[K]) {
-#pragma unroll
-  for (int u = 0; u < K; ++u) {
-    D[u] = kBig;
-    I[u] = 0;
-  }
+    List& list) {
+  list.reset();
   const int tile = blockIdx.x;
   const int row = threadIdx.x;
   const int tq = blockDim.x;
@@ -226,22 +274,47 @@ __device__ __forceinline__ void scan_tile(
       pre += len;
     }
     __syncthreads();
-    if (scans) scan_chunk<K>(stage, n, qx, qy, qz, D, I);
+    if (scans) scan_chunk(stage, n, qx, qy, qz, list);
   }
-  if (row >= n_real) {  // a padding row of a scanning warp
-#pragma unroll
-    for (int u = 0; u < K; ++u) {
-      D[u] = kBig;
-      I[u] = 0;
+  if (row >= n_real) list.reset();  // a padding row of a scanning warp
+}
+
+// The interpolation weight of a distance: 1 / (sqrt(max(d, 0)) + eps).
+__device__ __forceinline__ float weight(float d, float eps) {
+  return __fdiv_rn(1.f, __fadd_rn(__fsqrt_rn(fmaxf(d, 0.f)), eps));
+}
+
+// v[c] = sum_u (w_u / wsum) * vals[I[u], c] for a row's k entries, each
+// weight computed where it is needed (the same bits each time), so that no
+// array of weights is held.
+__device__ __forceinline__ void interp_values(const float* D, const int* I,
+                                              int k,
+                                              const float* __restrict__ vals,
+                                              int n_chan, float eps,
+                                              float* __restrict__ v) {
+  float wsum = weight(D[0], eps);
+  for (int u = 1; u < k; ++u) wsum = __fadd_rn(wsum, weight(D[u], eps));
+  for (int c = 0; c < n_chan; ++c) {
+    float acc = __fmul_rn(__fdiv_rn(weight(D[0], eps), wsum),
+                          __ldg(vals + static_cast<size_t>(I[0]) * n_chan + c));
+    for (int u = 1; u < k; ++u) {
+      acc = __fadd_rn(acc, __fmul_rn(__fdiv_rn(weight(D[u], eps), wsum),
+                                     __ldg(vals + static_cast<size_t>(I[u]) *
+                                                      n_chan + c)));
     }
+    v[c] = acc;
   }
 }
 
 // grid (n_tiles), block tq threads: thread t serves row t of its tile.
 // (The minimum of one block per SM lets ptxas give the lists the registers
-// they need: without it grid_topk_kernel<3> stopped at 32 and spilled.)
+// they need: without it grid_topk_kernel<3> stopped at 32 and spilled.
+// 1,024 threads leave 64 registers a thread, where the interpolation's
+// lists and weights spill from k = 14; above k = 8 it takes at most
+// kWideThreads a block and 128 registers, and wider tiles its global-list
+// kernel.)
 template <int K>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+__global__ void __launch_bounds__(K > 8 ? kWideThreads : kMaxThreads, 1)
 grid_interp_kernel(const float* __restrict__ q_pad,
                    const float* __restrict__ refs,
                    const float* __restrict__ vals,
@@ -251,16 +324,16 @@ grid_interp_kernel(const float* __restrict__ q_pad,
                    float* __restrict__ v_out, float* __restrict__ d_out,
                    int n_slots, int m_pad, int n_chan, float eps) {
   __shared__ Stage stage;
-  float D[K];
-  int I[K];
-  scan_tile<K>(q_pad, refs, st_tab, en_tab, n_real, n_slots, m_pad, stage, D,
-               I);
+  RegList<K> list;
+  scan_tile(q_pad, refs, st_tab, en_tab, n_real, n_slots, m_pad, stage, list);
+  const float(&D)[K] = list.D;
+  const int(&I)[K] = list.I;
 
   const size_t qi = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   float w[K];
 #pragma unroll
   for (int u = 0; u < K; ++u) {
-    w[u] = __fdiv_rn(1.f, __fadd_rn(__fsqrt_rn(fmaxf(D[u], 0.f)), eps));
+    w[u] = weight(D[u], eps);
     d_out[qi * K + u] = D[u];
   }
   float wsum = w[0];
@@ -288,38 +361,80 @@ grid_topk_kernel(const float* __restrict__ q_pad,
                  const int* __restrict__ n_real, float* __restrict__ d_out,
                  int* __restrict__ i_out, int n_slots, int m_pad) {
   __shared__ Stage stage;
-  float D[K];
-  int I[K];
-  scan_tile<K>(q_pad, refs, st_tab, en_tab, n_real, n_slots, m_pad, stage, D,
-               I);
+  RegList<K> list;
+  scan_tile(q_pad, refs, st_tab, en_tab, n_real, n_slots, m_pad, stage, list);
 
   const size_t qi = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
 #pragma unroll
   for (int u = 0; u < K; ++u) {
-    d_out[qi * K + u] = D[u];
-    i_out[qi * K + u] = min(max(I[u], 0), m_pad - 1);
+    d_out[qi * K + u] = list.D[u];
+    i_out[qi * K + u] = min(max(list.I[u], 0), m_pad - 1);
   }
 }
 
-bool bad_shape(int n_tiles, int tq, int n_slots, int m_pad) {
-  return n_tiles < 1 || tq < 1 || tq > kMaxThreads || n_slots < 0 ||
-         m_pad < 1;
+// k > 16: the lists in d_out and i_pos [n_tiles*tq, k] (the interpolation's
+// positions are a scratch); the same grid and block.
+__global__ void __launch_bounds__(kMaxThreads, 1)
+grid_interp_global_kernel(const float* __restrict__ q_pad,
+                          const float* __restrict__ refs,
+                          const float* __restrict__ vals,
+                          const int* __restrict__ st_tab,
+                          const int* __restrict__ en_tab,
+                          const int* __restrict__ n_real,
+                          float* __restrict__ v_out, float* __restrict__ d_out,
+                          int* __restrict__ i_pos, int n_slots, int m_pad,
+                          int n_chan, int k, float eps) {
+  __shared__ Stage stage;
+  const size_t qi = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  GlobalList list{d_out + qi * k, i_pos + qi * k, k};
+  scan_tile(q_pad, refs, st_tab, en_tab, n_real, n_slots, m_pad, stage, list);
+  interp_values(list.D, list.I, k, vals, n_chan, eps, v_out + qi * n_chan);
 }
 
+__global__ void __launch_bounds__(kMaxThreads, 1)
+grid_topk_global_kernel(const float* __restrict__ q_pad,
+                        const float* __restrict__ refs,
+                        const int* __restrict__ st_tab,
+                        const int* __restrict__ en_tab,
+                        const int* __restrict__ n_real,
+                        float* __restrict__ d_out, int* __restrict__ i_out,
+                        int n_slots, int m_pad, int k) {
+  __shared__ Stage stage;
+  const size_t qi = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  GlobalList list{d_out + qi * k, i_out + qi * k, k};
+  scan_tile(q_pad, refs, st_tab, en_tab, n_real, n_slots, m_pad, stage, list);
+  for (int u = 0; u < k; ++u) list.I[u] = min(max(list.I[u], 0), m_pad - 1);
+}
+
+bool bad_shape(int n_tiles, int tq, int n_slots, int m_pad, int k) {
+  return n_tiles < 1 || tq < 1 || tq > kMaxThreads || n_slots < 0 ||
+         m_pad < 1 || k < 1;
+}
+
+constexpr int kMaxK = 16;  // lists in registers up to here
+
 }  // namespace
+
+#define PCST_KS(X)                                                        \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) \
+  X(14) X(15) X(16)
 
 // q_pad [n_tiles*tq, 3] f32, refs [m_pad, 3] f32, vals [m_pad, n_chan] f32,
 // st/en [n_tiles, n_slots] i32, n_real [n_tiles] i32 or null (every row
 // real) -> v_out [n_tiles*tq, n_chan] f32, d_out [n_tiles*tq, k] f32, all
-// contiguous. 1 <= k <= 8, 1 <= tq <= 1024. Returns the CUDA error code of
-// the launch (0 on success).
+// contiguous; the global-list kernel (k > 16, or k > 8 with tq > 512) also
+// takes i_scratch [n_tiles*tq, k] i32 (may be null otherwise). k >= 1,
+// 1 <= tq <= 1024. Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int pcst_grid_interp(const void* q_pad, const void* refs,
                                 const void* vals, const void* st,
                                 const void* en, const void* n_real,
-                                void* v_out, void* d_out, int n_tiles, int tq,
-                                int n_slots, int m_pad, int n_chan, int k,
-                                float eps, void* stream) {
-  if (bad_shape(n_tiles, tq, n_slots, m_pad) || n_chan < 1) {
+                                void* v_out, void* d_out, void* i_scratch,
+                                int n_tiles, int tq, int n_slots, int m_pad,
+                                int n_chan, int k, float eps, void* stream) {
+  const bool global = k > kMaxK || (k > 8 && tq > kWideThreads);
+  if (bad_shape(n_tiles, tq, n_slots, m_pad, k) || n_chan < 1 ||
+      (global && i_scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* q = static_cast<const float*>(q_pad);
@@ -331,17 +446,19 @@ extern "C" int pcst_grid_interp(const void* q_pad, const void* refs,
   float* vo = static_cast<float*>(v_out);
   float* d = static_cast<float*>(d_out);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  switch (k) {
+  switch (global ? 0 : k) {
 #define PCST_INTERP(K)                                                     \
   case K:                                                                  \
     grid_interp_kernel<K><<<n_tiles, tq, 0, cs>>>(q, r, v, s, e, nr, vo, d, \
                                                   n_slots, m_pad, n_chan,  \
                                                   eps);                    \
     break;
-    PCST_INTERP(1) PCST_INTERP(2) PCST_INTERP(3) PCST_INTERP(4)
-    PCST_INTERP(5) PCST_INTERP(6) PCST_INTERP(7) PCST_INTERP(8)
+    PCST_KS(PCST_INTERP)
 #undef PCST_INTERP
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      grid_interp_global_kernel<<<n_tiles, tq, 0, cs>>>(
+          q, r, v, s, e, nr, vo, d, static_cast<int*>(i_scratch), n_slots,
+          m_pad, n_chan, k, eps);
   }
   // also clears a launch error
   return static_cast<int>(cudaGetLastError());
@@ -349,7 +466,7 @@ extern "C" int pcst_grid_interp(const void* q_pad, const void* refs,
 
 // q_pad [n_tiles*tq, 3] f32, refs [m_pad, 3] f32, st/en [n_tiles, n_slots]
 // i32, n_real [n_tiles] i32 or null -> d_out [n_tiles*tq, k] f32, i_out
-// [n_tiles*tq, k] i32 (sorted positions), all contiguous. 1 <= k <= 8,
+// [n_tiles*tq, k] i32 (sorted positions), all contiguous. k >= 1,
 // 1 <= tq <= 1024. Returns the CUDA error code of the launch (0 on
 // success).
 extern "C" int pcst_grid_topk(const void* q_pad, const void* refs,
@@ -357,7 +474,7 @@ extern "C" int pcst_grid_topk(const void* q_pad, const void* refs,
                               const void* n_real, void* d_out, void* i_out,
                               int n_tiles, int tq, int n_slots, int m_pad,
                               int k, void* stream) {
-  if (bad_shape(n_tiles, tq, n_slots, m_pad)) {
+  if (bad_shape(n_tiles, tq, n_slots, m_pad, k)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* q = static_cast<const float*>(q_pad);
@@ -374,10 +491,11 @@ extern "C" int pcst_grid_topk(const void* q_pad, const void* refs,
     grid_topk_kernel<K><<<n_tiles, tq, 0, cs>>>(q, r, s, e, nr, d, i,      \
                                                 n_slots, m_pad);           \
     break;
-    PCST_TOPK(1) PCST_TOPK(2) PCST_TOPK(3) PCST_TOPK(4)
-    PCST_TOPK(5) PCST_TOPK(6) PCST_TOPK(7) PCST_TOPK(8)
+    PCST_KS(PCST_TOPK)
 #undef PCST_TOPK
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      grid_topk_global_kernel<<<n_tiles, tq, 0, cs>>>(q, r, s, e, nr, d, i,
+                                                      n_slots, m_pad, k);
   }
   // also clears a launch error
   return static_cast<int>(cudaGetLastError());

@@ -18,7 +18,9 @@
 //     a key is taken only below the current k-th key, so a distance that is
 //     infinite or >= 2^127 (its biased key has the sign bit set) and any key
 //     at or above the start value is never taken;
-//   * the int-packed keys are compared as signed integers;
+//   * the int-packed keys are compared as signed integers; an infinite
+//     distance's key, (0x7F80 << idx_bits) | index, lies below the start
+//     value and is taken while fewer than k other refs are left, as there;
 //   * a NaN distance is refused explicitly in both (d != d), whatever its
 //     sign bit: a set one would wrap the f32-packed key below every other;
 //   * the TPU wrappers pad the refs to a multiple of their tile with points
@@ -29,30 +31,42 @@
 //
 // What bounds it on the card: operations (2.7e9 pairs a sampler step against
 // about 1.5 MB of inputs), 8 float ops a pair that may not be contracted
-// into FMAs. A key costs 3 more integer ops, a NaN test and an unsigned
-// compare with a branch on top of those 8, so the f32-packed kernel does
-// not build keys in its scan. Design of knn_f32packed_kernel (as
-// csrc/knn_topk.cu, with the key's own filter):
+// into FMAs. A key costs 3 more integer ops, a NaN test and a compare with a
+// branch on top of those 8, so neither kernel builds keys in its scan. One
+// design serves both keys (scan_keys, as csrc/knn_topk.cu, with the key's
+// own filter):
 //   * one thread keeps its query's k keys sorted in registers; ref tiles
 //     stream through shared memory as float4;
 //   * the scan takes refs eight at a time and tries the inserts only when
-//     the smallest of the eight float distances (fminf drops a NaN) is below
-//     a float threshold derived from the current k-th key W:
-//       thr = float((W & ~0x7FFF) + 0x8000 - 0x00800000).
-//     A key is below W only if its coarse part is at most W's, i.e. only if
-//     bits(d) + 0x00800000 < (W & ~0x7FFF) + 0x8000, which for a
-//     non-negative d is d < thr. Every key is at least 0x00800000 and W at
-//     most the start key, so thr is a positive finite float. The inserts
-//     behind the filter are the exact ones (the key, the NaN refusal, the
-//     unsigned '<'), and thr is recomputed after each;
+//     the smallest of the eight distances' bits, taken as unsigned integers,
+//     is below a bound derived from the current k-th key W. Unsigned bits
+//     order non-negative floats as their values do, and a NaN of either
+//     sign lies above every bound below 0x7FC00000. The bound is the
+//     smallest bits whose key cannot be below W:
+//       f32-packed: bits(d) + 0x00800000 < (W & ~0x7FFF) + 0x8000, i.e.
+//         bound = (W & ~0x7FFF) + 0x8000 - 0x00800000 (every key is at least
+//         0x00800000 and W at most the start key: a positive finite float's
+//         bits, as PR 8's float threshold was);
+//       int-packed: bits(d) >> 16 <= W >> idx_bits, i.e.
+//         bound = ((W >> idx_bits) + 1) << 16, saturated at 0xFFFFFFFF. At
+//         the start key 2^30 and idx_bits = 15 it is 0x80010000, which sets
+//         the sign bit (so no float compare can stand in for it), and at
+//         idx_bits <= 14 it passes 32 bits; an infinite distance's bits
+//         0x7F800000 lie below it, as its key lies below 2^30.
+//     The inserts behind the filter are the exact ones (the key, the NaN
+//     refusal, the key's own '<'), and the bound is recomputed after each;
 //   * the ref axis is split across a thread-block cluster of S blocks (the
 //     caller's plan, as knn_topk's); rank r scans the r-th contiguous slice;
 //     ranks 1..S-1 leave their keys in their shared memory and rank 0 inserts
 //     them through distributed shared memory between two cluster barriers
 //     (keys are unique, so no order rule is needed; a start key never passes
 //     a strict '<'); rank 0 then offers the padding refs.
-// The int-packed kernel (knn_packed_kernel) is the first design: one thread
-// a query over the whole ref axis, a key built and compared for every pair.
+// Above k = 16 the keys leave the registers (scan_keys_global): each query's
+// sorted list lives in the output buffer itself (global memory, hot in L1
+// and L2) and only its k-th key and bound in registers, with the same scan,
+// filter and exact inserts, and no cluster (S = 1). An insert shifts the
+// keys above it up by one, which is what the register version's swap
+// network does.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -65,9 +79,8 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kTile = 1024;  // refs staged per shared-memory tile (16 KB)
 constexpr int kUnroll = 8;   // refs tried together before any insert
+constexpr int kMaxK = 16;    // keys in registers up to here
 constexpr float kFar = 1e15f;  // the padding refs' coordinate
-constexpr uint32_t kStartF32 = 0x7149F2CAu;  // bits of 1e30f
-constexpr int kStartInt = 1 << 30;
 
 __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
                                          float rx, float ry, float rz) {
@@ -78,22 +91,46 @@ __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
                    __fmul_rn(dz, dz));
 }
 
-// ---- f32-packed keys ----
+// The f32-packed key: unsigned, from 1e30's bits.
+struct F32Key {
+  using T = uint32_t;
+  static constexpr T kStart = 0x7149F2CAu;  // bits of 1e30f
+  static __device__ __forceinline__ T make(uint32_t bits, int col, int) {
+    return ((bits + 0x00800000u) & ~0x7FFFu) | static_cast<uint32_t>(col);
+  }
+  // the distance bits at and above which no key is below w
+  static __device__ __forceinline__ uint32_t bound(T w, int) {
+    return (w & ~0x7FFFu) + 0x8000u - 0x00800000u;
+  }
+};
 
-// The distance below which a key can be below w (see the note above).
-__device__ __forceinline__ float key_bound(uint32_t w) {
-  return __uint_as_float((w & ~0x7FFFu) + 0x8000u - 0x00800000u);
-}
+// The int-packed key: signed, from 2^30.
+struct IntKey {
+  using T = int;
+  static constexpr T kStart = 1 << 30;
+  static __device__ __forceinline__ T make(uint32_t bits, int col,
+                                           int idx_bits) {
+    return static_cast<int>(((bits >> 16) << idx_bits) |
+                            static_cast<uint32_t>(col));
+  }
+  static __device__ __forceinline__ uint32_t bound(T w, int idx_bits) {
+    const uint64_t b = (static_cast<uint64_t>(w >> idx_bits) + 1) << 16;
+    return b > 0xFFFFFFFFull ? 0xFFFFFFFFu : static_cast<uint32_t>(b);
+  }
+};
 
-// Sorted insert of a key on unsigned '<' (a start key never passes).
-template <int K>
-__device__ __forceinline__ void insert_key(uint32_t (&keys)[K], uint32_t key) {
+// Sorted insert of a key on the key's own strict '<' (a start key never
+// passes).
+template <class Key, int K>
+__device__ __forceinline__ void insert_key(typename Key::T (&keys)[K],
+                                           typename Key::T key) {
+  using T = typename Key::T;
   if (key < keys[K - 1]) {
     keys[K - 1] = key;
 #pragma unroll
     for (int t = K - 1; t > 0; --t) {
       if (keys[t] < keys[t - 1]) {
-        const uint32_t tmp = keys[t];
+        const T tmp = keys[t];
         keys[t] = keys[t - 1];
         keys[t - 1] = tmp;
       }
@@ -101,30 +138,77 @@ __device__ __forceinline__ void insert_key(uint32_t (&keys)[K], uint32_t key) {
   }
 }
 
-// Offer ref col at distance d: its key, the NaN refusal, the unsigned '<';
+// Offer ref col at distance d: its key, the NaN refusal, the key's '<';
 // bound follows the k-th key.
-template <int K>
-__device__ __forceinline__ void offer(uint32_t (&keys)[K], float& bound,
-                                      float d, int col) {
+template <class Key, int K>
+__device__ __forceinline__ void offer(typename Key::T (&keys)[K],
+                                      uint32_t& bound, float d, int col,
+                                      int idx_bits) {
   if (d != d) return;  // NaN, whatever its sign bit
-  const uint32_t key = ((__float_as_uint(d) + 0x00800000u) & ~0x7FFFu) |
-                       static_cast<uint32_t>(col);
+  const typename Key::T key = Key::make(__float_as_uint(d), col, idx_bits);
   if (key < keys[K - 1]) {
-    insert_key<K>(keys, key);
-    bound = key_bound(keys[K - 1]);
+    insert_key<Key, K>(keys, key);
+    bound = Key::bound(keys[K - 1], idx_bits);
   }
+}
+
+// The same on a list of k keys in global memory whose k-th is kth.
+template <class Key>
+__device__ __forceinline__ void offer_global(typename Key::T* keys, int k,
+                                             typename Key::T& kth,
+                                             uint32_t& bound, float d,
+                                             int col, int idx_bits) {
+  if (d != d) return;
+  const typename Key::T key = Key::make(__float_as_uint(d), col, idx_bits);
+  if (key < kth) {
+    int t = k - 1;
+    while (t > 0 && key < keys[t - 1]) {
+      keys[t] = keys[t - 1];
+      --t;
+    }
+    keys[t] = key;
+    kth = keys[k - 1];
+    bound = Key::bound(kth, idx_bits);
+  }
+}
+
+// Stage refs [base, base + n) of this block's cloud as float4.
+__device__ __forceinline__ void stage_tile(float4* smem,
+                                           const float* __restrict__ ref,
+                                           int base, int n) {
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    const float* p = ref + static_cast<size_t>(base + j) * 3;
+    smem[j] = make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), 0.f);
+  }
+}
+
+// Eight staged refs from j: their distances and the smallest of their bits
+// as unsigned integers (a NaN of either sign is above every bound).
+__device__ __forceinline__ uint32_t group_of_eight(const float4* smem, int j,
+                                                   float qx, float qy,
+                                                   float qz,
+                                                   float (&d)[kUnroll]) {
+#pragma unroll
+  for (int v = 0; v < kUnroll; ++v) {
+    const float4 r = smem[j + v];
+    d[v] = sq_dist(qx, qy, qz, r.x, r.y, r.z);
+  }
+  uint32_t lowest = __float_as_uint(d[0]);
+#pragma unroll
+  for (int v = 1; v < kUnroll; ++v) lowest = min(lowest, __float_as_uint(d[v]));
+  return lowest;
 }
 
 // grid (query blocks * S, batch), clusters of (S, 1, 1); thread t of the
 // cluster of query block g serves query g * kThreads + t (padding queries
-// past nq are scanned at the origin, never written). (One block per SM at
-// least, as knn_topk_kernel: more registers.)
-template <int K>
-__global__ void __launch_bounds__(kThreads, 1)
-knn_f32packed_kernel(const float* __restrict__ query,
-                     const float* __restrict__ ref,
-                     uint32_t* __restrict__ k_out, int nq, int m,
-                     int m_total, int S) {
+// past nq are scanned at the origin, never written).
+template <class Key, int K>
+__device__ __forceinline__ void scan_keys(const float* __restrict__ query,
+                                          const float* __restrict__ ref,
+                                          typename Key::T* __restrict__ k_out,
+                                          int nq, int m, int m_total, int S,
+                                          int idx_bits) {
+  using T = typename Key::T;
   // a ref tile, then (S > 1) the rank's keys: key t of thread l at
   // [t * kThreads + l]
   static_assert(K * kThreads <= 4 * kTile, "keys > tile");
@@ -142,10 +226,10 @@ knn_f32packed_kernel(const float* __restrict__ query,
     qy = query[static_cast<size_t>(qi) * 3 + 1];
     qz = query[static_cast<size_t>(qi) * 3 + 2];
   }
-  uint32_t keys[K];
+  T keys[K];
 #pragma unroll
-  for (int t = 0; t < K; ++t) keys[t] = kStartF32;
-  float bound = key_bound(kStartF32);
+  for (int t = 0; t < K; ++t) keys[t] = Key::kStart;
+  uint32_t bound = Key::bound(Key::kStart, idx_bits);
 
   // this rank's slice of the ref axis (empty when S exceeds m)
   const int chunk = (m + S - 1) / S;
@@ -154,37 +238,28 @@ knn_f32packed_kernel(const float* __restrict__ query,
   for (int base = lo; base < hi; base += kTile) {
     const int n = min(kTile, hi - base);
     __syncthreads();  // the previous tile is no longer read
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      const float* p = ref + static_cast<size_t>(base + j) * 3;
-      smem[j] = make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), 0.f);
-    }
+    stage_tile(smem, ref, base, n);
     __syncthreads();
     int j = 0;
     for (; j + kUnroll <= n; j += kUnroll) {
       float d[kUnroll];
-#pragma unroll
-      for (int v = 0; v < kUnroll; ++v) {
-        const float4 r = smem[j + v];
-        d[v] = sq_dist(qx, qy, qz, r.x, r.y, r.z);
-      }
-      float lowest = d[0];
-#pragma unroll
-      for (int v = 1; v < kUnroll; ++v) lowest = fminf(lowest, d[v]);
-      if (lowest < bound) {
+      if (group_of_eight(smem, j, qx, qy, qz, d) < bound) {
 #pragma unroll
         for (int v = 0; v < kUnroll; ++v)
-          if (d[v] < bound) offer<K>(keys, bound, d[v], base + j + v);
+          if (__float_as_uint(d[v]) < bound)
+            offer<Key, K>(keys, bound, d[v], base + j + v, idx_bits);
       }
     }
     for (; j < n; ++j) {
       const float4 r = smem[j];
       const float d = sq_dist(qx, qy, qz, r.x, r.y, r.z);
-      if (d < bound) offer<K>(keys, bound, d, base + j);
+      if (__float_as_uint(d) < bound)
+        offer<Key, K>(keys, bound, d, base + j, idx_bits);
     }
   }
 
   if (S > 1) {
-    uint32_t* s_k = reinterpret_cast<uint32_t*>(smem);
+    T* s_k = reinterpret_cast<T*>(smem);
     __syncthreads();  // the last tile is no longer read
     if (rank != 0) {
 #pragma unroll
@@ -194,10 +269,10 @@ knn_f32packed_kernel(const float* __restrict__ query,
     cluster.sync();  // release the keys, acquire the other ranks'
     if (rank == 0) {
       for (int src = 1; src < S; ++src) {
-        const uint32_t* rk = cluster.map_shared_rank(s_k, src);
+        const T* rk = cluster.map_shared_rank(s_k, src);
 #pragma unroll
         for (int t = 0; t < K; ++t)
-          insert_key<K>(keys, rk[t * kThreads + threadIdx.x]);
+          insert_key<Key, K>(keys, rk[t * kThreads + threadIdx.x]);
       }
     }
     cluster.sync();  // no rank exits while its keys are read
@@ -208,15 +283,107 @@ knn_f32packed_kernel(const float* __restrict__ query,
   // the padding refs: one place, ascending index, so k of them suffice
   const int n_pad = min(K, m_total - m);
   const float d_pad = sq_dist(qx, qy, qz, kFar, kFar, kFar);
-  for (int t = 0; t < n_pad; ++t) offer<K>(keys, bound, d_pad, m + t);
+  for (int t = 0; t < n_pad; ++t)
+    offer<Key, K>(keys, bound, d_pad, m + t, idx_bits);
 #pragma unroll
   for (int t = 0; t < K; ++t) k_out[static_cast<size_t>(qi) * K + t] = keys[t];
 }
 
+// grid (query blocks, batch), no cluster; any k >= 1. Thread t of query
+// block g serves query g * kThreads + t, its list at k_out [qi, :].
+template <class Key>
+__device__ __forceinline__ void scan_keys_global(
+    const float* __restrict__ query, const float* __restrict__ ref,
+    typename Key::T* __restrict__ k_out, int nq, int m, int m_total, int k,
+    int idx_bits) {
+  using T = typename Key::T;
+  __shared__ float4 smem[kTile];
+  const int b = blockIdx.y;
+  query += static_cast<size_t>(b) * nq * 3;
+  ref += static_cast<size_t>(b) * m * 3;
+  const int qi = blockIdx.x * kThreads + threadIdx.x;
+  const bool active = qi < nq;
+  T* keys = k_out + (static_cast<size_t>(b) * nq + qi) * k;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (active) {
+    qx = query[static_cast<size_t>(qi) * 3 + 0];
+    qy = query[static_cast<size_t>(qi) * 3 + 1];
+    qz = query[static_cast<size_t>(qi) * 3 + 2];
+    for (int t = 0; t < k; ++t) keys[t] = Key::kStart;
+  }
+  T kth = Key::kStart;
+  uint32_t bound = Key::bound(kth, idx_bits);
+
+  for (int base = 0; base < m; base += kTile) {
+    const int n = min(kTile, m - base);
+    __syncthreads();  // the previous tile is no longer read
+    stage_tile(smem, ref, base, n);
+    __syncthreads();
+    if (!active) continue;
+    int j = 0;
+    for (; j + kUnroll <= n; j += kUnroll) {
+      float d[kUnroll];
+      if (group_of_eight(smem, j, qx, qy, qz, d) < bound) {
+#pragma unroll
+        for (int v = 0; v < kUnroll; ++v)
+          if (__float_as_uint(d[v]) < bound)
+            offer_global<Key>(keys, k, kth, bound, d[v], base + j + v,
+                              idx_bits);
+      }
+    }
+    for (; j < n; ++j) {
+      const float4 r = smem[j];
+      const float d = sq_dist(qx, qy, qz, r.x, r.y, r.z);
+      if (__float_as_uint(d) < bound)
+        offer_global<Key>(keys, k, kth, bound, d, base + j, idx_bits);
+    }
+  }
+  if (!active) return;
+  const int n_pad = min(k, m_total - m);
+  const float d_pad = sq_dist(qx, qy, qz, kFar, kFar, kFar);
+  for (int t = 0; t < n_pad; ++t)
+    offer_global<Key>(keys, k, kth, bound, d_pad, m + t, idx_bits);
+}
+
+// The four kernels, named for the profiler and ptxas. (One block per SM at
+// least, as knn_topk_kernel: more registers.)
 template <int K>
-cudaError_t launch_f32(const float* q, const float* r, uint32_t* keys,
-                       int batch, int nq, int m, int m_total, int S,
-                       cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, 1)
+knn_f32packed_kernel(const float* __restrict__ query,
+                     const float* __restrict__ ref,
+                     uint32_t* __restrict__ k_out, int nq, int m,
+                     int m_total, int S) {
+  scan_keys<F32Key, K>(query, ref, k_out, nq, m, m_total, S, 0);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 1)
+knn_packed_kernel(const float* __restrict__ query,
+                  const float* __restrict__ ref, int* __restrict__ k_out,
+                  int nq, int m, int m_total, int S, int idx_bits) {
+  scan_keys<IntKey, K>(query, ref, k_out, nq, m, m_total, S, idx_bits);
+}
+
+__global__ void __launch_bounds__(kThreads)
+knn_f32packed_global_kernel(const float* __restrict__ query,
+                            const float* __restrict__ ref,
+                            uint32_t* __restrict__ k_out, int nq, int m,
+                            int m_total, int k) {
+  scan_keys_global<F32Key>(query, ref, k_out, nq, m, m_total, k, 0);
+}
+
+__global__ void __launch_bounds__(kThreads)
+knn_packed_global_kernel(const float* __restrict__ query,
+                         const float* __restrict__ ref,
+                         int* __restrict__ k_out, int nq, int m, int m_total,
+                         int k, int idx_bits) {
+  scan_keys_global<IntKey>(query, ref, k_out, nq, m, m_total, k, idx_bits);
+}
+
+// A launch of grid (query blocks * S, batch) in clusters of S.
+template <class... Params, class... Args>
+cudaError_t launch(void (*kernel)(Params...), int batch, int nq, int S,
+                   cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((nq + kThreads - 1) / kThreads) * S, batch, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
@@ -228,152 +395,88 @@ cudaError_t launch_f32(const float* q, const float* r, uint32_t* keys,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = S > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, knn_f32packed_kernel<K>, q, r, keys, nq, m,
-                            m_total, S);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// ---- int-packed keys ----
-
-__device__ __forceinline__ int int_key(float d, int col, int idx_bits) {
-  const uint32_t bits = static_cast<uint32_t>(__float_as_int(d));
-  return static_cast<int>(((bits >> 16) << idx_bits) |
-                          static_cast<uint32_t>(col));
+bool bad_plan(int k, int S) {
+  return k < 1 || (S != 1 && S != 2 && S != 4 && S != 8) ||
+         (k > kMaxK && S != 1);
 }
 
-template <int K>
-__device__ __forceinline__ void insert_int(int (&keys)[K], float d, int col,
-                                           int idx_bits) {
-  const int key = int_key(d, col, idx_bits);
-  if (d == d && key < keys[K - 1]) {  // a NaN is refused
-    keys[K - 1] = key;
-#pragma unroll
-    for (int t = K - 1; t > 0; --t) {
-      if (keys[t] < keys[t - 1]) {
-        const int tmp = keys[t];
-        keys[t] = keys[t - 1];
-        keys[t - 1] = tmp;
-      }
-    }
-  }
-}
-
-// grid (query blocks, batch); thread t of block g serves query g * kThreads
-// + t over the whole ref axis.
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-knn_packed_kernel(const float* __restrict__ query,
-                  const float* __restrict__ ref, int* __restrict__ k_out,
-                  int nq, int m, int m_total, int idx_bits) {
-  __shared__ float4 tile[kTile];
-  const int b = blockIdx.y;
-  query += static_cast<size_t>(b) * nq * 3;
-  ref += static_cast<size_t>(b) * m * 3;
-  k_out += static_cast<size_t>(b) * nq * K;
-
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = qi < nq;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    qx = query[static_cast<size_t>(qi) * 3 + 0];
-    qy = query[static_cast<size_t>(qi) * 3 + 1];
-    qz = query[static_cast<size_t>(qi) * 3 + 2];
-  }
-
-  int keys[K];
-#pragma unroll
-  for (int t = 0; t < K; ++t) keys[t] = kStartInt;
-
-  for (int base = 0; base < m; base += kTile) {
-    const int n = min(kTile, m - base);
-    __syncthreads();  // the previous tile is no longer read
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      const float* p = ref + static_cast<size_t>(base + j) * 3;
-      tile[j] = make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), 0.f);
-    }
-    __syncthreads();
-    if (active) {
-      for (int j = 0; j < n; ++j) {
-        const float4 r = tile[j];
-        insert_int<K>(keys, sq_dist(qx, qy, qz, r.x, r.y, r.z), base + j,
-                      idx_bits);
-      }
-    }
-  }
-
-  if (active) {
-    // the padding refs: one place, ascending index, so k of them suffice
-    const int n_pad = min(K, m_total - m);
-    const float d_pad = sq_dist(qx, qy, qz, kFar, kFar, kFar);
-    for (int t = 0; t < n_pad; ++t) {
-      insert_int<K>(keys, d_pad, m + t, idx_bits);
-    }
-#pragma unroll
-    for (int t = 0; t < K; ++t) {
-      k_out[static_cast<size_t>(qi) * K + t] = keys[t];
-    }
-  }
+cudaError_t finish(cudaError_t err) {
+  const cudaError_t last = cudaGetLastError();  // also clears a launch error
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
 
+#define PCST_KS(X)                                                        \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) \
+  X(14) X(15) X(16)
+
 // query [batch, nq, 3] f32, ref [batch, m, 3] f32 -> keys_out [batch, nq, k]
 // (the bits of the f32-packed keys, ascending), all contiguous. m <= m_total
-// <= 2^15: refs m..m_total-1 are padding points at 1e15. 1 <= k <= 16; S in
-// {1, 2, 4, 8} ranks per cluster. Returns the CUDA error code of the launch
-// (0 on success).
+// <= 2^15: refs m..m_total-1 are padding points at 1e15. k >= 1; S in
+// {1, 2, 4, 8} ranks per cluster for k <= 16, S = 1 above. Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int pcst_knn_f32packed(const void* query, const void* ref,
                                   void* keys_out, int batch, int nq, int m,
                                   int m_total, int k, int S, void* stream) {
-  if (m_total < m || m_total > (1 << 15) ||
-      (S != 1 && S != 2 && S != 4 && S != 8)) {
+  if (m_total < m || m_total > (1 << 15) || bad_plan(k, S)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* q = static_cast<const float*>(query);
   const float* r = static_cast<const float*>(ref);
   uint32_t* o = static_cast<uint32_t*>(keys_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k > kMaxK) {
+    return static_cast<int>(finish(launch(knn_f32packed_global_kernel, batch,
+                                          nq, 1, s, q, r, o, nq, m, m_total,
+                                          k)));
+  }
   cudaError_t err = cudaSuccess;
   switch (k) {
-#define PCST_K(KK) \
-  case KK: err = launch_f32<KK>(q, r, o, batch, nq, m, m_total, S, s); break;
-    PCST_K(1) PCST_K(2) PCST_K(3) PCST_K(4) PCST_K(5) PCST_K(6) PCST_K(7)
-    PCST_K(8) PCST_K(9) PCST_K(10) PCST_K(11) PCST_K(12) PCST_K(13)
-    PCST_K(14) PCST_K(15) PCST_K(16)
+#define PCST_K(KK)                                                         \
+  case KK:                                                                 \
+    err = launch(knn_f32packed_kernel<KK>, batch, nq, S, s, q, r, o, nq, m, \
+                 m_total, S);                                              \
+    break;
+    PCST_KS(PCST_K)
 #undef PCST_K
-    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t last = cudaGetLastError();  // also clears a launch error
-  return static_cast<int>(err != cudaSuccess ? err : last);
+  return static_cast<int>(finish(err));
 }
 
 // The int32 keys ((bits(d) >>> 16) << idx_bits) | index, ascending;
-// 1 <= idx_bits <= 15 and m <= m_total <= 2^idx_bits; 1 <= k <= 16.
+// 1 <= idx_bits <= 15 and m <= m_total <= 2^idx_bits; k and S as above.
 extern "C" int pcst_knn_packed(const void* query, const void* ref,
                                void* keys_out, int batch, int nq, int m,
-                               int m_total, int idx_bits, int k,
+                               int m_total, int idx_bits, int k, int S,
                                void* stream) {
   if (m_total < m || idx_bits < 1 || idx_bits > 15 ||
-      m_total > (1 << idx_bits)) {
+      m_total > (1 << idx_bits) || bad_plan(k, S)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* q = static_cast<const float*>(query);
   const float* r = static_cast<const float*>(ref);
   int* o = static_cast<int*>(keys_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((nq + kThreads - 1) / kThreads, batch);
-  switch (k) {
-#define PCST_K(KK)                                                   \
-  case KK:                                                           \
-    knn_packed_kernel<KK><<<grid, kThreads, 0, s>>>(q, r, o, nq, m, \
-                                                    m_total, idx_bits); \
-    break;
-    PCST_K(1) PCST_K(2) PCST_K(3) PCST_K(4) PCST_K(5) PCST_K(6) PCST_K(7)
-    PCST_K(8) PCST_K(9) PCST_K(10) PCST_K(11) PCST_K(12) PCST_K(13)
-    PCST_K(14) PCST_K(15) PCST_K(16)
-#undef PCST_K
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (k > kMaxK) {
+    return static_cast<int>(finish(launch(knn_packed_global_kernel, batch, nq,
+                                          1, s, q, r, o, nq, m, m_total, k,
+                                          idx_bits)));
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaSuccess;
+  switch (k) {
+#define PCST_K(KK)                                                       \
+  case KK:                                                               \
+    err = launch(knn_packed_kernel<KK>, batch, nq, S, s, q, r, o, nq, m, \
+                 m_total, S, idx_bits);                                  \
+    break;
+    PCST_KS(PCST_K)
+#undef PCST_K
+  }
+  return static_cast<int>(finish(err));
 }
 
 extern "C" const char* pcst_error_string(int code) {

@@ -59,6 +59,13 @@
 //     entries are at most that and arrive first); the seed copies never pass
 //     rank 0's strict '<', whose k-th is at most d_init[k-1]. A second
 //     barrier keeps every rank alive while it is read.
+// Above k = 16 the lists leave the registers: knn_pruned_pass_global_kernel
+// copies each row's initial list into the output and keeps it there (global
+// memory, hot in L1 and L2), its k-th distance in a register; a block of
+// 128 queries scans its row's unskipped tiles in ascending order with the
+// eight-ref filter and the same strict '<' (no cluster, no box test, the
+// query tiles in their own order). An insert shifts the entries after it by
+// one, which is the register version's swap network.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -358,6 +365,92 @@ knn_pruned_pass_kernel(const float* __restrict__ query,
   }
 }
 
+// The sorted insert of (d, idx) into a global list of k entries, after
+// every entry it does not beat (strict '<'); returns the new k-th distance.
+__device__ __forceinline__ float insert_global(float* D, int* I, int k,
+                                               float d, int idx) {
+  int t = k - 1;
+  while (t > 0 && d < D[t - 1]) {
+    D[t] = D[t - 1];
+    I[t] = I[t - 1];
+    --t;
+  }
+  D[t] = d;
+  I[t] = idx;
+  return D[k - 1];
+}
+
+// grid (query tiles * blocks a tile), no cluster; any k >= 1. Block g serves
+// rows (g % blocks a tile) * kThreads + t of query tile g / blocks a tile,
+// those below tq, each list at d_out/i_out [row, :].
+__global__ void __launch_bounds__(kThreads)
+knn_pruned_pass_global_kernel(const float* __restrict__ query,
+                              const float* __restrict__ ref,
+                              const int* __restrict__ skip,
+                              const float* __restrict__ d_init,
+                              const int* __restrict__ i_init,
+                              float* __restrict__ d_out,
+                              int* __restrict__ i_out, int tq, int tr, int nr,
+                              int k) {
+  __shared__ float4 smem[kChunk];
+  const int per_tile = (tq + kThreads - 1) / kThreads;
+  const int qi = blockIdx.x / per_tile;  // the query tile
+  const int within = (blockIdx.x % per_tile) * kThreads + threadIdx.x;
+  const bool active = within < tq;
+  const size_t row = static_cast<size_t>(qi) * tq + within;
+  const int* skip_row = skip + static_cast<size_t>(qi) * nr;
+  float* D = d_out + row * k;
+  int* I = i_out + row * k;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  float kth = 0.f;
+  if (active) {
+    qx = query[row * 3 + 0];
+    qy = query[row * 3 + 1];
+    qz = query[row * 3 + 2];
+    for (int t = 0; t < k; ++t) {
+      D[t] = d_init[row * k + t];
+      I[t] = i_init[row * k + t];
+    }
+    kth = D[k - 1];
+  }
+  for (int j = 0; j < nr; ++j) {
+    if (__ldg(skip_row + j) != 0) continue;  // the same for the whole block
+    for (int off = 0; off < tr; off += kChunk) {
+      const int base = j * tr + off;
+      const int n = min(kChunk, tr - off);
+      __syncthreads();  // the previous chunk is no longer read
+      for (int c = threadIdx.x; c < n; c += kThreads) {
+        const float* p = ref + static_cast<size_t>(base + c) * 3;
+        smem[c] = make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), 0.f);
+      }
+      __syncthreads();
+      if (!active) continue;
+      int c = 0;
+      for (; c + kUnroll <= n; c += kUnroll) {
+        float d[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const float4 r = smem[c + u];
+          d[u] = sq_dist(qx, qy, qz, r.x, r.y, r.z);
+        }
+        float lowest = d[0];
+#pragma unroll
+        for (int u = 1; u < kUnroll; ++u) lowest = fminf(lowest, d[u]);
+        if (lowest < kth) {
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u)
+            if (d[u] < kth) kth = insert_global(D, I, k, d[u], base + c + u);
+        }
+      }
+      for (; c < n; ++c) {
+        const float4 r = smem[c];
+        const float d = sq_dist(qx, qy, qz, r.x, r.y, r.z);
+        if (d < kth) kth = insert_global(D, I, k, d, base + c);
+      }
+    }
+  }
+}
+
 template <int K>
 void launch(const float* q, const float* r, const int* skip, const float* d0,
             const int* i0, float* d, int* i, int nq, int nr, int tq, int tr,
@@ -372,7 +465,8 @@ void launch(const float* q, const float* r, const int* skip, const float* d0,
 // query [nq * tq, 3] f32 and ref [nr * tr, 3] f32 (Morton-sorted, padded to
 // whole tiles), skip [nq * nr] i32, d_init/i_init [nq * tq, k] ->
 // d_out/i_out [nq * tq, k], all contiguous; d_out/i_out may not alias the
-// inputs. 1 <= k <= 16. Returns the CUDA error code of the launch.
+// inputs. k >= 1: clusters of PCST_PRUNED_S for k <= 16, the global-list
+// kernel above. Returns the CUDA error code of the launch.
 extern "C" int pcst_knn_pruned_pass(const void* query, const void* ref,
                                     const void* skip, const void* d_init,
                                     const void* i_init, void* d_out,
@@ -386,8 +480,14 @@ extern "C" int pcst_knn_pruned_pass(const void* query, const void* ref,
   float* d = static_cast<float*>(d_out);
   int* i = static_cast<int*>(i_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nq < 1 || nr < 1 || tq < 1 || tr < 1) {
+  if (nq < 1 || nr < 1 || tq < 1 || tr < 1 || k < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (k > 16) {
+    knn_pruned_pass_global_kernel<<<nq * ((tq + kThreads - 1) / kThreads),
+                                    kThreads, 0, s>>>(q, r, sk, d0, i0, d, i,
+                                                      tq, tr, nr, k);
+    return static_cast<int>(cudaGetLastError());
   }
 #define PCST_CASE(KK) \
   case KK: launch<KK>(q, r, sk, d0, i0, d, i, nq, nr, tq, tr, s); break;

@@ -16,6 +16,10 @@ kernel as its exact fallback), as on the TPU; with ``"pallas"``,
 pruned kNN kernel alone. Its random draws, in the order they are taken from
 ``generator`` when not passed in: the condition cloud's voxel priorities, the
 two FPS start indices, the initial noise, then each step's voxel priorities.
+Its discrete choices that follow the trajectory, each step's voxel order and
+the upsample's neighbours, can be recorded into and replayed from a dict
+(``selections``), so that a run on one device can follow another's choices
+at near-ties (the rest depend on the inputs alone).
 
 ``guided_sample_loop_coarse``, the fast mode: the whole trajectory runs on a
 voxel downsample of the source and one kNN interpolation upsamples the final
@@ -35,6 +39,8 @@ from ..config import Config
 from ..ops import (complement_indices, grid_knn, index_points, knn,
                    voxel_downsample, voxel_downsample_partition)
 from ..ops.interpolate import apply_interpolation, knn_interpolate_weights
+from ..ops.kernels.knn_packed import selected_sq_dist
+from ..ops.voxel import voxel_order
 from .diffusion import DiffusionSchedule, ddim_step, ddim_timesteps
 from .model import PointCloudDiffusionModel
 
@@ -64,11 +70,19 @@ def resolve_sampler_knn_backend(cfg: Config) -> str:
     return "grid"
 
 
+def _record_points(selections: Optional[dict], key: str,
+                   **points: torch.Tensor) -> None:
+    """Keep the points a choice is taken on under ``key.<name>``."""
+    if selections is not None:
+        selections.update({f"{key}.{n}": p.detach() for n, p in points.items()})
+
+
 def _upsample_unknown(x: torch.Tensor, idx: torch.Tensor,
                       coarse_vals: torch.Tensor, knn_backend: str,
                       unknown: Optional[torch.Tensor] = None,
                       ref_xyz: Optional[torch.Tensor] = None,
-                      unknown_xyz: Optional[torch.Tensor] = None
+                      unknown_xyz: Optional[torch.Tensor] = None,
+                      selections: Optional[dict] = None, key: str = "knn"
                       ) -> torch.Tensor:
     """Place the exact coarse values at their points and interpolate ONLY the
     remaining (unknown) points from their k=3 nearest coarse points with
@@ -76,7 +90,11 @@ def _upsample_unknown(x: torch.Tensor, idx: torch.Tensor,
 
     ``unknown`` (the complement of ``idx``), ``ref_xyz`` (x at ``idx``) and
     ``unknown_xyz`` (x at ``unknown``) are recomputed when not given. The
-    grid backend runs cloud by cloud."""
+    grid backend runs cloud by cloud. ``selections`` (a dict) pins the
+    neighbours: replayed from ``selections[key]`` when it holds them (their
+    distances recomputed in the kernels' form), else the backend's recorded
+    there (the grid's from its kNN path, ``grid_knn``); the points they are
+    taken on go under ``key.query`` and ``key.ref`` either way."""
     B, N, _ = x.shape
     if unknown is None:
         unknown = complement_indices(idx, N)
@@ -87,12 +105,21 @@ def _upsample_unknown(x: torch.Tensor, idx: torch.Tensor,
     if unknown.shape[1] == 0:
         empty = coarse_vals.new_zeros((B, 0) + tuple(coarse_vals.shape[2:]))
         return _unpermute_assemble(idx, unknown, coarse_vals, empty, N)
-    if knn_backend == "grid":
+    _record_points(selections, key, query=q_unknown, ref=ref_xyz)
+    if selections is not None and key in selections:
+        nbr = selections[key].to(x.device)
+        sq_d = selected_sq_dist(q_unknown, index_points(ref_xyz, nbr))
+    elif knn_backend == "grid":
+        if selections is not None:
+            selections[key] = knn(q_unknown, ref_xyz, k, backend="grid")[1]
         return torch.stack([
             _grid_upsample_one(idx[b], unknown[b], coarse_vals[b],
                                q_unknown[b], ref_xyz[b], k, N)
             for b in range(B)])
-    sq_d, nbr = knn(q_unknown, ref_xyz, k, backend=knn_backend)
+    else:
+        sq_d, nbr = knn(q_unknown, ref_xyz, k, backend=knn_backend)
+        if selections is not None:
+            selections[key] = nbr
     dist = torch.sqrt(torch.clamp(sq_d, min=0.0))
     w = 1.0 / (dist + 1e-8)
     w = w / torch.sum(w, dim=-1, keepdim=True)
@@ -152,7 +179,8 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
                        cond_priority: Optional[torch.Tensor] = None,
                        step_priorities: Optional[torch.Tensor] = None,
                        fps_starts: Optional[torch.Tensor] = None,
-                       generator: Optional[torch.Generator] = None
+                       generator: Optional[torch.Generator] = None,
+                       selections: Optional[dict] = None
                        ) -> torch.Tensor:
     """CFG style transfer of ``source_points`` [B, N, 3] toward the style of
     ``condition_points`` [B, Nc, 3], on the model's device. Returns
@@ -163,7 +191,11 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
     ``step_priorities`` [steps, B, N] per-step voxel priorities,
     ``fps_starts`` [2, B] the encoder's FPS start indices. The rest come
     from ``generator``. The hierarchical branch runs when N > global_points
-    unless ``use_hierarchical`` says otherwise."""
+    unless ``use_hierarchical`` says otherwise. ``selections`` (a dict)
+    pins each step s's voxel order (``step<s>.voxel``, taken on the state
+    ``step<s>.voxel.points``) and the upsample's neighbours (``step<s>.knn``,
+    ``_upsample_unknown``): a choice the dict holds is replayed, any other
+    is recorded there; replaying expects the step priorities passed in."""
     cfg = model.config
     device = model.device
     schedule = schedule.to(device)
@@ -190,9 +222,17 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
     for s, (t, tp) in enumerate(zip(ts.tolist(), t_prev.tolist())):
         if use_hierarchical:
             t_in = torch.full((2 * B,), t, dtype=torch.int64, device=device)
+            key = f"step{s}.voxel"
+            _record_points(selections, key, points=x)
+            order = None if selections is None else selections.get(key)
+            if order is None:
+                order = voxel_order(x, M, priority=None if step_priorities
+                                    is None else step_priorities[s],
+                                    generator=generator)
+                if selections is not None:
+                    selections[key] = order
             x_coarse, x_idx, x_unk, x_unk_xyz = voxel_downsample_partition(
-                x, M, priority=None if step_priorities is None
-                else step_priorities[s], generator=generator)
+                x, M, order=order)
             x2 = torch.cat([x_coarse, x_coarse], dim=0)
             noise_coarse = model.predict_noise(x2, t_in, style_in).float()
             nc_cond, nc_unc = noise_coarse.chunk(2)
@@ -202,7 +242,9 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
             final_noise = _upsample_unknown(x, x_idx, guided_coarse,
                                             knn_backend, unknown=x_unk,
                                             ref_xyz=x_coarse,
-                                            unknown_xyz=x_unk_xyz)
+                                            unknown_xyz=x_unk_xyz,
+                                            selections=selections,
+                                            key=f"step{s}.knn")
         else:
             final_noise = _guided_step(model, x, t, style_in, guidance_scale)
 

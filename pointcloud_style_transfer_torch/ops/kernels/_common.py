@@ -47,8 +47,8 @@ SIGNATURES = {
                                        _FLT, _VP]},
     "rowmin": {"pcst_rowmin": [_VP, _VP, _VP, _INT, _INT, _INT, _VP]},
     "grid_fused": {
-        "pcst_grid_interp": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT,
-                             _INT, _INT, _INT, _INT, _INT, _FLT, _VP],
+        "pcst_grid_interp": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                             _INT, _INT, _INT, _INT, _INT, _INT, _FLT, _VP],
         "pcst_grid_topk": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
                            _INT, _INT, _INT, _VP],
     },
@@ -56,7 +56,7 @@ SIGNATURES = {
         "pcst_knn_f32packed": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
                                _INT, _VP],
         "pcst_knn_packed": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
-                            _VP],
+                            _INT, _VP],
     },
     "knn_pruned": {"pcst_knn_pruned_pass": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                             _INT, _INT, _INT, _INT, _INT,

@@ -25,7 +25,11 @@ positions [NP, k] int32, clipped to [0, M_pad - 1]; ``grid_interp`` returns
 v [NP, C] = sum_u (w_u / wsum) * vals_sorted[pos_u] with
 w_u = 1 / (sqrt(max(d_u, 0)) + eps) and wsum = (w_0 + w_1) + ..., summed in
 u order. A row with fewer than k candidates gets a finite, meaningless v;
-the grid marks such rows unsafe and recomputes them.
+the grid marks such rows unsafe and recomputes them. Any k >= 1: up to
+``MAX_K`` the lists live in registers (the interpolation's above 8 only
+on tiles of at most 512 rows); above it a variant of each kernel keeps
+them in the output (and the interpolation's positions in a scratch), with
+the same tie order.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 
 from ._common import launch, pairwise_sq_dist
 
-MAX_K = 8       # the kernels are instantiated for 1 <= k <= 8
+MAX_K = 16      # lists in registers for 1 <= k <= 16; above, in the output
 MAX_TQ = 1024   # one thread per query of a tile
 _BIG = 1e30
 # a masked (or NaN) candidate's selection key: +inf's bits, after every
@@ -169,8 +173,8 @@ def _check_slot_inputs(q_pad, refs_sorted, st, en, k, n_real
                          "differ")
     if refs_sorted.shape[0] == 0:
         raise ValueError("the grid kernels need at least one ref")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"the grid kernels take 1 <= k <= {MAX_K}, got {k}")
+    if k < 1:
+        raise ValueError(f"the grid kernels take k >= 1, got {k}")
     T, NP = st.shape[0], q_pad.shape[0]
     if T == 0 or NP % T or not 1 <= NP // T <= MAX_TQ:
         raise ValueError(f"q_pad's {NP} rows must be T={T} tiles of 1 to "
@@ -203,10 +207,14 @@ def grid_interp_cuda(q_pad: torch.Tensor, refs_sorted: torch.Tensor,
     NP = q_pad.shape[0]
     v = torch.empty((NP, C), dtype=torch.float32, device=q_pad.device)
     d = torch.empty((NP, k), dtype=torch.float32, device=q_pad.device)
+    # the global-list kernel (above MAX_K, and above 8 on tiles wider than
+    # 512 rows) keeps each row's positions in a scratch
+    pos = (torch.empty((NP, k), dtype=torch.int32, device=q_pad.device)
+           if k > 8 else None)
     launch("grid_interp", q_pad.device, q_pad.data_ptr(),
            refs_sorted.data_ptr(), vals_sorted.data_ptr(), st.data_ptr(),
-           en.data_ptr(), _ptr(n_real), v.data_ptr(), d.data_ptr(), T, tq,
-           st.shape[1], M_pad, C, k, eps)
+           en.data_ptr(), _ptr(n_real), v.data_ptr(), d.data_ptr(),
+           _ptr(pos), T, tq, st.shape[1], M_pad, C, k, eps)
     return v, d
 
 

@@ -16,14 +16,15 @@ kernel's only between neighbours within about 2^-8 (f32-packed) or 2^-7
 the exact distance of each selected ref and sort the k results ascending
 (stable), as the TPU wrappers do outside their kernels. Both are
 compute-bound on the card like the exact kernel (``knn.py``): 8 float ops a
-pair that the bit-identical contract keeps out of FMAs. The f32-packed
-kernel takes the exact kernel's design: one thread a query, its k keys in
-registers, ref tiles through shared memory, the ref axis split across a
-thread-block cluster of S blocks (``knn_topk_plan``'s S, or ``plan``) whose
-rank 0 merges the ranks' keys, and an eight-ref filter on the float
-distance against a threshold derived from the k-th key, so that keys are
-built only for distances that can enter. The int-packed kernel is the first design: one
-thread a query over the whole ref axis.
+pair that the bit-identical contract keeps out of FMAs. Both take the
+exact kernel's design, one scan in the source: one thread a query, its k
+keys in registers, ref tiles through shared memory, the ref axis split
+across a thread-block cluster of S blocks (``knn_topk_plan``'s S, or
+``plan``) whose rank 0 merges the ranks' keys, and an eight-ref filter on
+the distances' bits against a bound derived from the k-th key, so that keys
+are built only for distances that can enter. Above ``MAX_K`` the keys
+leave the registers: a kernel of the same source keeps each query's sorted
+list in the output itself and takes no cluster (S = 1).
 
 The TPU wrappers pad the refs to a multiple of their ref tile ``tr`` with
 points at 1e15; the padded count ``m_total`` bounds the index budget (at most
@@ -134,13 +135,28 @@ def _check_launch_args(query, ref, k, m_total, what) -> None:
     check_points(ref, "ref")
     if ref.shape[0] != query.shape[0] or ref.device != query.device:
         raise ValueError("query and ref must share batch size and device")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"the kNN kernels take 1 <= k <= {MAX_K}, got {k}")
+    if k < 1:
+        raise ValueError(f"the kNN kernels take k >= 1, got {k}")
     if ref.shape[1] == 0:
         raise ValueError("kNN needs at least one ref point")
     if m_total < ref.shape[1]:
         raise ValueError("m_total must be at least the ref count")
     _check_budget(m_total, what)
+
+
+def _cluster_size(B: int, N: int, M: int, k: int, plan: int | None,
+                  what: str) -> int:
+    """``plan`` or ``knn_topk_plan``'s S; above ``MAX_K`` the global-list
+    kernel, which takes no cluster (S = 1)."""
+    if k > MAX_K:
+        S = 1 if plan is None else plan
+        if S != 1:
+            raise ValueError(f"k = {k} > {MAX_K} takes no cluster, got S={S}")
+    else:
+        S = knn_topk_plan(B, N, M) if plan is None else plan
+    if S not in CLUSTER_SIZES:
+        raise ValueError(f"bad {what} kNN cluster size {S}")
+    return S
 
 
 def knn_f32packed_keys_cuda(query: torch.Tensor, ref: torch.Tensor, k: int,
@@ -153,9 +169,7 @@ def knn_f32packed_keys_cuda(query: torch.Tensor, ref: torch.Tensor, k: int,
     _check_launch_args(query, ref, k, m_total, "f32-packed")
     B, N, _ = query.shape
     M = ref.shape[1]
-    S = knn_topk_plan(B, N, M) if plan is None else plan
-    if S not in CLUSTER_SIZES:
-        raise ValueError(f"bad f32-packed kNN cluster size {S}")
+    S = _cluster_size(B, N, M, k, plan, "f32-packed")
     keys = torch.empty((B, N, k), dtype=torch.float32, device=query.device)
     if B * N:
         launch("knn_f32packed", query.device, query.data_ptr(),
@@ -164,15 +178,19 @@ def knn_f32packed_keys_cuda(query: torch.Tensor, ref: torch.Tensor, k: int,
 
 
 def knn_intpacked_keys_cuda(query: torch.Tensor, ref: torch.Tensor, k: int,
-                            m_total: int) -> torch.Tensor:
-    """Launch ``pcst_knn_packed`` on the current stream."""
+                            m_total: int, plan: int | None = None
+                            ) -> torch.Tensor:
+    """Launch ``pcst_knn_packed`` on the current stream; the cluster size
+    as ``knn_f32packed_keys_cuda``'s."""
     _check_launch_args(query, ref, k, m_total, "packed")
     B, N, _ = query.shape
+    M = ref.shape[1]
+    S = _cluster_size(B, N, M, k, plan, "packed")
     keys = torch.empty((B, N, k), dtype=torch.int32, device=query.device)
     if B * N:
         launch("knn_packed", query.device, query.data_ptr(), ref.data_ptr(),
-               keys.data_ptr(), B, N, ref.shape[1], m_total,
-               packed_idx_bits(m_total), k)
+               keys.data_ptr(), B, N, M, m_total, packed_idx_bits(m_total),
+               k, S)
     return keys
 
 

@@ -19,7 +19,9 @@ keeps those ties; the query tiles with the most unskipped tiles start first;
 a warp of 32 queries lets a chunk of 1,024 refs go when none of them is
 nearer the chunk's bounding box than its k-th distance (exact: the box
 distance bounds every ref's from below in the same rounding); the scan
-tries eight refs per insert test.
+tries eight refs per insert test. Any k >= 1: above 16 a kernel of
+the same source keeps each row's list in the output itself, with the same
+order of arrival, and no cluster.
 
 NaN: a NaN distance is never taken (the TPU kernel's tile minimum would
 propagate it and drop that whole tile for the query; the port does not follow
@@ -31,7 +33,6 @@ from __future__ import annotations
 import torch
 
 from ._common import launch, pairwise_sq_dist
-from .knn import MAX_K
 
 _BIG = 1e30  # an initial distance: nothing at or above it is ever taken
 _KEY_MAX = torch.iinfo(torch.int64).max
@@ -52,8 +53,8 @@ def _check_pass_args(query, ref, skip, d_init, i_init, k, tq, tr) -> tuple:
         if tuple(t.shape) != (query.shape[0], k):
             raise ValueError(f"{what} must be [{query.shape[0]}, {k}], got "
                              f"{tuple(t.shape)}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"the kNN kernels take 1 <= k <= {MAX_K}, got {k}")
+    if k < 1:
+        raise ValueError(f"the kNN kernels take k >= 1, got {k}")
     return nq, nr
 
 

@@ -84,11 +84,13 @@ def _priority_order(pts: torch.Tensor, u: torch.Tensor, target_size: int,
     return torch.sort(priority, stable=True).indices
 
 
-def _orders(points: torch.Tensor, target_size: int,
-            priority: Optional[torch.Tensor],
-            generator: Optional[torch.Generator],
-            geometry: Optional[Geometry]) -> torch.Tensor:
-    """[B, N] priority order of every cloud of a batch."""
+def voxel_order(points: torch.Tensor, target_size: int,
+                priority: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                geometry: Optional[Geometry] = None) -> torch.Tensor:
+    """[B, N] priority order of every cloud of a batch [B, N, 3]: its first
+    ``target_size`` indices are the downsample, the rest its complement
+    (``order`` of ``voxel_downsample_partition``)."""
     B, N, _ = points.shape
     if priority is None:
         priority = torch.rand((B, N), generator=generator,
@@ -117,8 +119,8 @@ def voxel_downsample(points: torch.Tensor, target_size: int,
     if N <= target_size:
         idx = torch.arange(N, device=points.device).expand(B, N)
         return points, idx
-    idx = _orders(points, target_size, priority, generator,
-                  geometry)[:, :target_size]
+    idx = voxel_order(points, target_size, priority, generator,
+                      geometry)[:, :target_size]
     ds = torch.gather(points, 1, idx[..., None].expand(-1, -1, 3))
     return ds, idx
 
@@ -127,13 +129,15 @@ def voxel_downsample_partition(
         points: torch.Tensor, target_size: int,
         priority: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
-        geometry: Optional[Geometry] = None
+        geometry: Optional[Geometry] = None,
+        order: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The sampler's split of each cloud into the selection and the rest.
 
     Returns (selected [B, M, 3], indices [B, M], complement [B, N-M],
     complement_xyz [B, N-M, 3]), float32 coordinates; the complement is in
-    priority order. N <= target_size returns identity indices and empty
+    priority order. ``order`` [B, N] is a ``voxel_order`` to take instead of
+    computing one. N <= target_size returns identity indices and empty
     complements."""
     B, N, _ = points.shape
     if N <= target_size:
@@ -141,7 +145,8 @@ def voxel_downsample_partition(
         return (points, idx,
                 torch.zeros((B, 0), dtype=torch.int64, device=points.device),
                 points.new_zeros((B, 0, 3)))
-    perm = _orders(points, target_size, priority, generator, geometry)
+    perm = (voxel_order(points, target_size, priority, generator, geometry)
+            if order is None else order.to(points.device))
     xyz = torch.gather(points.detach().float(), 1,
                        perm[..., None].expand(-1, -1, 3))
     return (xyz[:, :target_size], perm[:, :target_size],

@@ -24,10 +24,11 @@ recomputed distances and the pruned pass kernel's state are identical to
 their plain versions', NaN coordinates included; so are the f32-packed
 kernel's keys built with every queries a thread Q and launched with every
 cluster size S, and both pruned passes built with every S, at 1, 127, 2,500
-and 90,000 rows x 30,000 refs for k = 1, 3, 9 and 16. No kernel of the kNN family
-takes a NaN distance, whatever its sign bit. The kNN kernel past k = 16 and
-FPS past 65,536 points (their global-memory variants) are identical to the
-plain versions too.
+and 90,000 rows x 30,000 refs for k = 1, 3, 9 and 16, and so are the
+int-packed kernel's launched with every S. No kernel of the kNN family
+takes a NaN distance, whatever its sign bit. The kNN, packed-key, grid and
+pruned kernels past k = 16 and FPS past 65,536 points (their global-memory
+variants) are identical to the plain versions too.
 """
 
 import numpy as np
@@ -503,6 +504,33 @@ def test_grid_kernels_any_tile_width(rng, cuda, tq):
         assert ((v - v_p)[full].abs() <= tol + 1e-6 * v_p[full].abs()).all()
 
 
+@pytest.mark.parametrize("tq,k", [(512, 12), (513, 12), (1024, 16),
+                                  (1024, 9)])
+def test_grid_kernels_wide_tiles_past_8(rng, cuda, tq, k):
+    """k = 9..16 on tiles of 512 rows (the interpolation's register lists)
+    and wider (its global-list kernel), with and without n_real: both
+    kernels identical to the plain versions."""
+    r = torch.from_numpy(points(rng, 1, 3000)[0]).to(cuda)
+    T = 3
+    q = torch.from_numpy(points(rng, 1, T * tq)[0]).to(cuda)
+    st = torch.tensor([[0, 1200], [300, 2000], [100, 100]], dtype=torch.int32,
+                      device=cuda)
+    en = st + torch.tensor([[900, 700], [800, 900], [0, 5]],
+                           dtype=torch.int32, device=cuda)
+    vals = torch.randn((3000, 2), device=cuda)
+    n_real = torch.tensor([tq, tq // 2, 7], dtype=torch.int32, device=cuda)
+    for nr in (None, n_real):
+        v, d = grid_interp_cuda(q, r, vals, st, en, k, n_real=nr)
+        d_t, i_t = grid_topk_cuda(q, r, st, en, k, n_real=nr)
+        v_p, d_p = grid_interp_plain(q, r, vals, st, en, k, n_real=nr)
+        d_tp, i_tp = grid_topk_plain(q, r, st, en, k, n_real=nr)
+        assert torch.equal(d.view(torch.int32), d_p.view(torch.int32))
+        assert torch.equal(d_t, d_tp) and torch.equal(i_t, i_tp)
+        full = d_p[:, -1] < 1e29
+        tol = 1e-6 * v_p[full].abs().max().item()
+        assert ((v - v_p)[full].abs() <= tol + 1e-6 * v_p[full].abs()).all()
+
+
 def test_grid_paths_launch_kernels(rng, cuda):
     r = torch.from_numpy(points(rng, 1, 6500)).to(cuda)
     q = torch.from_numpy(points(rng, 1, 9000)).to(cuda)
@@ -528,7 +556,7 @@ def test_grid_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         grid_topk_cuda(q.double(), refs, st, st, 3)
     with pytest.raises(ValueError):
-        grid_topk_cuda(q, refs, st, st, 9)
+        grid_topk_cuda(q, refs, st, st, 0)
     with pytest.raises(ValueError):
         grid_topk_cuda(q, refs, st.long(), st, 3)
     with pytest.raises(ValueError):
@@ -631,6 +659,117 @@ def test_f32packed_every_plan_identical_to_plain(cuda, sampler_clouds,
     assert not ((idx == 7) | (idx == 29990)).any()
 
 
+@pytest.mark.parametrize("k", [1, 3, 9, 16])
+@pytest.mark.parametrize("rows", [1, 127, 2500, 90000])
+def test_intpacked_every_plan_identical_to_plain(cuda, sampler_clouds,
+                                                 rows, k):
+    """The int-packed kernel launched with every S: raw keys identical to
+    the plain version's at the sampler's and the grid patch's shapes (the
+    refs padded to the TPU wrapper's 2,048 tile: idx_bits 15), with NaN refs
+    and queries of both signs."""
+    q, r = sampler_clouds
+    q = q[:, :rows].contiguous()
+    m_total = knn_packed.padded_refs(r.shape[1], 2048)
+    want = knn_intpacked_keys_plain(q, r, k, m_total)
+    before = LAUNCH_COUNTS["knn_packed"]
+    for S in CLUSTER_SIZES:
+        got = knn_intpacked_keys_cuda(q, r, k, m_total, plan=S)
+        assert torch.equal(got, want), S
+    assert LAUNCH_COUNTS["knn_packed"] == before + len(CLUSTER_SIZES)
+    if rows > 100:  # NaN rows: start keys (the padding refs are NaN too)
+        assert (want[0, [60, 100]] == 1 << 30).all()
+    idx = want & 0x7FFF
+    assert not ((idx == 7) | (idx == 29990)).any()
+
+
+@pytest.mark.parametrize("m,m_total,k", [(5, 8, 8), (37, 64, 3),
+                                         (1100, 2048, 16), (900, 1000, 9)])
+def test_intpacked_every_plan_few_refs_and_idx_bits(rng, cuda, m, m_total,
+                                                    k):
+    """Slices shorter than k, empty slices (M < S), padding refs, and
+    idx_bits below 15 (the filter's bound passes 32 bits at the start key);
+    infinite distances (far refs), taken while fewer than k others are
+    left."""
+    r = points(rng, 2, m)
+    q = points(rng, 2, 300)
+    q[:, :50] = r[:, rng.choice(m, 50)]
+    r[0, -3:] = 3e19  # squared distances past float32: infinite
+    qt, rt = torch.from_numpy(q).to(cuda), torch.from_numpy(r).to(cuda)
+    want = knn_intpacked_keys_plain(qt, rt, k, m_total)
+    for S in CLUSTER_SIZES:
+        assert torch.equal(knn_intpacked_keys_cuda(qt, rt, k, m_total,
+                                                   plan=S), want), S
+
+
+@pytest.mark.parametrize("k", [17, 32])
+def test_packed_kernels_past_16_identical_to_plain(cuda, sampler_clouds, k):
+    """Both packed-key kernels past the register lists (their global-list
+    kernels, no cluster) at 127, 2,500 and 90,000 rows: one launch, raw keys
+    identical to the plain versions', NaN of both signs included; and with
+    fewer refs than k (padding refs, start keys)."""
+    q, r = sampler_clouds
+    small = r[:, :9].contiguous()
+    for name, kernel, plain in (
+            ("knn_f32packed", knn_f32packed_keys_cuda,
+             knn_f32packed_keys_plain),
+            ("knn_packed", knn_intpacked_keys_cuda, knn_intpacked_keys_plain)):
+        for rows, ref, m_total in ((127, r, 30720), (2500, r, 30720),
+                                   (90000, r, 32768), (2500, small, 20)):
+            qq = q[:, :rows].contiguous()
+            before = LAUNCH_COUNTS[name]
+            got = kernel(qq, ref, k, m_total)
+            assert LAUNCH_COUNTS[name] == before + 1
+            want = plain(qq, ref, k, m_total)
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (name, rows)
+
+
+@pytest.mark.parametrize("k", [17, 32])
+def test_grid_kernels_past_16_identical_to_plain(rng, cuda, k):
+    """The grid kernels' global-list variants on the grid's own tables,
+    with and without n_real, with a NaN ref of each sign: distances
+    identical, positions on rows with k candidates, values within rtol
+    1e-6, atol 1e-6 * max|v|."""
+    q, refs, vals, st, en, n_real = grid_inputs(rng, cuda, 6500, 9000,
+                                                (16, 12, 8), 384)
+    r = refs.cpu().numpy().copy()
+    r[int(st[3, 0]) + 1, 0] = NEG_NAN
+    r[int(st[9, 0]) + 1, 1] = np.nan
+    refs = torch.from_numpy(r).to(cuda)
+    for nr in (None, n_real):
+        d, i = check_grid_kernels(q, refs, vals, st, en, k, nr)
+        assert (d[:, 1:] >= d[:, :-1]).all()
+
+
+@pytest.mark.parametrize("k", [17, 32])
+def test_pruned_pass_past_16_identical_to_plain(cuda, sampler_clouds, k):
+    """Both pruned passes at k past 16 (the global-list kernel) at 90,000 x
+    30,000, default tiles, NaN refs and queries of both signs: state
+    identical to the plain version's, one launch a pass, the whole call's
+    distances those of the brute-force kernel."""
+    q, r = sampler_clouds
+    qs, rs, _, _ = pruned_knn.sort_and_pad(q[0], r[0], 512, 2048)
+    nq, nr = qs.shape[0] // 512, rs.shape[0] // 2048
+    in_window = pruned_knn.window_mask(nq, nr, 2, cuda)
+    state = (qs.new_full((qs.shape[0], k), 1e30),
+             torch.zeros((qs.shape[0], k), dtype=torch.int32, device=cuda))
+    skip = (~in_window).int().contiguous()
+    for _ in range(2):
+        before = LAUNCH_COUNTS["knn_pruned"]
+        d, i = knn_pruned_pass_cuda(qs, rs, skip, *state, k, 512, 2048)
+        assert LAUNCH_COUNTS["knn_pruned"] == before + 1
+        d_p, i_p = knn_pruned_pass_plain(qs, rs, skip, *state, k, 512, 2048)
+        assert torch.equal(d.view(torch.int32), d_p.view(torch.int32))
+        assert torch.equal(i, i_p)
+        skip = (pruned_knn.prune_mask(qs, rs, d, k, 512, 2048)
+                | in_window).int().contiguous()
+        state = (d, i)
+    # the whole call, on rows and refs without NaN
+    qq, rr = q[:, 3000:8000].contiguous(), r[:, 8:29990].contiguous()
+    d, _ = knn(qq, rr, k, backend="pallas_pruned")
+    assert torch.equal(d, knn_topk(qq, rr, k)[0])
+
+
 @pytest.mark.parametrize("m,k", [(5, 8), (37, 3), (1100, 16)])
 def test_f32packed_every_plan_few_refs(rng, cuda, m, k):
     """Slices shorter than k, empty slices (M < S) and padding refs."""
@@ -697,15 +836,18 @@ def test_pruned_every_cluster_size_identical_to_plain(
 def test_packed_wrappers_reject_bad_inputs(cuda):
     x = torch.zeros((1, 10, 3), device=cuda)
     big = torch.zeros((1, 32769, 3), device=cuda)
-    for plan in (0, 3, 16):
-        with pytest.raises(ValueError):
-            knn_f32packed_keys_cuda(x, x, 3, 2048, plan=plan)
     for kernel in (knn_f32packed_keys_cuda, knn_intpacked_keys_cuda):
+        for plan in (0, 3, 16):
+            with pytest.raises(ValueError):
+                kernel(x, x, 3, 2048, plan=plan)
         kernel(x, x, 3, 2048)  # accepted
+        kernel(x, x, 17, 2048)  # accepted: the global lists
         with pytest.raises(ValueError):
             kernel(x, big, 3, 32769)
         with pytest.raises(ValueError):
-            kernel(x, x, 17, 2048)
+            kernel(x, x, 0, 2048)
+        with pytest.raises(ValueError):
+            kernel(x, x, 17, 2048, plan=2)  # past 16: no cluster
         with pytest.raises(ValueError):
             kernel(x, x, 3, 5)  # fewer padded refs than refs
         with pytest.raises(ValueError):

@@ -1,9 +1,11 @@
-"""The f32-packed kNN kernel's and the pruned pass kernel's order of work
-(``csrc/knn_packed.cu::knn_f32packed_kernel``,
+"""The packed-key kNN kernels' and the pruned pass kernel's order of work
+(``csrc/knn_packed.cu::knn_f32packed_kernel`` and ``knn_packed_kernel``,
 ``csrc/knn_pruned.cu::knn_pruned_pass_kernel``), emulated on the CPU in
 plain torch step by step, against their plain versions
-(``knn_f32packed_keys_plain``, ``knn_pruned_pass_plain``; the JAX parity of
-those is ``test_torch_knn_packed.py`` and ``test_torch_knn_pruned.py``).
+(``knn_f32packed_keys_plain``, ``knn_intpacked_keys_plain``,
+``knn_pruned_pass_plain``; the JAX parity of those is
+``test_torch_knn_packed.py``, ``test_torch_knn_pruned.py`` and
+``test_torch_large_k.py``).
 
 f32-packed: each thread holds one query (query block g holds 128 queries,
 padding queries past N are scanned at the origin and never written); rank r
@@ -16,6 +18,17 @@ ranks' keys (in any order: keys are unique), then the padding refs. The raw
 keys are identical to the plain version's for S in {1, 2, 4, 8}, with
 duplicates, zero distances, padding refs, k > M and NaN coordinates of both
 signs; the threshold never refuses a key that the exact test takes.
+
+Int-packed: the same scan and merge with the key ``((bits(d) >>> 16) <<
+idx_bits) | index`` compared as signed, from 2^30, and the filter on the
+distances' bits as unsigned integers against ``((W >> idx_bits) + 1) <<
+16``, saturated at 0xFFFFFFFF. The raw keys are identical to the plain
+version's for every S and idx_bits 1 to 15, with infinite distances (whose
+keys lie below the start key and are taken while fewer than k other refs
+are left), k > M and NaN of both signs; the bound is tight at every bucket
+edge, sets the sign bit at the start key with idx_bits = 15 and passes 32
+bits below; a bound one bucket tighter, or a float threshold, gives other
+keys.
 
 Pruned pass: a cluster of S (``PCST_PRUNED_S``) serves 128 queries of a
 query tile; rank r takes the row's unskipped tiles of ordinal [r c, (r+1) c),
@@ -36,10 +49,12 @@ import pytest
 import torch
 
 from pointcloud_style_transfer_torch.ops.kernels import (
-    knn_f32packed_keys_plain, knn_pruned_pass_plain)
+    knn_f32packed_keys_plain, knn_intpacked_keys_plain, knn_pruned_pass_plain)
 from pointcloud_style_transfer_torch.ops.kernels._common import (
     pairwise_sq_dist, source_define)
 from pointcloud_style_transfer_torch.ops.kernels.knn import knn_topk_plan
+from pointcloud_style_transfer_torch.ops.kernels.knn_packed import \
+    packed_idx_bits
 
 THREADS, TILE, UNROLL = 128, 1024, 8  # the kernels' constants
 CHUNK = source_define("knn_pruned", "PCST_PRUNED_CHUNK")
@@ -287,6 +302,208 @@ def test_threshold_is_tight_at_the_bucket_edge(w):
     assert passes[:0x8000].all()
     assert below[:0x8000].sum() == w[0] & 0x7FFF
     assert not below[0x8000:].any() and not passes[0x8000:].any()
+
+
+# ---- int-packed ----
+
+INT_START = 1 << 30  # the int-packed start key
+
+
+def int_key(d, col, idx_bits):
+    bits = d.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return ((bits >> 16) << idx_bits) | col
+
+
+def int_bound(w, idx_bits, tighter=0):
+    """The distance bits (unsigned, int64) at and above which no key is
+    below w: ((w >> idx_bits) + 1) << 16, saturated at 32 bits;
+    ``tighter`` buckets less (a wrong bound, for the tests' teeth)."""
+    return (((w >> idx_bits) + 1 - tighter) << 16).clamp(max=0xFFFFFFFF)
+
+
+def as_float_threshold(bound):
+    """The bound read as a float32 threshold (a wrong filter: at and above
+    +inf's bits it is +inf or NaN, which a strict '<' never passes)."""
+    return bound.to(torch.int32).view(torch.float32)
+
+
+def unsigned_bits(d):
+    return d.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def scan_int(qp, r, lo, hi, k, idx_bits, tighter=0, float_filter=False):
+    """One rank's int-packed scan of refs [lo, hi) -> its keys [R, k]."""
+    keys = torch.full((qp.shape[0], k), INT_START, dtype=torch.int64)
+
+    def passes(d, bound):
+        if float_filter:
+            return d < as_float_threshold(bound)
+        return unsigned_bits(d) < bound
+
+    def offer_int(keys, bound, d, col, live):
+        key = int_key(d, col, idx_bits)
+        take = live & ~torch.isnan(d) & (key < keys[:, -1])
+        keys, _ = sorted_insert(keys, None, key, None, take)
+        return keys, torch.where(take, int_bound(keys[:, -1], idx_bits,
+                                                 tighter), bound)
+
+    bound = int_bound(keys[:, -1], idx_bits, tighter)
+    for base in range(lo, hi, TILE):
+        d = pairwise_sq_dist(qp, r[base:min(base + TILE, hi)])
+        n = d.shape[1]
+        for j in range(0, n - UNROLL + 1, UNROLL):
+            g = d[:, j:j + UNROLL]
+            lowest = unsigned_bits(g).amin(1)
+            passed = (fmin8(g) < as_float_threshold(bound) if float_filter
+                      else lowest < bound)
+            if not passed.any():
+                continue
+            for v in range(UNROLL):
+                keys, bound = offer_int(keys, bound, g[:, v], base + j + v,
+                                        passed & passes(g[:, v], bound))
+        for j in range(n - n % UNROLL, n):
+            keys, bound = offer_int(keys, bound, d[:, j], base + j,
+                                    passes(d[:, j], bound))
+    return keys, offer_int
+
+
+def emulate_intpacked(q, r, k, m_total, S, **wrong):
+    """The int-packed kernel's per-rank scans, rank 0's merge in rank order
+    and the padding refs -> int32 keys [B, N, k]; ``wrong`` takes
+    ``scan_int``'s deliberately wrong filters."""
+    B, N, _ = q.shape
+    M = r.shape[1]
+    idx_bits = packed_idx_bits(m_total)
+    qp = torch.zeros((-(-N // THREADS) * THREADS, 3))
+    chunk = -(-M // S)
+    out = torch.empty((B, N, k), dtype=torch.int32)
+    every = torch.ones(qp.shape[0], dtype=torch.bool)
+    for b in range(B):
+        qp[:N] = q[b]
+        lists = []
+        for s in range(S):
+            lo = min(M, s * chunk)
+            keys, offer_int = scan_int(qp, r[b], lo, min(M, lo + chunk), k,
+                                       idx_bits, **wrong)
+            lists.append(keys)
+        keys = lists[0]
+        for src in range(1, S):
+            for t in range(k):
+                keys, _ = sorted_insert(keys, None, lists[src][:, t], None,
+                                        every)
+        bound = int_bound(keys[:, -1], idx_bits)
+        d_pad = pairwise_sq_dist(qp, torch.full((1, 3), FAR))[:, 0]
+        for t in range(min(k, m_total - M)):
+            keys, bound = offer_int(keys, bound, d_pad, M + t, every)
+        out[b] = keys[:N].to(torch.int32)
+    return out
+
+
+def check_intpacked(q, r, k, m_total, sizes=SIZES):
+    qt, rt = torch.from_numpy(q), torch.from_numpy(r)
+    want = knn_intpacked_keys_plain(qt, rt, k, m_total)
+    for S in sizes:
+        assert torch.equal(emulate_intpacked(qt, rt, k, m_total, S), want), S
+    return want
+
+
+@pytest.mark.parametrize("b,n,m,k,m_total", [
+    (1, 200, 1100, 3, 2048),   # a tile and a ragged one; padding refs
+    (2, 130, 777, 16, 777),    # M not a multiple of S or 8; idx_bits 10
+    (1, 90, 37, 9, 64),        # slices shorter than k; idx_bits 6
+    (1, 70, 5, 8, 8),          # k > M: padding refs fill; idx_bits 3
+    (1, 150, 300, 1, 32768),   # the nearest only; idx_bits 15
+    (1, 60, 2, 4, 2),          # k > M, no padding: start keys; idx_bits 1
+])
+def test_intpacked_split_scan_equals_plain(rng, b, n, m, k, m_total):
+    q, r = tie_clouds(rng, b, n, m)
+    want = check_intpacked(q, r, k, m_total)
+    if m_total == m < k:  # neither refs nor padding fill: start keys
+        assert (want[..., m:] == INT_START).all()
+
+
+@pytest.mark.parametrize("idx_bits", range(1, 16))
+def test_int_bound_is_tight_at_every_bucket_edge(rng, idx_bits):
+    """For k-th keys W at bucket edges (the lowest and highest column of a
+    coarse part, the start key): a distance whose bits lie one below the
+    bound is in W's bucket and has a key below W for every column below
+    W's; at the bound and above no key is below W. A bound one bucket
+    tighter refuses a key the exact test takes (in a rank's ascending scan
+    such a key cannot arrive after W, so only the keys show it). Where the
+    bound passes 32 bits (the start key at idx_bits <= 14) every non-NaN
+    distance passes."""
+    cols = np.arange(1 << idx_bits, dtype=np.int64)
+    coarse = rng.integers(1, 0x7F80, 20)
+    ws = np.concatenate([(coarse << idx_bits), (coarse << idx_bits)
+                         | ((1 << idx_bits) - 1), [INT_START]])
+    for w in ws:
+        bound = int(int_bound(torch.tensor([w]), idx_bits)[0])
+        key = lambda bits: ((bits >> 16) << idx_bits) | cols  # noqa: E731
+        if bound == 0xFFFFFFFF:  # saturated: every key is below 2^30 + 1
+            assert w == INT_START and idx_bits <= 14
+            assert (key(0x7F800000) < w).all()  # +inf's
+            continue
+        assert (key(bound - 1) < w).sum() == w & ((1 << idx_bits) - 1)
+        assert not (key(bound) < w).any() and not (key(bound + 1) < w).any()
+        tighter = int(int_bound(torch.tensor([w]), idx_bits, 1)[0])
+        if w & ((1 << idx_bits) - 1):
+            assert (key(tighter) < w).any()  # refused, yet taken exactly
+
+
+def test_int_bound_at_the_start_key():
+    """2^30 with idx_bits = 15 gives 0x80010000, which sets the sign bit
+    (an int32 or float threshold reads it as negative); with idx_bits 14
+    the bound is 2^32 + 2^16 and saturates."""
+    start = torch.tensor([INT_START])
+    assert int(int_bound(start, 15)[0]) == 0x80010000
+    assert int(int_bound(start, 14)[0]) == 0xFFFFFFFF
+    assert as_float_threshold(int_bound(start, 15))[0] < 0
+
+
+@pytest.mark.parametrize("m,k", [(16, 9), (300, 12)])
+def test_intpacked_infinite_distances_taken_below_the_start(rng, m, k):
+    """Refs whose squared distances overflow to +inf: their keys
+    (0x7F80 << idx_bits) | index lie below 2^30, so with fewer than k
+    finite refs and no padding they are taken (idx_bits 4, and 9 where the
+    start key's bound 0x800010000 saturates); a float threshold (NaN at the
+    saturated bound, strict '<') refuses them and gives other keys."""
+    q, r = tie_clouds(rng, 1, 40, m)
+    r[0, 5:] = 3e19  # refs at an infinite distance
+    want = check_intpacked(q, r, k, m)
+    bits = packed_idx_bits(m)
+    assert (want[0, :, 5:] < INT_START).all()
+    assert ((want[0, :, 5:] & ((1 << bits) - 1)) >= 5).all()
+    assert (want[0, :, 5:] >> bits == 0x7F80).all()
+    qt, rt = torch.from_numpy(q), torch.from_numpy(r)
+    wrong = emulate_intpacked(qt, rt, k, m, 2, float_filter=True)
+    assert not torch.equal(wrong, want)
+
+
+def test_intpacked_nan_of_both_signs(rng):
+    """NaN refs in rank 0's and the last rank's slices and a NaN query of
+    each sign: never taken (a NaN with the sign bit clear has the bits
+    0x7FC00000, below the start key's bound at idx_bits 15, and is refused
+    by its own test); the NaN rows keep the start keys (their distances to
+    the padding refs are NaN too)."""
+    q, r = tie_clouds(rng, 1, 140, 400)
+    r[0, 3, 1] = NEG_NAN
+    r[0, 398, 0] = np.nan
+    q[0, 7, 2] = NEG_NAN
+    q[0, 139, 0] = np.nan
+    for m_total in (512, 32768):
+        want = check_intpacked(q, r, 4, m_total)
+        idx = want & ((1 << packed_idx_bits(m_total)) - 1)
+        assert not ((idx == 3) | (idx == 398)).any()
+        assert (want[0, [7, 139]] == INT_START).all()
+
+
+def test_intpacked_queries_past_the_block_and_plan(rng):
+    """N not a multiple of 128 (padding queries scanned at the origin,
+    never written); the plan's S at the int-packed kernel's two shapes."""
+    q, r = tie_clouds(rng, 1, 257, 260)
+    check_intpacked(q, r, 3, 2048)
+    assert knn_topk_plan(1, 90_000, 30_000) == 2
+    assert knn_topk_plan(1, 2_500, 30_000) == 8
 
 
 # ---- pruned pass ----

@@ -1,4 +1,4 @@
-"""Time every launch the kNN, FPS, kd-grid, ball query, row-min, f32-packed
+"""Time every launch the kNN, FPS, kd-grid, ball query, row-min, packed-key
 and pruned kNN kernels take, at the shapes their plans are chosen for, on
 one CUDA card.
 
@@ -22,9 +22,10 @@ slot order and in the kernel's staging order. ``ball_query``:
 calls, in device time. ``rowmin``: ``csrc/rowmin.cu`` rebuilt for every
 cluster size S and number of queries a thread Q (``-DPCST_ROWMIN_S``,
 ``-DPCST_ROWMIN_Q``) at 120,000 x 120,000, 30,000 x 30,000 and
-4,096 x 4,096, in device time. ``f32packed``: the f32-packed kernel
-launched with every cluster size S at the sampler's 90,000 x 30,000 and
-the grid patch's 2,500 x 30,000, k = 3, in device time. ``pruned``:
+4,096 x 4,096, in device time. ``f32packed`` and ``packed``: the
+f32-packed and the int-packed kernel launched with every cluster size S at
+the sampler's 90,000 x 30,000 and the grid patch's 2,500 x 30,000, k = 3,
+in device time. ``pruned``:
 ``csrc/knn_pruned.cu`` rebuilt for every cluster size S
 (``-DPCST_PRUNED_S``), both passes of the pruned kNN at 90,000 x 30,000,
 k = 3, default tiles, in device time, each also with the pass's own result
@@ -36,10 +37,10 @@ versions. The clouds are ``chip_smoke.py``'s.
 
 Run from the root of a checkout on a machine with the CUDA toolkit:
 ``python3 tools/sweep_kernel_plans.py [--only NAME,...]``, NAME among knn,
-fps, grid, ball_query, rowmin, f32packed, pruned (all by default). It
-prints one line per shape and the card's name and power limit. ``--parent
-DIR`` instead times the grid, ball query, row-min, f32-packed and pruned
-kernels of the checkout at DIR (an earlier commit, e.g. a ``git archive``
+fps, grid, ball_query, rowmin, f32packed, packed, pruned (all by
+default). It prints one line per shape and the card's name and power
+limit. ``--parent DIR`` instead times the grid, ball query, row-min,
+packed-key and pruned kernels of the checkout at DIR (an earlier commit, e.g. a ``git archive``
 under ``build/``) against this checkout's, in turns (DIR, this, this, DIR),
 each turn a fresh process that builds its own kernels: device time of each
 kernel at the main path's shapes and calls (``[grid compare]``,
@@ -69,8 +70,8 @@ from pointcloud_style_transfer_torch.ops import (grid_knn,  # noqa: E402
                                                  index_points, pruned_knn)
 from pointcloud_style_transfer_torch.ops.kernels import (  # noqa: E402
     ball_query_cuda, ball_query_plain, build_all, fps_cuda, grid_interp_cuda,
-    grid_topk_cuda, knn_f32packed_keys_cuda, knn_pruned_pass_cuda,
-    knn_topk_cuda, rowmin_cuda, rowmin_plain)
+    grid_topk_cuda, knn_f32packed_keys_cuda, knn_intpacked_keys_cuda,
+    knn_pruned_pass_cuda, knn_topk_cuda, rowmin_cuda, rowmin_plain)
 from pointcloud_style_transfer_torch.ops.kernels.knn_packed import \
     padded_refs  # noqa: E402
 from pointcloud_style_transfer_torch.ops.kernels import \
@@ -83,9 +84,10 @@ from chip_smoke import (BQ_UNROLL, BQ_WARPS, PRUNED_S,  # noqa: E402
                         ROWMIN_Q, ROWMIN_S)
 
 SWEEPS = ("knn", "fps", "grid", "ball_query", "rowmin", "f32packed",
-          "pruned")
+          "packed", "pruned")
 # the sweeps that --parent compares in turns
-COMPARED = ("grid", "ball_query", "rowmin", "f32packed", "pruned")
+COMPARED = ("grid", "ball_query", "rowmin", "f32packed", "packed",
+            "pruned")
 
 ROWS = (500, 1825, 2500, 4096, 16384, 32768, 90000, 30000)
 
@@ -277,22 +279,29 @@ def sweep_rowmin(rng: np.random.Generator, dev: torch.device) -> None:
                   f"{S}/{Q} {t:.4f}" for (S, Q), t in times.items()))
 
 
-def sweep_f32packed(query: torch.Tensor, ref: torch.Tensor) -> None:
+# sweep name: (kernel, its TPU wrapper's ref tile at 90,000 rows, at the
+# patch)
+PACKED = {"f32packed": (knn_f32packed_keys_cuda, 4096, 2048),
+          "packed": (knn_intpacked_keys_cuda, 2048, 2048)}
+
+
+def sweep_packed(name: str, query: torch.Tensor, ref: torch.Tensor) -> None:
+    kernel, tr_rows, tr_patch = PACKED[name]
     m = ref.shape[1]
-    for rows, tr in ((query.shape[1], 4096), (2500, 2048)):
+    for rows, tr in ((query.shape[1], tr_rows), (2500, tr_patch)):
         q = query[:, :rows].contiguous()
         m_total = padded_refs(m, tr)
         plan = knn_topk_plan(1, rows, m)
-        want = knn_f32packed_keys_cuda(q, ref, 3, m_total).view(torch.int32)
+        want = kernel(q, ref, 3, m_total).view(torch.int32)
         times = {}
         for S in CLUSTER_SIZES:
-            got = knn_f32packed_keys_cuda(q, ref, 3, m_total, plan=S)
+            got = kernel(q, ref, 3, m_total, plan=S)
             if not torch.equal(got.view(torch.int32), want):
-                raise SystemExit(f"knn_f32packed {rows}x{m} S={S} differs")
-            times[S] = device_ms(lambda: knn_f32packed_keys_cuda(
-                q, ref, 3, m_total, plan=S), "knn_f32packed_kernel")
+                raise SystemExit(f"knn_{name} {rows}x{m} S={S} differs")
+            times[S] = device_ms(lambda: kernel(q, ref, 3, m_total, plan=S),
+                                 f"knn_{name}_kernel")
         best = min(times, key=times.get)
-        print(f"[f32packed sweep] {rows}x{m} k=3 (padded to {m_total}), "
+        print(f"[{name} sweep] {rows}x{m} k=3 (padded to {m_total}), "
               f"device ms: plan S={plan} {times[plan]:.4f}, fastest S={best} "
               f"{times[best]:.4f}; by S: " + " ".join(
                   f"{S} {t:.4f}" for S, t in times.items()))
@@ -462,7 +471,7 @@ if "ball_query" in sys.argv[2]:
         lambda: ball_query_cuda(0.2, 32, r3, c1), "ball_query_kernel")
     out["ball_query 128x512"] = device_ms(
         lambda: ball_query_cuda(0.4, 64, c1, c2), "ball_query_kernel")
-if "f32packed" in sys.argv[2]:
+if "packed" in sys.argv[2]:  # f32packed or packed: both kernels
     q3, r3 = query[None], ref[None]
     p3 = query[None, :2500].contiguous()
     out["knn_f32packed 90000x30000"] = device_ms(
@@ -471,6 +480,8 @@ if "f32packed" in sys.argv[2]:
         lambda: knn_f32packed_keys_cuda(p3, r3, 3, 30720), "packed_kernel")
     out["knn_packed 90000x30000"] = device_ms(
         lambda: knn_intpacked_keys_cuda(q3, r3, 3, 30720), "packed_kernel")
+    out["knn_packed 2500x30000"] = device_ms(
+        lambda: knn_intpacked_keys_cuda(p3, r3, 3, 30720), "packed_kernel")
 if "pruned" in sys.argv[2]:
     qs, rs, _, _ = pruned_knn.sort_and_pad(query, ref, 512, 2048)
     nq, nr = qs.shape[0] // 512, rs.shape[0] // 2048
@@ -550,8 +561,9 @@ def main() -> int:
         sweep_ball_query(ref)
     if "rowmin" in names:
         sweep_rowmin(np.random.default_rng(9), dev)
-    if "f32packed" in names:
-        sweep_f32packed(query, ref)
+    for name in PACKED:
+        if name in names:
+            sweep_packed(name, query, ref)
     if "pruned" in names:
         sweep_pruned(query, ref)
     print(card_line())
