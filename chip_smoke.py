@@ -92,8 +92,27 @@ Phases, each printing one line per result:
    grid path), ``cli.compare --json`` of its output against the val pair's
    reference (4 row-min launches, the JAX package's JSON keys), and the
    metrics suite on the output.
+7. test — ``cli.test`` from ``best_model`` on a test split of two synthetic
+   120,000-point pairs at ``--batch_size 2``: sim->real and real->sim, 50
+   steps, every metric, generated clouds and plots saved; its launches
+   asserted (200 grid interpolations, 4 FPS, 4 ball queries, 14 row
+   minima, the patches and two k=9 kNN); seconds per batch and the EMD's
+   peak memory; its metrics held to the CPU's recomputation from the saved
+   clouds (float64 nearest neighbours and Sinkhorn on the card run's
+   subsample permutations; rtol 1e-4, coverage 1e-4 absolute, EMD 1e-3).
+8. visualize — ``cli.visualize`` on the eval phase's clouds: a PNG and a
+   120,000-vertex PLY.
+9. progress — ``cli.progress`` over the train phase's two epochs at 50
+   steps, launches asserted.
+10. benchmark — ``cli.benchmark --reps 2`` at ``Config()`` sizes (forward
+    sweep, hierarchical vs direct, scaling, 50-step sampling at B = 1, 2,
+    4, 8), keys, finite values and launches asserted, its JSON printed.
+11. train augmentation — one ``Config(use_augmentation=True)`` mini-step
+    on the card: its draws printed, the augmentation card vs CPU within
+    1e-6, a finite loss, the step's launches.
 
-Then one JSON line with every kernel's numbers, the ``nvidia-smi`` name and
+Then one JSON line with every kernel's numbers (``launches`` on the main
+path, ``cli_test_launches`` in the test phase), the ``nvidia-smi`` name and
 power-limit line, and the final JSON line. Without a card (or without the
 package beside it) it exits non-zero and prints no result.
 """
@@ -121,7 +140,8 @@ from pointcloud_style_transfer_torch.cli.preprocess import \
     main as preprocess_main
 from pointcloud_style_transfer_torch.cli.train import main as train_main
 from pointcloud_style_transfer_torch.config import Config
-from pointcloud_style_transfer_torch.data import (create_dataloaders,
+from pointcloud_style_transfer_torch.data import (PointCloudPreprocessor,
+                                                  create_dataloaders,
                                                   normalize_point_cloud)
 from pointcloud_style_transfer_torch.data.synthetic import lidar_scene_pair
 from pointcloud_style_transfer_torch.evaluation import metrics
@@ -2234,7 +2254,8 @@ def phase_train(rng: np.random.Generator, dev: torch.device, card: str,
     for key, t, cnt in rows[:12]:
         print(f"[profile]   {t:9.3f} ms  x{cnt:<5d} {key[:100]}")
     return {"best": os.path.join(base, "best_model"),
-            "val": os.path.join(processed, "val", split["val"][0])}
+            "val": os.path.join(processed, "val", split["val"][0]),
+            "processed": processed}
 
 
 # the CPU tests' tolerances (tests/test_torch_train_step.py): of each
@@ -2482,6 +2503,385 @@ def phase_eval(dev: torch.device, card: str, work: str,
     return compare_launches
 
 
+# matplotlib is optional: without it the plotting functions return False
+# and cli.progress saves its outputs as .npy, as in the JAX package
+try:
+    import matplotlib  # noqa: F401
+    HAVE_MATPLOTLIB, NO_PLOTS = True, ""
+except ImportError:
+    HAVE_MATPLOTLIB = False
+    NO_PLOTS = " (matplotlib is not installed here: no plots)"
+
+# the CPU recomputation's bars for cli.test's metrics (card vs CPU)
+TEST_RTOL = {"chamfer": 1e-4, "content": 1e-4, "hausdorff": 1e-4,
+             "uniformity": 1e-4, "fidelity": 1e-4, "emd": 1e-3}
+COVERAGE_ATOL = 1e-4
+TEST_PAIRS, TEST_BATCH = 2, 2
+
+
+def sinkhorn_emd_f64(pred: np.ndarray, target: np.ndarray,
+                     epsilon: float = 0.01, num_iters: int = 100) -> float:
+    """The port's Sinkhorn EMD (``evaluation.metrics._sinkhorn_emd``: the
+    same iterations from zero potentials) in float64 numpy, in its scaling
+    form u = 1 / (K (b v)), v = 1 / (K^T (a u)) with K = exp(-C / eps), which
+    float64 holds without underflow for distances below ~7: the cost sum(P C)
+    of the plan P = a u K v b."""
+    from scipy.spatial.distance import cdist
+    C = cdist(pred.astype(np.float64), target.astype(np.float64))
+    if C.max() > 7.0:
+        fail(f"sinkhorn_emd_f64: a distance of {C.max():.3g} underflows K")
+    K = np.exp(-C / epsilon)
+    a = np.full(len(pred), 1.0 / len(pred))
+    b = np.full(len(target), 1.0 / len(target))
+    v = np.ones(len(target))
+    for _ in range(num_iters):
+        u = 1.0 / (K @ (b * v))
+        v = 1.0 / (K.T @ (a * u))
+    return float(np.einsum("i,ij,j->", a * u, K * C, b * v))
+
+
+def cpu_test_metrics(gen_dir: str, n_clouds: int, perms: dict) -> dict:
+    """``cli.test``'s metric dict recomputed on the CPU from the files it
+    saved: nearest neighbours from ``scipy.spatial.cKDTree`` in float64,
+    the EMD in float64 (``sinkhorn_emd_f64``) on the card run's subsample
+    permutations, each averaged over the clouds of the (one) batch as the
+    ``Tester`` does."""
+    from scipy.spatial import cKDTree
+    from pointcloud_style_transfer_torch.cli.test import EMD_MAX_POINTS
+
+    def load(name, i):
+        return np.load(os.path.join(gen_dir, f"{name}_{i:04d}.npy"))
+
+    def nn(a, b, k=1):  # distances from each point of a to b's nearest
+        return cKDTree(b).query(a, k=k, workers=-1)[0]
+
+    def chamfer(a, b):
+        return (nn(a, b).mean() + nn(b, a).mean()) / 2
+
+    def uniformity(p):
+        d = nn(p, p, k=9)[:, 1:]  # drop the point itself
+        mean_d = d.mean(axis=1)
+        mu, sigma = mean_d.mean(), mean_d.std()
+        return 1.0 / (1.0 + sigma / mu) if mu > 0 else 0.0
+
+    def fidelity(p, t):
+        pf = np.concatenate([p.mean(0), p.std(0, ddof=1)])
+        tf = np.concatenate([t.mean(0), t.std(0, ddof=1)])
+        return pf @ tf / (np.linalg.norm(pf) * np.linalg.norm(tf) + 1e-8)
+
+    clouds = [{name: load(name, i).astype(np.float64) for name in
+               ("sim_to_real", "real_to_sim", "original_sim",
+                "original_real")} for i in range(n_clouds)]
+    mean = lambda f: float(np.mean([f(c) for c in clouds]))  # noqa: E731
+    m = {"chamfer_sim_to_real": mean(
+             lambda c: chamfer(c["sim_to_real"], c["original_real"])),
+         "chamfer_real_to_sim": mean(
+             lambda c: chamfer(c["real_to_sim"], c["original_sim"])),
+         "content_preservation": (
+             mean(lambda c: chamfer(c["sim_to_real"], c["original_sim"]))
+             + mean(lambda c: chamfer(c["real_to_sim"],
+                                      c["original_real"]))) / 2}
+    for tag, tgt in (("sim_to_real", "original_real"),
+                     ("real_to_sim", "original_sim")):
+        m[f"hausdorff_{tag}"] = mean(lambda c: max(
+            nn(c[tag], c[tgt]).max(), nn(c[tgt], c[tag]).max()))
+        m[f"coverage_{tag}"] = mean(
+            lambda c: (nn(c[tgt], c[tag]) < 0.01).mean())
+        m[f"uniformity_{tag}"] = mean(lambda c: uniformity(c[tag]))
+        p_perm, t_perm = perms[tag]
+
+        def sub(x, perm):
+            return x if perm is None else x[perm[:EMD_MAX_POINTS]]
+        m[f"emd_{tag}"] = mean(lambda c: sinkhorn_emd_f64(
+            sub(c[tag], p_perm), sub(c[tgt], t_perm)))
+        m[f"fidelity_{tag}"] = mean(lambda c: fidelity(c[tag], c[tgt]))
+    return m
+
+
+def phase_test(rng: np.random.Generator, dev: torch.device, card: str,
+               work: str, paths: dict) -> dict:
+    """``cli.test`` from the trained ``best_model`` on a test split of two
+    synthetic 120,000-point pairs at ``--batch_size 2``: both directions,
+    50 steps, every metric, the generated clouds and the plots saved; its
+    launch counts asserted (set to 0 just before, read just after); its
+    metrics held to the CPU's recomputation from the saved files. Returns
+    the run's launch counts."""
+    from pointcloud_style_transfer_torch.cli import test as cli_test
+    split = os.path.join(work, "test_split")
+    pre = PointCloudPreprocessor(total_points=N_POINTS,
+                                 global_points=M_POINTS, seed=42)
+    for i in range(TEST_PAIRS):
+        pre.save_hierarchical_data(*lidar_scene_pair(rng, N_POINTS), split,
+                                   f"test_{i:04d}")
+    testers, emd = [], []
+    orig_test, orig_emd = cli_test.Tester.test, cli_test.earth_mover_distance
+
+    def test(self, *args, **kwargs):
+        testers.append(self)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_test(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - t0
+        return out
+
+    def emd_peak(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = orig_emd(*args, **kwargs)
+        torch.cuda.synchronize()
+        emd.append(((time.perf_counter() - t0) * 1e3,
+                    (torch.cuda.max_memory_allocated() - base) / 2**30))
+        return out
+
+    out_dir = os.path.join(work, "test_out")
+    cli_test.Tester.test, cli_test.earth_mover_distance = test, emd_peak
+    try:
+        reset_launch_counts()
+        grid_knn.UNSAFE_COUNTS.clear()
+        t0 = time.perf_counter()
+        rc = cli_test.main([
+            "--checkpoint", paths["best"], "--test_data", split,
+            "--output_dir", out_dir, "--batch_size", str(TEST_BATCH),
+            "--num_inference_steps", str(STEPS), "--compute_all_metrics",
+            "--save_generated", "--save_visualizations", "--device", "cuda"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = dict(LAUNCH_COUNTS)
+        unsafe = list(grid_knn.UNSAFE_COUNTS)
+    finally:
+        cli_test.Tester.test, cli_test.earth_mover_distance = orig_test, \
+            orig_emd
+    if rc != 0 or len(testers) != 1:
+        fail(f"test CLI: rc {rc}, {len(testers)} testers")
+    # per direction: the grid cloud by cloud every step, the encoder's FPS
+    # and ball query once for the batch; the metrics: 14 row minima
+    # (4 Chamfer x 2, Hausdorff 2 x 2, coverage 1 x 2) and one k=9 kNN per
+    # uniformity
+    n_clouds = 2 * TEST_BATCH
+    want = expect_counts(grid_interp=n_clouds * STEPS, fps=4, ball_query=4,
+                         rowmin=14, knn_topk=sum(u > 0 for u in unsafe) + 2)
+    if counts != want or len(unsafe) != n_clouds * STEPS:
+        fail(f"test CLI: launches {counts} != {want} ({len(unsafe)} grid "
+             "passes)")
+    (run,) = os.listdir(out_dir)
+    run = os.path.join(out_dir, run)
+    with open(os.path.join(run, "test_results.json")) as f:
+        got = json.load(f)["average_metrics"]
+    gen_dir = os.path.join(run, "generated")
+    names = sorted(os.listdir(gen_dir))
+    gens = [np.load(os.path.join(gen_dir, f"{d}_{i:04d}.npy"))
+            for d in ("sim_to_real", "real_to_sim") for i in range(TEST_PAIRS)]
+    pngs = sorted(os.listdir(os.path.join(run, "visualizations")))
+    want_pngs = [f"sample_{i:04d}_s2r.png" for i in range(TEST_PAIRS)] \
+        if HAVE_MATPLOTLIB else []
+    if list(got) != list(cli_test.METRIC_KEYS) or not all(
+            np.isfinite(v) for v in got.values()) or len(names) != 8 or \
+            not all(g.shape == (N_POINTS, 3) and np.isfinite(g).all()
+                    for g in gens) or pngs != want_pngs:
+        fail(f"test CLI: metrics {got}, files {names}, plots {pngs}")
+    tester = testers[0]
+    print(f"[test] cli.test from {os.path.basename(paths['best'])}/, "
+          f"{TEST_PAIRS} pairs of {N_POINTS} points at --batch_size "
+          f"{TEST_BATCH}, both directions, {STEPS} steps, every metric: "
+          f"launches {counts} ({sum(u > 0 for u in unsafe)} grid steps "
+          f"patched); {tester.seconds:.3f} s per batch (Tester.test, "
+          f"{tester.seconds / n_clouds:.4f} s per generated cloud with its "
+          f"metrics), {cli_s:.3f} s for the CLI with checkpoint load and "
+          f"file IO ({card})")
+    print(f"[test] EMD (Sinkhorn, [{TEST_BATCH}, 8192, 8192] float32, 100 "
+          "iterations) per call: " + ", ".join(
+              f"{ms:.1f} ms, peak {gib:.2f} GiB above the resident"
+              for ms, gib in emd) + f" ({card})")
+    print(f"[test] metrics: {got}; plots {pngs}{NO_PLOTS}")
+
+    t0 = time.perf_counter()
+    want_m = cpu_test_metrics(gen_dir, TEST_PAIRS, {
+        tag: tuple(None if p is None else p.cpu().numpy() for p in perm)
+        for tag, perm in tester.emd_perms[0].items()})
+    gaps, bad = {}, []
+    for k, v in got.items():
+        if k.startswith("coverage"):
+            gaps[k] = abs(v - want_m[k])
+            ok = gaps[k] <= COVERAGE_ATOL
+        else:
+            gaps[k] = abs(v - want_m[k]) / abs(want_m[k])
+            ok = gaps[k] <= TEST_RTOL[k.split("_")[0]]
+        if not ok:
+            bad.append(k)
+    print(f"[test] card vs the CPU's recomputation from the saved clouds "
+          f"(float64 cKDTree, float64 Sinkhorn on the card run's "
+          f"permutations; {time.perf_counter() - t0:.1f} s): gaps "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+          + f"; bars rtol {TEST_RTOL}, coverage atol {COVERAGE_ATOL}")
+    if bad:
+        fail(f"test CLI: metrics beyond the CPU's bars in {bad}: card {got}"
+             f", CPU {want_m}")
+    return counts
+
+
+def phase_visualize(work: str) -> None:
+    """``cli.visualize`` on the eval phase's clouds: a PNG and a PLY of the
+    generated cloud with every one of its points."""
+    from pointcloud_style_transfer_torch.cli.visualize import \
+        main as visualize_main
+    png, ply = (os.path.join(work, f) for f in ("eval.png", "eval_out.ply"))
+    t0 = time.perf_counter()
+    rc = visualize_main(["--original", os.path.join(work, "eval_src.npy"),
+                         "--generated", os.path.join(work, "eval_out.npy"),
+                         "--reference", os.path.join(work, "eval_ref.npy"),
+                         "--output", png, "--export_ply", ply])
+    seconds = time.perf_counter() - t0
+    with open(ply) as f:
+        header = [next(f) for _ in range(7)]
+        n_rows = sum(1 for _ in f)
+    magic = b""
+    if os.path.exists(png):
+        with open(png, "rb") as f:
+            magic = f.read(8)
+    if rc != 0 or (magic == b"\x89PNG\r\n\x1a\n") != HAVE_MATPLOTLIB or \
+            header[2] != f"element vertex {N_POINTS}\n" or n_rows != N_POINTS:
+        fail(f"visualize CLI: rc {rc}, PNG {magic}, PLY header {header}, "
+             f"{n_rows} rows")
+    print(f"[visualize] cli.visualize: PNG "
+          f"{os.path.getsize(png) if magic else 0} bytes{NO_PLOTS}, PLY of "
+          f"{n_rows} vertices ({os.path.getsize(ply)} bytes) in "
+          f"{seconds:.2f} s (host)")
+
+
+def phase_progress(card: str, work: str) -> None:
+    """``cli.progress`` over the train phase's experiment: inference with
+    both epochs' checkpoints at 50 steps, the grid plotted."""
+    from pointcloud_style_transfer_torch.cli.progress import \
+        main as progress_main
+    png = os.path.join(work, "progress.png")
+    cwd = os.getcwd()
+    os.chdir(work)  # without matplotlib it saves .npy files there
+    try:
+        reset_launch_counts()
+        grid_knn.UNSAFE_COUNTS.clear()
+        t0 = time.perf_counter()
+        rc = progress_main([
+            "--checkpoint_dir", os.path.join(work, "checkpoints", "smoke"),
+            "--source", os.path.join(work, "eval_src.npy"),
+            "--reference", os.path.join(work, "eval_ref.npy"), "--output",
+            png, "--num_steps", str(STEPS), "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    counts = dict(LAUNCH_COUNTS)
+    want = expect_counts(grid_interp=2 * STEPS, fps=4, ball_query=4,
+                         knn_topk=sum(u > 0 for u in grid_knn.UNSAFE_COUNTS))
+    outputs = [png] if HAVE_MATPLOTLIB else [
+        os.path.join(work, f"progress_epoch_{ep:04d}.npy") for ep in (0, 1)]
+    if rc != 0 or counts != want or not all(
+            os.path.exists(p) and os.path.getsize(p) for p in outputs):
+        fail(f"progress CLI: rc {rc}, launches {counts} != {want}, outputs "
+             f"{outputs}")
+    print(f"[progress] cli.progress over 2 epochs' checkpoints, {STEPS} "
+          f"steps each: {[os.path.basename(p) for p in outputs]}{NO_PLOTS}; "
+          f"launches {counts}; {seconds:.2f} s ({card})")
+
+
+def phase_benchmark(card: str, work: str) -> None:
+    """``cli.benchmark --reps 2`` at ``Config()`` sizes: the forward sweep,
+    hierarchical vs direct at 120k, the scaling sweep, 50-step sampling at
+    B = 1 and B = 2, 4, 8; keys and finite values asserted."""
+    from pointcloud_style_transfer_torch.cli.benchmark import \
+        main as benchmark_main
+    path = os.path.join(work, "benchmark.json")
+    reset_launch_counts()
+    grid_knn.UNSAFE_COUNTS.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = benchmark_main(["--reps", "2", "--device", "cuda",
+                             "--output", path])
+    seconds = time.perf_counter() - t0
+    counts = dict(LAUNCH_COUNTS)
+    with open(path) as f:
+        res = json.load(f)
+    samples = [res["sampling"]] + res["sampling_batched"]
+    clouds = 3 * sum(s["batch"] for s in samples)  # warm-up + 2 timed calls
+    want = expect_counts(grid_interp=clouds * STEPS, fps=2 * 3 * len(samples),
+                         ball_query=2 * 3 * len(samples),
+                         knn_topk=sum(u > 0 for u in grid_knn.UNSAFE_COUNTS))
+    rows = res["forward"] + res["scaling"] + samples + [
+        res["hierarchical_vs_direct"]]
+    keys = {"device", "quick", "forward", "hierarchical_vs_direct", "scaling",
+            "sampling", "sampling_batched"}
+    if rc != 0 or set(res) != keys or counts != want or len(
+            res["forward"]) != 12 or [s["batch"] for s in samples] != [
+            1, 2, 4, 8] or not all(
+            v is not None and np.isfinite(v) for r in rows for v in r.values()):
+        fail(f"benchmark CLI: rc {rc}, keys {sorted(res)}, launches {counts}"
+             f" != {want}, results {res}")
+    print(f"[benchmark] cli.benchmark --reps 2, Config() sizes: "
+          f"{seconds:.1f} s in all; launches {counts} ({card})")
+    print(f"[benchmark] {json.dumps(res)}")
+
+
+def phase_train_augmentation(rng: np.random.Generator, dev: torch.device,
+                             card: str, paths: dict) -> None:
+    """One training mini-step with ``use_augmentation=True`` at
+    ``Config()`` width on the train split's first batch: both clouds
+    augmented on the card (its draws made here and printed), the same
+    augmentation on the CPU within 1e-6, a finite loss, the step's
+    launches."""
+    from pointcloud_style_transfer_torch.data import augment_points
+    from pointcloud_style_transfer_torch.training import (make_optimizer,
+                                                          train_step)
+    from pointcloud_style_transfer_torch.training.ema import ema_init
+    cfg = Config(use_augmentation=True)
+    batch = next(iter(create_dataloaders(cfg.replace(
+        processed_data_dir=paths["processed"]))[0]))
+    sim, real = (torch.from_numpy(batch[k]).to(dev)
+                 for k in ("sim_full", "real_full"))
+    B = sim.shape[0]
+    r = cfg.augmentation_rotation_range
+    lo, hi = cfg.augmentation_scale_min, cfg.augmentation_scale_max
+    draws = {f"augment_{side}": {
+        "angles": torch.from_numpy(rng.uniform(-r, r, B).astype(np.float32)),
+        "jitter": torch.from_numpy(rng.standard_normal(
+            (B, N_POINTS, 3)).astype(np.float32)),
+        "scales": torch.from_numpy(rng.uniform(lo, hi, B).astype(np.float32))}
+        for side in ("sim", "real")}
+    kw = dict(rotation_range=r, jitter_std=cfg.augmentation_jitter_std,
+              scale_min=lo, scale_max=hi)
+    aug_err = max((augment_points(x, **kw, **draws[f"augment_{side}"]).cpu()
+                   - augment_points(x.cpu(), **kw,
+                                    **draws[f"augment_{side}"])).abs().max()
+                  .item() for x, side in ((sim, "sim"), (real, "real")))
+    torch.manual_seed(0)
+    model = PointCloudDiffusionModel(cfg, dev)
+    params = dict(model.net.named_parameters())
+    opt = make_optimizer(cfg, params)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    reset_launch_counts()
+    terms, _ = train_step(model, make_schedule(cfg).to(dev), opt,
+                          ema_init(params), sim, real, 1e-4,
+                          draws={k: {n: v.to(dev) for n, v in d.items()}
+                                 for k, d in draws.items()}, generator=gen)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCH_COUNTS)
+    terms = {k: v.item() for k, v in terms.items()}
+    if counts != TRAIN_STEP_LAUNCHES or aug_err > 1e-6 or not all(
+            np.isfinite(v) for v in terms.values()):
+        fail(f"augmented mini-step: launches {counts}, augmentation card vs "
+             f"CPU {aug_err}, loss terms {terms}")
+    print(f"[train] augmentation: one mini-step, Config(use_augmentation="
+          f"True), B={B}, {N_POINTS} points: loss terms "
+          f"{ {k: round(v, 5) for k, v in terms.items()} } finite; launches "
+          f"{counts}; draws: " + "; ".join(
+              f"{side} angles {d['angles'].tolist()} rad, scales "
+              f"{d['scales'].tolist()}, jitter N(0, 1) x "
+              f"{cfg.augmentation_jitter_std} [{B}, {N_POINTS}, 3]"
+              for side, d in draws.items())
+          + f"; the augmentation card vs CPU {aug_err:.3g} ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -2500,10 +2900,17 @@ def main() -> int:
         phase_train_reference(dev)
         records["rowmin"]["launches"] = phase_eval(dev, card, work, paths)
         records["rowmin"]["path"] = "cli.compare"
+        test_counts = phase_test(np.random.default_rng(20), dev, card, work,
+                                 paths)
+        phase_visualize(work)
+        phase_progress(card, work)
+        phase_benchmark(card, work)
+        phase_train_augmentation(np.random.default_rng(21), dev, card, paths)
     records["grid_topk"].update(launches=counts["grid_topk"],
                                 path="cli.inference --fast")
     for name, rec in records.items():
         rec.setdefault("launches", counts[name])
+        rec["cli_test_launches"] = test_counts[name]
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

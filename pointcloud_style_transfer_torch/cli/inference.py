@@ -10,13 +10,13 @@ approximation of the per-step mode, not the same output.
 
     python -m pointcloud_style_transfer_torch.cli.inference \\
         --checkpoint model.pt --source sim.npy --reference real.npy \\
-        --output out.npy [--fast] [--device cpu]
+        --output out.npy [--fast] [--visualize] [--device cpu]
     python -m pointcloud_style_transfer_torch.cli.inference \\
         --checkpoint model.pt --source_dir sims/ --reference real.npy \\
         --output_dir out/ --batch_size 2
 
-The JAX CLI's ``--visualize`` is not ported (it needs the visualization
-utilities).
+``--visualize`` also writes a 3-panel plot beside a single output
+(``out.png``).
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from ..device import resolve_device
 from ..models import (guided_sample_loop, guided_sample_loop_coarse,
                       make_schedule)
 from ..utils.checkpoint import load_for_inference
+from ..utils.visualization import plot_style_transfer_result
 from ._common import load_point_cloud
 
 logger = logging.getLogger("pointcloud_style_transfer_torch.inference")
@@ -85,7 +86,8 @@ class DiffusionInference:
 
     def process_file(self, source_path: str, reference_path: str,
                      output_path: str, num_steps: int = 50,
-                     guidance_scale: float = 7.5) -> None:
+                     guidance_scale: float = 7.5,
+                     visualize: bool = False) -> None:
         sim = load_point_cloud(source_path)
         real = load_point_cloud(reference_path)
         transferred = self.transfer_style_hierarchical(
@@ -94,6 +96,12 @@ class DiffusionInference:
                     exist_ok=True)
         np.save(output_path, transferred.astype(np.float32))
         logger.info("Saved transferred cloud to %s", output_path)
+        if visualize:
+            vis_path = os.path.splitext(output_path)[0] + ".png"
+            if plot_style_transfer_result(sim, transferred, real,
+                                          title="Style Transfer Result",
+                                          save_path=vis_path):
+                logger.info("Visualization saved to %s", vis_path)
 
     def process_directory(self, source_dir: str, reference: str | None,
                           output_dir: str, batch_size: int = 1,
@@ -182,6 +190,8 @@ def main(argv=None) -> int:
                              "trajectory runs at global_points resolution "
                              "and one kNN upsamples the final displacement "
                              "(approximate)")
+    parser.add_argument("--visualize", action="store_true",
+                        help="also save a 3-panel plot beside --output")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
@@ -209,7 +219,8 @@ def main(argv=None) -> int:
             print(f"Inference completed successfully! ({n} clouds)")
             return 0
         engine.process_file(args.source, args.reference, args.output,
-                            args.num_steps, args.guidance_scale)
+                            args.num_steps, args.guidance_scale,
+                            visualize=args.visualize)
     except Exception:  # CLI boundary: report and return a failing status
         logger.exception("Inference failed")
         return 1

@@ -1,3 +1,4 @@
+from .augmentation import augment_points
 from .dataset import (Batcher, HierarchicalPointCloudDataset, collate,
                       create_dataloaders)
 from .preprocessing import (PointCloudPreprocessor, consistent_upsample,
@@ -5,7 +6,7 @@ from .preprocessing import (PointCloudPreprocessor, consistent_upsample,
                             voxel_grid_downsample)
 
 __all__ = [
-    "Batcher", "HierarchicalPointCloudDataset", "collate",
+    "augment_points", "Batcher", "HierarchicalPointCloudDataset", "collate",
     "create_dataloaders", "PointCloudPreprocessor", "consistent_upsample",
     "denormalize_point_cloud", "normalize_point_cloud",
     "voxel_grid_downsample",

@@ -17,8 +17,8 @@
 The row minima of chamfer, hausdorff, coverage and precision/recall go
 through ``ops.min_sq_dist``: on CUDA tensors the row-min kernel, since no
 gradient is taken. Uniformity's kNN is the brute-force kNN kernel at k+1.
-The point-sharded ring variant (``mesh``) is not ported (ROADMAP queue 1
-item 15) and raises.
+The point-sharded ring variant (``mesh``) waits for the port of
+``parallel/`` (ROADMAP) and raises.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops import chamfer_distance_l2, knn, min_sq_dist, square_distance
 
 
@@ -37,8 +38,8 @@ def chamfer_distance(pred: torch.Tensor, target: torch.Tensor,
     """[B] unsquared-L2 Chamfer."""
     if mesh is not None:
         raise NotImplementedError(
-            "the point-sharded (ring) Chamfer is not ported yet: ROADMAP "
-            "queue 1 item 15 (parallel/ring.py)")
+            "the point-sharded (ring) Chamfer is not ported yet: it waits "
+            "for the port of parallel/ring.py")
     if bidirectional:
         return chamfer_distance_l2(pred, target, backend)
     return torch.sqrt(min_sq_dist(pred, target, backend)).mean(dim=1)
@@ -169,3 +170,24 @@ def precision_recall_f1(generated: torch.Tensor, reference: torch.Tensor,
     f1 = torch.where(s > 0, 2 * precision * recall / s, torch.zeros_like(s))
     return precision, recall, f1
 
+
+class PointCloudMetrics:
+    """Class facade over the metric functions. ``device`` (default ``cuda``;
+    raises without a card unless ``"cpu"``) is where ``as_tensor`` puts the
+    clouds that the methods take."""
+
+    def __init__(self, device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+
+    def as_tensor(self, points) -> torch.Tensor:
+        """A cloud (numpy or tensor) as float32 on this object's device."""
+        return torch.as_tensor(points, dtype=torch.float32,
+                               device=self.device)
+
+    chamfer_distance = staticmethod(chamfer_distance)
+    hausdorff_distance = staticmethod(hausdorff_distance)
+    coverage_score = staticmethod(coverage_score)
+    uniformity_score = staticmethod(uniformity_score)
+    fidelity_score = staticmethod(fidelity_score)
+    earth_mover_distance = staticmethod(earth_mover_distance)
+    earth_mover_distance_greedy = staticmethod(earth_mover_distance_greedy)

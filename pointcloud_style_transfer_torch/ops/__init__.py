@@ -10,7 +10,8 @@ from .interpolate import (apply_interpolation, knn_interpolate,
 from .pruned_knn import knn_pruned
 from .sampling import (complement_indices, farthest_point_sample,
                        index_points, query_ball_point)
-from .voxel import voxel_downsample, voxel_downsample_partition
+from .voxel import (voxel_downsample, voxel_downsample_partition,
+                    voxel_downsample_with_complement)
 
 __all__ = [
     "grid_knn", "knn", "brute_knn", "knn_f32packed_or_exact", "knn_pruned",
@@ -19,4 +20,5 @@ __all__ = [
     "apply_interpolation", "index_points", "complement_indices",
     "farthest_point_sample",
     "query_ball_point", "voxel_downsample", "voxel_downsample_partition",
+    "voxel_downsample_with_complement",
 ]

@@ -12,12 +12,16 @@ gradient (``ops.distance.MinSqDist``: the k=1 kNN kernel forward, the
 analytic backward). The loss terms are summed on the device and read once
 per epoch, so a step never waits for the host.
 
-Random draws (t, noise, voxel priorities, FPS starts, dropout masks, the
-condition-drop uniform) come from one ``torch.Generator`` on the device,
-seeded with ``config.seed + 1``; the step functions take any of them as
-``draws`` instead, which is how the tests give both packages the same ones.
-Not ported: data-parallel training over ``config.mesh_shape`` (ROADMAP
-queue 1 item 15) and ``use_augmentation`` (queue 1 item 12); both raise.
+With ``use_augmentation`` the train step augments both clouds
+(``data/augmentation.py``: rotation, jitter, scale) with independent draws
+before the noise is added, as the JAX step does; validation does not.
+
+Random draws (augmentation, t, noise, voxel priorities, FPS starts, dropout
+masks, the condition-drop uniform) come from one ``torch.Generator`` on the
+device, seeded with ``config.seed + 1``; the step functions take any of them
+as ``draws`` instead, which is how the tests give both packages the same
+ones. Not ported: data-parallel training over ``config.mesh_shape``, which
+waits for the port of ``parallel/`` and raises.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..data.augmentation import augment_points
 from ..device import resolve_device
 from ..models import (DiffusionNet, PointCloudDiffusionModel, dtype_of,
                       guided_sample_loop, make_schedule, q_sample)
@@ -61,20 +66,28 @@ def compute_losses(model: PointCloudDiffusionModel,
                    draws: Optional[Dict[str, Any]] = None,
                    generator: Optional[torch.Generator] = None
                    ) -> Tuple[torch.Tensor, LossDict]:
-    """q_sample -> forward -> L1 on the gathered coarse noise (+ Chamfer of
-    pred_x0 against the clean coarse points). ``draws`` may hold ``t`` [B],
+    """(augment ->) q_sample -> forward -> L1 on the gathered coarse noise
+    (+ Chamfer of pred_x0 against the clean coarse points). ``draws`` may
+    hold ``augment_sim`` and ``augment_real`` (dicts of ``augment_points``'
+    draws, used when ``train`` and ``use_augmentation``), ``t`` [B],
     ``noise`` [B, N, 3] and any draw of ``PointCloudDiffusionModel.forward``;
-    the rest come from ``generator`` (t, then noise, then the forward's).
-    ``draws["selections"]``, a dict, pins the discrete selections the
-    gradient follows (the ReLU gates, the style encoder's max-pool argmaxes,
-    the Chamfer's argmins): each is replayed from it when it holds one, else
-    recorded into it."""
+    the rest come from ``generator`` (the augmentations', sim then real,
+    then t, then noise, then the forward's). ``draws["selections"]``, a
+    dict, pins the discrete selections the gradient follows (the ReLU gates,
+    the style encoder's max-pool argmaxes, the Chamfer's argmins): each is
+    replayed from it when it holds one, else recorded into it."""
     cfg = model.config
-    if train and cfg.use_augmentation:
-        raise NotImplementedError(
-            "use_augmentation is not ported yet: ROADMAP queue 1 item 12 "
-            "(data/augmentation.py)")
     draws = dict(draws or {})
+    aug = {side: draws.pop(f"augment_{side}", None) or {}
+           for side in ("sim", "real")}
+    if train and cfg.use_augmentation:
+        batch_sim, batch_real = (augment_points(
+            x, rotation_range=cfg.augmentation_rotation_range,
+            jitter_std=cfg.augmentation_jitter_std,
+            scale_min=cfg.augmentation_scale_min,
+            scale_max=cfg.augmentation_scale_max, generator=generator,
+            **aug[side]) for x, side in ((batch_sim, "sim"),
+                                         (batch_real, "real")))
     B = batch_sim.shape[0]
     dev = batch_sim.device
     t = draws.pop("t", None)
@@ -151,12 +164,8 @@ class DiffusionTrainer:
                  device: str | torch.device | None = None):
         if config.mesh_shape:
             raise NotImplementedError(
-                "mesh_shape (data-parallel training) is not ported yet: "
-                "ROADMAP queue 1 item 15 (parallel/)")
-        if config.use_augmentation:
-            raise NotImplementedError(
-                "use_augmentation is not ported yet: ROADMAP queue 1 item 12 "
-                "(data/augmentation.py)")
+                "mesh_shape (data-parallel training) is not ported yet: it "
+                "waits for the port of parallel/")
         self.config = config
         self.device = resolve_device(device)
         config.make_dirs()

@@ -136,6 +136,15 @@ class CheckpointManager:
         return state, meta, epochs[-1] + 1
 
 
+def load_checkpoint_config(path: str) -> Config:
+    """The ``Config`` embedded in a training checkpoint directory (its
+    ``meta.json``) or in a single ``.pt`` file."""
+    if os.path.isdir(path):
+        with open(os.path.join(path, META_FILE)) as f:
+            return Config.from_dict(json.load(f)["config"])
+    return Config.from_dict(load_checkpoint(path)["config"])
+
+
 def load_for_inference(path: str, device: str | torch.device | None = None):
     """Rebuild (config, model) on ``device`` (default ``cuda``) from a
     training checkpoint directory or a single ``.pt`` file. EMA weights are

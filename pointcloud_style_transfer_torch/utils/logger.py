@@ -44,3 +44,14 @@ def get_logger(
 
     return logger
 
+
+class Logger:
+    """Class facade over ``get_logger`` (``Logger(name, log_dir,
+    experiment_name).info(...)``)."""
+
+    def __init__(self, name: str = "pcst", log_dir: str | None = None,
+                 experiment_name: str | None = None, file_output: bool = True):
+        self._logger = get_logger(name, log_dir, experiment_name, file_output)
+
+    def __getattr__(self, item):
+        return getattr(self._logger, item)

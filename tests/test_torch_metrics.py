@@ -136,5 +136,5 @@ def test_emd_subsampling_with_given_permutations(rng):
 
 def test_ring_chamfer_not_ported(rng):
     _, (ta, tt) = both(*clouds(rng))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="parallel/ring.py"):
         metrics.chamfer_distance(ta, tt, mesh=object())

@@ -59,11 +59,14 @@ def models(key, rng, **cfg_kw):
     return jmodel, variables, tmodel
 
 
-def sampler_draws(key, steps, n_cond, n, m):
-    """The voxel priorities JAX's guided_sample_loop draws from ``key``."""
+def sampler_draws(key, steps, n_cond, n, m, batch=1):
+    """The voxel priorities JAX's guided_sample_loop draws from ``key`` for
+    a batch of ``batch`` clouds: ([batch, n_cond] | None,
+    [steps, batch, n])."""
     k_cond, _, _, k_steps = jax.random.split(key, 4)
-    uniform = lambda k, size: np.array(  # noqa: E731
-        jax.random.uniform(jax.random.split(k, 1)[0], (size,)))[None]
+    uniform = lambda k, size: np.stack([  # noqa: E731
+        np.array(jax.random.uniform(kb, (size,)))
+        for kb in jax.random.split(k, batch)])
     cond = uniform(k_cond, n_cond) if n_cond > m else None
     step_keys = jax.random.split(k_steps, steps)
     return cond, np.stack([uniform(k, n) for k in step_keys])
