@@ -110,10 +110,22 @@ Phases, each printing one line per result:
 11. train augmentation — one ``Config(use_augmentation=True)`` mini-step
     on the card: its draws printed, the augmentation card vs CPU within
     1e-6, a finite loss, the step's launches.
+12. parallel — ``parallel/`` on a one-rank NCCL group (NCCL puts no two
+    ranks on one GPU; multi-card runs are unverified): the ring row
+    minimum, kNN (k=3) and evaluation Chamfer at 120,000 x 120,000,
+    identical to the dense calls, with 1 ``rowmin``, 1 ``knn_topk`` and 2
+    ``rowmin`` launches; ``guided_sample_loop_sharded`` and
+    ``guided_sample_loop_dp`` at 120,000 / 30,000 points, 50 steps,
+    guidance 7.5 on the grid, identical to ``guided_sample_loop`` with the
+    same draws and with its launches, seconds per cloud in turns;
+    ``DiffusionTrainer(mesh_shape={"data": 1})`` against the single-device
+    trainer for 3 float32 mini-steps at ``Config()`` width: loss terms
+    within 1e-5, the accumulated gradients at ``GRAD_RTOL``.
 
 Then one JSON line with every kernel's numbers (``launches`` on the main
-path, ``cli_test_launches`` in the test phase), the ``nvidia-smi`` name and
-power-limit line, and the final JSON line. Without a card (or without the
+path, ``cli_test_launches`` in the test phase, ``parallel_launches`` by
+``[parallel]`` path), the ``nvidia-smi`` name and power-limit line, and the
+final JSON line. Without a card (or without the
 package beside it) it exits non-zero and prints no result.
 """
 
@@ -147,7 +159,7 @@ from pointcloud_style_transfer_torch.data.synthetic import lidar_scene_pair
 from pointcloud_style_transfer_torch.evaluation import metrics
 from pointcloud_style_transfer_torch.models import (
     DiffusionNet, PointCloudDiffusionModel, ddim_sample_loop, ddim_step,
-    ddim_timesteps, guided_sample_loop, guided_sample_loop_coarse,
+    ddim_timesteps, dtype_of, guided_sample_loop, guided_sample_loop_coarse,
     make_schedule, networks, samplers, time_embedding)
 from pointcloud_style_transfer_torch.ops import (
     brute_knn, chamfer_distance, farthest_point_sample, grid_knn,
@@ -2882,6 +2894,188 @@ def phase_train_augmentation(rng: np.random.Generator, dev: torch.device,
           + f"; the augmentation card vs CPU {aug_err:.3g} ({card})")
 
 
+PARALLEL_SEED = 30
+
+
+def acc_grads_err(a: DiffusionTrainer, b: DiffusionTrainer) -> dict:
+    """The largest difference of two trainers' accumulated gradients by
+    part, over the train reference's bar for the part: ``GRAD_RTOL`` of
+    each tensor's largest |g|, and for a pre-BN bias (zero in exact
+    arithmetic) ``PRE_BN_BIAS_RATIO`` of its weight's largest |g|. 1.0 is
+    the bar."""
+    names = a.optimizer.names
+    got = dict(zip(names, a.optimizer.acc_grads.split(a.optimizer.sizes)))
+    want = dict(zip(names, b.optimizer.acc_grads.split(b.optimizer.sizes)))
+    worst = {}
+    for name in names:
+        if pre_bn_bias(name):
+            scale = want[name[:-len("bias")] + "weight"].abs().max()
+            part, limit = "pre-BN bias", PRE_BN_BIAS_RATIO
+        else:
+            scale = want[name].abs().max()
+            part = next(p for p in GRAD_RTOL if name.startswith(p))
+            limit = GRAD_RTOL[part]
+        ratio = float((got[name] - want[name]).abs().max() / scale)
+        worst[part] = max(worst.get(part, 0.0), ratio / limit)
+    return worst
+
+
+def phase_parallel(dev: torch.device, card: str) -> dict:
+    """``parallel/`` on a one-rank NCCL group on the card (NCCL puts no two
+    ranks on one GPU and this machine has one), at full width: the ring row
+    minimum, kNN and evaluation Chamfer at 120,000 x 120,000, the
+    point-sharded and the data-parallel sampler at 120,000 / 30,000 points
+    and 50 steps, and ``DiffusionTrainer(mesh_shape={"data": 1})`` for 3
+    mini-steps, each against its single-device path on the same inputs and
+    draws, launch counts set to 0 just before each run and read just after.
+    Returns each kernel's launches by path."""
+    import torch.distributed as dist
+    from pointcloud_style_transfer_torch.ops import chamfer_distance_l2
+    from pointcloud_style_transfer_torch.parallel import (
+        guided_sample_loop_dp, guided_sample_loop_sharded, make_mesh,
+        ring_min_sq_dist)
+    from pointcloud_style_transfer_torch.parallel.ring import (
+        ring_chamfer_distance_l2, ring_knn)
+
+    rng = np.random.default_rng(PARALLEL_SEED)
+    points = make_mesh({"points": 1}, "cuda")
+    data = make_mesh({"data": 1}, "cuda")
+    print(f"[parallel] one-rank {dist.get_backend()} group, meshes "
+          f"{points} and {data}; multi-card runs are unverified: this "
+          f"machine has {torch.cuda.device_count()} card ({card})")
+    launches = {}
+
+    def counted(path: str, fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        launches[path] = {k: v for k, v in LAUNCH_COUNTS.items() if v}
+        return out, s
+
+    q = torch.from_numpy(normalize_point_cloud(
+        make_cloud(rng, N_POINTS))[0])[None].to(dev)
+    r = torch.from_numpy(normalize_point_cloud(
+        make_cloud(rng, N_POINTS))[0])[None].to(dev)
+    for path, ring, dense, want in (
+            ("ring_min_sq_dist", lambda: ring_min_sq_dist(q, r, points),
+             lambda: min_sq_dist(q, r), {"rowmin": 1}),
+            ("ring_knn", lambda: ring_knn(q, r, 3, points),
+             lambda: knn(q, r, 3, backend="pallas"), {"knn_topk": 1}),
+            ("ring_chamfer_distance_l2",
+             lambda: ring_chamfer_distance_l2(q, r, points),
+             lambda: chamfer_distance_l2(q, r), {"rowmin": 2})):
+        got, _ = counted(path, ring)
+        with torch.no_grad():
+            ref = dense()
+        for g, w in zip(*[(x,) if torch.is_tensor(x) else x
+                          for x in (got, ref)]):
+            if not torch.equal(g, w):
+                fail(f"[parallel] {path} differs from the dense call")
+        if launches[path] != want:
+            fail(f"[parallel] {path} launches {launches[path]} != {want}")
+        ms, dense_ms = cuda_ms(ring, 5), cuda_ms(dense, 5)
+        print(f"[parallel] {path} at {N_POINTS} x {N_POINTS}: identical to "
+              f"the dense call; launches {launches[path]}; {ms:.3f} ms "
+              f"(dense {dense_ms:.3f} ms) ({card})")
+
+    cfg = Config()
+    torch.manual_seed(PARALLEL_SEED)
+    net = DiffusionNet(cfg.feature_dim, cfg.time_embed_dim,
+                       compute_dtype=dtype_of(cfg))
+    model = PointCloudDiffusionModel(cfg, dev, net=net)
+    schedule = make_schedule(cfg).to(dev)
+    src, cond = (torch.from_numpy(normalize_point_cloud(
+        make_cloud(rng, N_POINTS, dup_frac=0.0))[0])[None].to(dev)
+        for _ in range(2))
+    gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED)
+    draws = dict(
+        x_init=torch.randn((1, N_POINTS, 3), generator=gen, device=dev),
+        cond_priority=torch.rand((1, N_POINTS), generator=gen, device=dev),
+        step_priorities=torch.rand((STEPS, 1, N_POINTS), generator=gen,
+                                   device=dev),
+        fps_starts=torch.randint(0, 512, (2, 1), generator=gen, device=dev))
+    run = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE, **draws)
+    paths = (
+        ("guided_sample_loop", lambda: guided_sample_loop(
+            model, schedule, src, cond, **run)),
+        ("guided_sample_loop_sharded", lambda: guided_sample_loop_sharded(
+            model, schedule, src, cond, points, **run)),
+        ("guided_sample_loop_dp", lambda: guided_sample_loop_dp(
+            model, schedule, src, cond, data, STEPS, GUIDANCE,
+            draws=[draws])))
+    outs, firsts, secs = {}, {}, {}
+    for path, fn in paths + paths[::-1]:  # in turns: a, b, c, c, b, a
+        outs[path], s = counted(path, fn)
+        firsts.setdefault(path, outs[path])
+        secs.setdefault(path, []).append(s)
+    for path, _ in paths:  # run to run: the voxel choice is exact
+        if not torch.equal(firsts[path], outs[path]):
+            fail(f"[parallel] two runs of {path} on the same inputs differ")
+    single = launches["guided_sample_loop"]
+    if single.get("grid_interp") != STEPS or single.get("fps") != 2 \
+            or single.get("ball_query") != 2:
+        fail(f"[parallel] single-device sampler launches {single}")
+    for path, _ in paths[1:]:
+        if not torch.equal(outs[path], outs["guided_sample_loop"]):
+            err = float((outs[path] - outs["guided_sample_loop"]).abs().max())
+            fail(f"[parallel] {path} differs from guided_sample_loop "
+                 f"(max |diff| {err:.3e})")
+        if launches[path] != single:
+            fail(f"[parallel] {path} launches {launches[path]} != {single}")
+    for path, _ in paths:
+        print(f"[parallel] {path}: {N_POINTS} / {M_POINTS} points, {STEPS} "
+              f"steps, guidance {GUIDANCE}, grid; identical output, "
+              f"and identical in its two runs; "
+              f"launches {launches[path]}; seconds per cloud "
+              f"{', '.join(f'{t:.4f}' for t in secs[path])} ({card})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in (
+            "checkpoint_dir", "log_dir", "result_dir")}
+        # float32, the bars' dtype: in bf16 the backward's roundings turn
+        # the last-bit differences of its float atomics (index_add_,
+        # scatter_add_) between two runs into differences of 2**-8
+        tcfg = Config(**dirs, experiment_name="parallel", use_amp=False)
+        trainers = [DiffusionTrainer(tcfg.replace(mesh_shape=mesh),
+                                     resume=False, device=dev)
+                    for mesh in ({}, {"data": 1})]
+        batches = [tuple(np.stack([normalize_point_cloud(make_cloud(
+            rng, N_POINTS))[0] for _ in range(tcfg.batch_size)])
+            for _ in range(2)) for _ in range(3)]
+        worst, loss_err = {}, 0.0
+        for i, (sim, real) in enumerate(batches):
+            terms = []
+            for t, path in zip(trainers, ("train_step", "sharded_train_step")):
+                (ld, _), _ = counted(path, lambda: t.train_step(
+                    t._batch(sim), t._batch(real), 1e-4))
+                terms.append({k: float(v) for k, v in ld.items()})
+            if launches["sharded_train_step"] != launches["train_step"]:
+                fail(f"[parallel] sharded mini-step launches "
+                     f"{launches['sharded_train_step']}")
+            loss_err = max(loss_err, max(
+                abs(terms[1][k] / terms[0][k] - 1) for k in terms[0]))
+            if i < 2:  # accumulated, not yet applied
+                for part, r in acc_grads_err(*trainers[::-1]).items():
+                    worst[part] = max(worst.get(part, 0.0), r)
+        same = torch.equal(flat(trainers[0].params), flat(trainers[1].params))
+        gaps = ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        if loss_err > 1e-5 or max(worst.values()) > 1.0:
+            fail(f"[parallel] sharded trainer: loss {loss_err:.3e} relative "
+                 f"(bar 1e-5), gradients over their bars by part: {gaps}")
+        print(f"[parallel] DiffusionTrainer(mesh_shape={{'data': 1}}) vs "
+              f"single-device, Config() width, float32, "
+              f"B={tcfg.batch_size}, 3 mini-steps: loss terms "
+              f"{loss_err:.3e} relative (bar 1e-5), accumulated gradients "
+              f"over their bars by part (1 is the bar): {gaps}; parameters "
+              f"after the optimizer step identical: {same}; launches a "
+              f"mini-step {launches['sharded_train_step']} ({card})")
+    dist.destroy_process_group()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -2906,11 +3100,14 @@ def main() -> int:
         phase_progress(card, work)
         phase_benchmark(card, work)
         phase_train_augmentation(np.random.default_rng(21), dev, card, paths)
+    parallel = phase_parallel(dev, card)
     records["grid_topk"].update(launches=counts["grid_topk"],
                                 path="cli.inference --fast")
     for name, rec in records.items():
         rec.setdefault("launches", counts[name])
         rec["cli_test_launches"] = test_counts[name]
+        rec["parallel_launches"] = {path: got[name] for path, got in
+                                    parallel.items() if name in got}
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

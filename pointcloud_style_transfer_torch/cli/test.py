@@ -16,10 +16,15 @@ EMD and fidelity (``METRIC_KEYS``); the averages over batches go to
 
 Random draws (the samplers', the EMD's subsample permutations) come from one
 ``torch.Generator`` seeded with ``--seed``; ``Tester.test`` also takes them
-per batch (``draws``). The JAX ``Tester`` runs the Chamfer point-sharded
-over a ring of devices when it sees more than one; this one runs on one
-device with the dense Chamfer (the ring waits for the port of
-``parallel/``).
+per batch (``draws``).
+
+Run under ``torchrun --nproc_per_node=<cards>`` (an initialised process
+group of more than one rank), the ``Tester`` builds a ``{points: world}``
+mesh, as the JAX ``Tester`` does past one device: rank 0 samples and
+broadcasts the generated clouds, every rank takes its slice of them for the
+point-sharded Chamfer and content terms (the ring, ``parallel/ring.py``),
+rank 0 computes the other metrics and broadcasts them, and only rank 0
+writes ``test_config.json``, ``test_results.json``, clouds and plots.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import Batcher, HierarchicalPointCloudDataset
 from ..device import resolve_device
@@ -40,6 +46,7 @@ from ..evaluation import (chamfer_distance, coverage_score,
                           hausdorff_distance, uniformity_score)
 from ..models import (guided_sample_loop, guided_sample_loop_coarse,
                       make_schedule)
+from ..parallel import POINTS_AXIS, make_mesh
 from ..utils.checkpoint import load_for_inference
 from ..utils.logger import get_logger
 from ..utils.visualization import plot_style_transfer_result
@@ -64,8 +71,16 @@ class Tester:
                  device: str | torch.device | None = None):
         self.logger = get_logger("Tester")
         self.output_dir = output_dir
-        os.makedirs(output_dir, exist_ok=True)
         self.device = resolve_device(device)
+        # more than one rank: the full-resolution Chamfer runs point-sharded
+        # over a ring of them; one rank: dense
+        self.mesh, self.rank = None, 0
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            self.mesh = make_mesh({POINTS_AXIS: dist.get_world_size()},
+                                  self.device.type)
+            self.rank = dist.get_rank()
+        if self.rank == 0:
+            os.makedirs(output_dir, exist_ok=True)
         self.config, self.model = load_for_inference(checkpoint_path,
                                                      self.device)
         self.schedule = make_schedule(self.config).to(self.device)
@@ -90,10 +105,15 @@ class Tester:
         and ``real_to_sim`` (keyword draws of the sampler) and
         ``emd_sim_to_real`` / ``emd_real_to_sim`` ((pred, target)
         permutations); the others come from the generator, in the JAX
-        ``Tester``'s order (both samplers, then each direction's EMD)."""
+        ``Tester``'s order (both samplers, then each direction's EMD). With
+        a mesh every rank calls it with the same loader and returns rank 0's
+        metrics."""
         all_metrics = []
         gen_dir = os.path.join(self.output_dir, "generated")
         vis_dir = os.path.join(self.output_dir, "visualizations")
+        main = self.rank == 0
+        save_generated = save_generated and main
+        save_visualizations = save_visualizations and main
         if save_generated:
             os.makedirs(gen_dir, exist_ok=True)
         if save_visualizations:
@@ -107,26 +127,35 @@ class Tester:
             out = {}
             for tag, src, cond in (("sim_to_real", sim, real),
                                    ("real_to_sim", real, sim)):
-                out[tag] = self._sampler(
-                    self.model, self.schedule, src, cond,
-                    num_inference_steps=num_inference_steps,
-                    guidance_scale=guidance_scale, generator=self.generator,
-                    **d.get(tag, {}))
+                if main:
+                    out[tag] = self._sampler(
+                        self.model, self.schedule, src, cond,
+                        num_inference_steps=num_inference_steps,
+                        guidance_scale=guidance_scale,
+                        generator=self.generator, **d.get(tag, {}))
+                else:
+                    out[tag] = torch.empty_like(src)
+                if self.mesh is not None:  # the ring's slices: one cloud
+                    dist.broadcast(out[tag], src=0)
             sim_to_real, real_to_sim = out["sim_to_real"], out["real_to_sim"]
 
             m = {}
             perms = {}
             if compute_all_metrics:
-                cd_s2r = chamfer_distance(sim_to_real, real)
-                cd_r2s = chamfer_distance(real_to_sim, sim)
-                content_s2r = chamfer_distance(sim_to_real, sim)
-                content_r2s = chamfer_distance(real_to_sim, real)
+                cd_s2r = chamfer_distance(sim_to_real, real, mesh=self.mesh)
+                cd_r2s = chamfer_distance(real_to_sim, sim, mesh=self.mesh)
+                content_s2r = chamfer_distance(sim_to_real, sim,
+                                               mesh=self.mesh)
+                content_r2s = chamfer_distance(real_to_sim, real,
+                                               mesh=self.mesh)
                 m["chamfer_sim_to_real"] = float(cd_s2r.mean())
                 m["chamfer_real_to_sim"] = float(cd_r2s.mean())
                 m["content_preservation"] = (
                     float(content_s2r.mean()) + float(content_r2s.mean())) / 2
                 for tag, gen, tgt in (("sim_to_real", sim_to_real, real),
                                       ("real_to_sim", real_to_sim, sim)):
+                    if not main:
+                        continue
                     m[f"hausdorff_{tag}"] = float(
                         hausdorff_distance(gen, tgt).mean())
                     m[f"coverage_{tag}"] = float(coverage_score(gen, tgt))
@@ -138,6 +167,10 @@ class Tester:
                         gen, tgt, max_points=EMD_MAX_POINTS,
                         perms=perms[tag]).mean())
                     m[f"fidelity_{tag}"] = fidelity_score(gen, tgt)
+            if self.mesh is not None:
+                shared = [m]
+                dist.broadcast_object_list(shared, src=0)
+                m = shared[0]
             self.emd_perms.append(perms)
             all_metrics.append(m)
             self.logger.info("batch %d: %s", batch_idx,
@@ -194,12 +227,18 @@ def main(argv=None) -> int:
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # under torchrun
+        make_mesh(device_type=device.type)  # joins the default group
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
 
-    timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
-    output_dir = os.path.join(args.output_dir, f"test_{timestamp}")
-    os.makedirs(output_dir, exist_ok=True)
-    with open(os.path.join(output_dir, "test_config.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
+    stamp = [datetime.now().strftime("%Y%m%d_%H%M%S")]
+    if dist.is_initialized():  # one run directory for every rank
+        dist.broadcast_object_list(stamp, src=0)
+    output_dir = os.path.join(args.output_dir, f"test_{stamp[0]}")
+    if main_rank:
+        os.makedirs(output_dir, exist_ok=True)
+        with open(os.path.join(output_dir, "test_config.json"), "w") as f:
+            json.dump(vars(args), f, indent=2)
 
     tester = Tester(args.checkpoint, output_dir, seed=args.seed,
                     fast=args.fast, device=device)
@@ -216,6 +255,8 @@ def main(argv=None) -> int:
         save_generated=args.save_generated,
         save_visualizations=args.save_visualizations)
 
+    if not main_rank:
+        return 0
     print("\n" + "=" * 60 + "\nTEST RESULTS SUMMARY\n" + "=" * 60)
     for k, v in results["average_metrics"].items():
         print(f"{k}: {v:.6f}")

@@ -17,8 +17,8 @@
 The row minima of chamfer, hausdorff, coverage and precision/recall go
 through ``ops.min_sq_dist``: on CUDA tensors the row-min kernel, since no
 gradient is taken. Uniformity's kNN is the brute-force kNN kernel at k+1.
-The point-sharded ring variant (``mesh``) waits for the port of
-``parallel/`` (ROADMAP) and raises.
+With a ``mesh`` whose ``points`` axis has more than one rank, the Chamfer
+runs point-sharded on a ring of those ranks (``parallel/ring.py``).
 """
 
 from __future__ import annotations
@@ -35,11 +35,22 @@ from ..ops import chamfer_distance_l2, knn, min_sq_dist, square_distance
 def chamfer_distance(pred: torch.Tensor, target: torch.Tensor,
                      bidirectional: bool = True, mesh=None,
                      backend: str = "pallas") -> torch.Tensor:
-    """[B] unsquared-L2 Chamfer."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the point-sharded (ring) Chamfer is not ported yet: it waits "
-            "for the port of parallel/ring.py")
+    """[B] unsquared-L2 Chamfer.
+
+    With a ``mesh`` (``parallel.make_mesh``) whose ``points`` axis has n > 1
+    ranks, and point counts that n divides, every rank passes the same
+    clouds, takes its contiguous 1/n of each, and the ring
+    (``parallel.ring.ring_chamfer_distance_l2``) computes the row minima;
+    every rank returns the same [B]. Other counts take the dense path, as
+    in the JAX package. The ring needs the axis's ranks to call together."""
+    if mesh is not None and bidirectional:
+        from ..parallel.mesh import POINTS_AXIS, axis_size, local_slice
+        n = axis_size(mesh, POINTS_AXIS)
+        if n > 1 and pred.shape[1] % n == 0 and target.shape[1] % n == 0:
+            from ..parallel.ring import ring_chamfer_distance_l2
+            return ring_chamfer_distance_l2(
+                local_slice(pred, 1, mesh, POINTS_AXIS),
+                local_slice(target, 1, mesh, POINTS_AXIS), mesh)
     if bidirectional:
         return chamfer_distance_l2(pred, target, backend)
     return torch.sqrt(min_sq_dist(pred, target, backend)).mean(dim=1)

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,7 +59,8 @@ class PointCloudDiffusionModel:
                 style_dropout_mask: Optional[torch.Tensor] = None,
                 noise_dropout_masks: Optional[Sequence[torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
-                selections: Optional[dict] = None
+                selections: Optional[dict] = None,
+                predict_noise: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                            Optional[Dict[str, torch.Tensor]]]:
         """The training forward (JAX ``PointCloudDiffusionModel.forward``):
@@ -82,7 +83,9 @@ class PointCloudDiffusionModel:
         ``noisy_priority`` [B, N], ``noise_dropout_masks`` (one
         [B, M, feature_dim] per residual block). ``selections`` (a dict)
         pins the ReLU gates and max-pool argmaxes the gradient follows
-        (``networks.gated_relu``, ``networks.pooled_max``)."""
+        (``networks.gated_relu``, ``networks.pooled_max``).
+        ``predict_noise`` stands in for ``net.predict_noise`` (same
+        arguments): the point-sharded step runs it on this rank's rows."""
         M = self.config.global_points
         cond = condition_points
         if use_hierarchical and cond.shape[1] > M:
@@ -100,8 +103,8 @@ class PointCloudDiffusionModel:
         if use_hierarchical and noisy_points.shape[1] > M:
             noisy_points, idx = voxel_downsample(
                 noisy_points, M, priority=noisy_priority, generator=generator)
-        pred = self.net.predict_noise(noisy_points, t, style, train,
-                                      noise_dropout_masks, generator,
-                                      selections)
+        pred = (predict_noise or self.net.predict_noise)(
+            noisy_points, t, style, train, noise_dropout_masks, generator,
+            selections)
         updates = dict(self.net.named_buffers()) if train else None
         return pred, idx, updates

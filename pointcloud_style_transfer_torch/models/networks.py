@@ -85,20 +85,33 @@ class BatchNorm(nn.BatchNorm1d):
     (``flax/linen/normalization.py``): in float32, ``(x - mean) *
     (rsqrt(var + 1e-5) * scale) + bias``, returned in ``compute_dtype``.
     ``train=True`` normalises with the batch's mean and biased fast variance
-    and updates the running stats in place; otherwise it reads them. An
-    ``nn.BatchNorm1d`` only for its state-dict names."""
+    and updates the running stats in place; otherwise it reads them. With
+    ``reduce_stats`` set, the batch is the global one of a data-parallel
+    step: its sums are reduced over the ranks before the mean and variance.
+    An ``nn.BatchNorm1d`` only for its state-dict names."""
 
     def __init__(self, num_features: int,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=1e-5, momentum=1 - BN_MOMENTUM)
         self.compute_dtype = compute_dtype
+        # set by a data-parallel step (parallel/sharded.py): sums a tensor
+        # over the ranks that share the batch, gradient included
+        self.reduce_stats = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.float()
         if train:
             flat = xf.reshape(-1, x.shape[-1])
-            mean = flat.mean(dim=0)
-            var = ((flat * flat).mean(dim=0) - mean * mean).clamp_min(0.0)
+            if self.reduce_stats is None:
+                mean = flat.mean(dim=0)
+                sq = (flat * flat).mean(dim=0)
+            else:  # statistics of the global batch: sum x, sum x^2, count
+                C = x.shape[-1]
+                sums = self.reduce_stats(torch.cat([
+                    flat.sum(dim=0), (flat * flat).sum(dim=0),
+                    flat.new_full((1,), flat.shape[0])]))
+                mean, sq = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
+            var = (sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = BN_MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

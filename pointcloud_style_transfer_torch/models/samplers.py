@@ -82,8 +82,8 @@ def _upsample_unknown(x: torch.Tensor, idx: torch.Tensor,
                       unknown: Optional[torch.Tensor] = None,
                       ref_xyz: Optional[torch.Tensor] = None,
                       unknown_xyz: Optional[torch.Tensor] = None,
-                      selections: Optional[dict] = None, key: str = "knn"
-                      ) -> torch.Tensor:
+                      selections: Optional[dict] = None, key: str = "knn",
+                      split=None) -> torch.Tensor:
     """Place the exact coarse values at their points and interpolate ONLY the
     remaining (unknown) points from their k=3 nearest coarse points with
     weights 1/(sqrt(d)+1e-8), normalised. Returns [B, N, C].
@@ -94,7 +94,10 @@ def _upsample_unknown(x: torch.Tensor, idx: torch.Tensor,
     neighbours: replayed from ``selections[key]`` when it holds them (their
     distances recomputed in the kernels' form), else the backend's recorded
     there (the grid's from its kNN path, ``grid_knn``); the points they are
-    taken on go under ``key.query`` and ``key.ref`` either way."""
+    taken on go under ``key.query`` and ``key.ref`` either way. With
+    ``split`` (``parallel.sharded_sampler.RowSplit``) this rank
+    interpolates its share of the unknown points and the shares are
+    all-gathered."""
     B, N, _ = x.shape
     if unknown is None:
         unknown = complement_indices(idx, N)
@@ -106,44 +109,41 @@ def _upsample_unknown(x: torch.Tensor, idx: torch.Tensor,
         empty = coarse_vals.new_zeros((B, 0) + tuple(coarse_vals.shape[2:]))
         return _unpermute_assemble(idx, unknown, coarse_vals, empty, N)
     _record_points(selections, key, query=q_unknown, ref=ref_xyz)
+    local = (lambda t: t) if split is None else split.local
+    gather = (lambda t: t) if split is None else split.gather
+    q = local(q_unknown)
     if selections is not None and key in selections:
-        nbr = selections[key].to(x.device)
-        sq_d = selected_sq_dist(q_unknown, index_points(ref_xyz, nbr))
+        nbr = local(selections[key].to(x.device))
+        sq_d = selected_sq_dist(q, index_points(ref_xyz, nbr))
     elif knn_backend == "grid":
         if selections is not None:
             selections[key] = knn(q_unknown, ref_xyz, k, backend="grid")[1]
-        return torch.stack([
-            _grid_upsample_one(idx[b], unknown[b], coarse_vals[b],
-                               q_unknown[b], ref_xyz[b], k, N)
-            for b in range(B)])
+        vals = torch.stack([_grid_interpolate(q[b], ref_xyz[b],
+                                              coarse_vals[b], k)
+                            for b in range(B)])
+        return _unpermute_assemble(idx, unknown, coarse_vals, gather(vals), N)
     else:
-        sq_d, nbr = knn(q_unknown, ref_xyz, k, backend=knn_backend)
+        sq_d, nbr = knn(q, ref_xyz, k, backend=knn_backend)
         if selections is not None:
-            selections[key] = nbr
+            selections[key] = gather(nbr)
     dist = torch.sqrt(torch.clamp(sq_d, min=0.0))
     w = 1.0 / (dist + 1e-8)
     w = w / torch.sum(w, dim=-1, keepdim=True)
     vals = torch.sum(index_points(coarse_vals, nbr) * w[..., None], dim=2)
-    return _unpermute_assemble(idx, unknown, coarse_vals, vals, N)
+    return _unpermute_assemble(idx, unknown, coarse_vals, gather(vals), N)
 
 
-def _grid_upsample_one(idx: torch.Tensor, unknown: torch.Tensor,
-                       coarse_vals: torch.Tensor, q_unknown: torch.Tensor,
-                       ref_xyz: torch.Tensor, k: int, N: int) -> torch.Tensor:
-    """One cloud's field [N, C] through the grid: the interpolation comes in
-    the grid's layout order with its query-id map, so the assembly writes
-    layout row j to point ``unknown[qid[j]]`` directly (the TPU's composed
-    inverse-permutation sort, done as the scatter it stands for)."""
-    v_lay, qid = grid_knn.grid_knn_interpolate_layout(q_unknown, ref_xyz,
+def _grid_interpolate(query: torch.Tensor, ref_xyz: torch.Tensor,
+                      coarse_vals: torch.Tensor, k: int) -> torch.Tensor:
+    """One cloud's interpolation [Nq, C] through the grid, in query order:
+    the grid answers in its layout order with a query-id map, and layout
+    row j goes to query ``qid[j]`` (padding rows, ``qid == Nq``, to a row
+    that is dropped)."""
+    v_lay, qid = grid_knn.grid_knn_interpolate_layout(query, ref_xyz,
                                                       coarse_vals, k)
-    Nu = unknown.shape[0]
-    qid = qid.long()
-    # padding rows (qid == Nu) go to the dropped slot N
-    dest = torch.where(qid < Nu, unknown.long()[qid.clamp(max=Nu - 1)], N)
-    out = coarse_vals.new_empty((N + 1, coarse_vals.shape[1]))
-    out[idx.long().clamp(0, N - 1)] = coarse_vals
-    out.index_copy_(0, dest, v_lay.to(coarse_vals.dtype))
-    return out[:N]
+    Nq = query.shape[0]
+    out = coarse_vals.new_empty((Nq + 1, coarse_vals.shape[1]))
+    return out.index_copy_(0, qid.long(), v_lay.to(coarse_vals.dtype))[:Nq]
 
 
 def _unpermute_assemble(idx: torch.Tensor, unknown: torch.Tensor,
@@ -180,7 +180,9 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
                        step_priorities: Optional[torch.Tensor] = None,
                        fps_starts: Optional[torch.Tensor] = None,
                        generator: Optional[torch.Generator] = None,
-                       selections: Optional[dict] = None
+                       selections: Optional[dict] = None,
+                       knn_backend: Optional[str] = None,
+                       mesh=None, axis_name: str = "points"
                        ) -> torch.Tensor:
     """CFG style transfer of ``source_points`` [B, N, 3] toward the style of
     ``condition_points`` [B, Nc, 3], on the model's device. Returns
@@ -195,7 +197,16 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
     pins each step s's voxel order (``step<s>.voxel``, taken on the state
     ``step<s>.voxel.points``) and the upsample's neighbours (``step<s>.knn``,
     ``_upsample_unknown``): a choice the dict holds is replayed, any other
-    is recorded there; replaying expects the step priorities passed in."""
+    is recorded there; replaying expects the step priorities passed in.
+    ``knn_backend`` overrides ``resolve_sampler_knn_backend``.
+
+    With ``mesh``, the ranks of its ``axis_name`` axis share the
+    hierarchical branch's upsample (``parallel.sharded_sampler``): each
+    interpolates its share of the N - M unknown points, which must divide,
+    and, when they divide M, the denoiser runs on its share of the coarse
+    rows; the shares are all-gathered. Every rank passes the same inputs
+    and draws (or an identically seeded generator) and returns the same
+    cloud."""
     cfg = model.config
     device = model.device
     schedule = schedule.to(device)
@@ -205,7 +216,15 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
     M = cfg.global_points
     if use_hierarchical is None:
         use_hierarchical = N > M
-    knn_backend = resolve_sampler_knn_backend(cfg)
+    if knn_backend is None:
+        knn_backend = resolve_sampler_knn_backend(cfg)
+    split = rows = None
+    if mesh is not None:
+        from ..parallel.sharded_sampler import RowSplit
+        split = RowSplit(mesh, axis_name, device.type)
+        if use_hierarchical:
+            split.check(N - M, "unknown count N-M")
+            rows = split if M % split.n == 0 else None
 
     cond_ds, _ = voxel_downsample(condition_points, M, priority=cond_priority,
                                   generator=generator)
@@ -234,8 +253,12 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
             x_coarse, x_idx, x_unk, x_unk_xyz = voxel_downsample_partition(
                 x, M, order=order)
             x2 = torch.cat([x_coarse, x_coarse], dim=0)
-            noise_coarse = model.predict_noise(x2, t_in, style_in).float()
-            nc_cond, nc_unc = noise_coarse.chunk(2)
+            if rows is None:
+                noise_coarse = model.predict_noise(x2, t_in, style_in)
+            else:
+                noise_coarse = rows.gather(model.predict_noise(
+                    rows.local(x2), t_in, style_in))
+            nc_cond, nc_unc = noise_coarse.float().chunk(2)
             # CFG combine at coarse resolution: interpolation is linear, so
             # combine-then-upsample equals upsample-then-combine
             guided_coarse = nc_unc + guidance_scale * (nc_cond - nc_unc)
@@ -244,7 +267,7 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
                                             ref_xyz=x_coarse,
                                             unknown_xyz=x_unk_xyz,
                                             selections=selections,
-                                            key=f"step{s}.knn")
+                                            key=f"step{s}.knn", split=split)
         else:
             final_noise = _guided_step(model, x, t, style_in, guidance_scale)
 

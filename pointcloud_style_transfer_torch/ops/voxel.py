@@ -7,7 +7,9 @@ Per cloud:
    coordinates with the reference's primes (int32 wraparound);
 2. a stable sort by hash gives contiguous voxel segments; each voxel's
    representative is, with ``mode="mean_index"`` (the runtime rule), the
-   truncated float32 mean of its point indices, or with ``mode="center"``
+   truncated float32 mean of its point indices (their sum taken exactly,
+   then rounded to float32 once: the JAX package's float32 sum is the same
+   below 2**24), or with ``mode="center"``
    (the offline rule) its point closest to the voxel's center (a stable
    sort by (hash, distance to the center): the first of each segment);
 3. exact-count selection: representatives get priority ``u``, the other
@@ -85,14 +87,15 @@ def _representatives(pts: torch.Tensor, xyz_min: torch.Tensor,
     if mode == "center":  # the first of each segment is nearest its center
         return order[is_leader]
     seg = torch.cumsum(is_leader, dim=0) - 1  # voxel id per sorted position
-    # float32 sums of the point indices, as the JAX package keeps them (exact
-    # integers below 2**24)
-    idx_f = order.float()
-    sums = torch.zeros(N, dtype=torch.float32, device=pts.device)
-    sums.index_add_(0, seg, idx_f)
-    counts = torch.zeros(N, dtype=torch.float32, device=pts.device)
-    counts.index_add_(0, seg, torch.ones_like(idx_f))
-    rep = (sums / counts.clamp(min=1.0)).to(torch.int64)
+    # the sums of the point indices exactly, in int64, then in float32 as the
+    # JAX package keeps them (the same below 2**24). A float32 index_add_
+    # on the card adds in the atomics' order, which changes from run to run
+    # and, past 2**24, the rounding and so the representative.
+    sums = torch.zeros(N, dtype=torch.int64, device=pts.device)
+    sums.index_add_(0, seg, order)
+    counts = torch.zeros(N, dtype=torch.int64, device=pts.device)
+    counts.index_add_(0, seg, torch.ones_like(order))
+    rep = (sums.float() / counts.clamp(min=1).float()).to(torch.int64)
     return torch.where(counts > 0, rep, N)  # N: no voxel, dropped
 
 

@@ -134,7 +134,21 @@ def test_emd_subsampling_with_given_permutations(rng):
     assert v == full.item() and 0.3 < v < 0.8
 
 
+class _OnePointsRank:
+    """A mesh whose ``points`` axis has one rank (what
+    ``parallel.mesh.axis_size`` reads of a ``DeviceMesh``)."""
+    mesh_dim_names = ("points",)
+
+    def size(self, dim=None):
+        return 1
+
+
 def test_ring_chamfer_not_ported(rng):
+    """A mesh without a second ``points`` rank takes the dense path, as in
+    the JAX package (the ring itself: tests/test_torch_ring.py)."""
     _, (ta, tt) = both(*clouds(rng))
-    with pytest.raises(NotImplementedError, match="parallel/ring.py"):
-        metrics.chamfer_distance(ta, tt, mesh=object())
+    for bidirectional in (True, False):
+        got = metrics.chamfer_distance(ta, tt, bidirectional,
+                                       mesh=_OnePointsRank())
+        assert torch.equal(got, metrics.chamfer_distance(ta, tt,
+                                                         bidirectional))

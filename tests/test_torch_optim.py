@@ -160,8 +160,12 @@ def test_ema_moves_only_on_optimizer_steps(rng):
     ({"mesh_shape": {"data": 2}}, False),
     ({"use_augmentation": True}, True)])
 def test_unported_options_raise(tmp_path, kw, ported):
-    """``mesh_shape`` waits for the port of ``parallel/`` and raises;
+    """``mesh_shape`` needs as many ranks as its shape holds: in one
+    process {"data": 2} raises ``ValueError``, as the JAX ``make_mesh``
+    does past the devices it has, before any process group is started
+    (the data-parallel trainer itself: tests/test_torch_sharded_step.py);
     ``use_augmentation`` is ported and builds a trainer."""
+    import torch.distributed as dist
     from pointcloud_style_transfer_torch.training import DiffusionTrainer
     cfg = Config(checkpoint_dir=str(tmp_path / "c"), log_dir=str(tmp_path / "l"),
                  result_dir=str(tmp_path / "r"),
@@ -170,5 +174,6 @@ def test_unported_options_raise(tmp_path, kw, ported):
         assert DiffusionTrainer(cfg, resume=False,
                                 device="cpu").config.use_augmentation
         return
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
         DiffusionTrainer(cfg, resume=False, device="cpu")
+    assert not dist.is_initialized()
