@@ -72,8 +72,20 @@ Phases, each printing one line per result:
    width, each with its launch counts asserted and its seconds per cloud:
    ``knn_backend="pallas_f32packed"`` and
    ``"pallas_pruned"``, ``--fast`` (one ``grid_topk``, at most one brute
-   patch), ``--source_dir`` with 3 clouds at ``--batch_size 2``, and
-   ``ddim_sample_loop`` for 5 steps.
+   patch), ``--source_dir`` with 3 clouds at ``--batch_size 2`` (the grid
+   flat-batched: one interpolation launch a step for each batch of two),
+   and ``ddim_sample_loop`` for 5 steps.
+   flat batch — the kd-grid's flat-batched path at full width (120,000-point
+   clouds, 30,000 refs and 90,000 unknown queries each, ``Config()``'s
+   grid): ``grid_interp`` on the two-cloud layout against its plain version
+   (distances and positions identical, values within rtol 1e-6), in device
+   time beside the two clouds' own launches;
+   ``grid_knn_interpolate_layout_batched`` at B = 2 and B = 9 (a group of 8
+   and a trailing one) against the per-cloud layout path: each cloud's
+   layout order and unsafe count identical, values identical on the rows
+   both prove safe and within rtol 1e-6 elsewhere, one ``grid_interp`` and
+   at most one ``knn_topk`` a group, host and device ms a call both ways;
+   ``_strip_interp_patch`` on cloud 0's unsafe rows against its plain run.
 5. train — ``Config()`` defaults, nothing cut: four synthetic 120,000-point
    scene pairs through ``cli.preprocess`` (3 train, 1 val), then 2 epochs of
    ``cli.train`` (6 mini-steps, 2 optimizer steps, 2 validations, 2
@@ -95,8 +107,9 @@ Phases, each printing one line per result:
 7. test — ``cli.test`` from ``best_model`` on a test split of two synthetic
    120,000-point pairs at ``--batch_size 2``: sim->real and real->sim, 50
    steps, every metric, generated clouds and plots saved; its launches
-   asserted (200 grid interpolations, 4 FPS, 4 ball queries, 14 row
-   minima, the patches and two k=9 kNN); seconds per batch and the EMD's
+   asserted (100 grid interpolations: one flat-batched pass a step and
+   direction, 4 FPS, 4 ball queries, 14 row minima, the patches and two
+   k=9 kNN); seconds per batch and the EMD's
    peak memory; its metrics held to the CPU's recomputation from the saved
    clouds (float64 nearest neighbours and Sinkhorn on the card run's
    subsample permutations; rtol 1e-4, coverage 1e-4 absolute, EMD 1e-3).
@@ -106,7 +119,8 @@ Phases, each printing one line per result:
    steps, launches asserted.
 10. benchmark — ``cli.benchmark --reps 2`` at ``Config()`` sizes (forward
     sweep, hierarchical vs direct, scaling, 50-step sampling at B = 1, 2,
-    4, 8), keys, finite values and launches asserted, its JSON printed.
+    4, 8: one grid interpolation a step and call at each), keys, finite
+    values and launches asserted, its JSON printed.
 11. train augmentation — one ``Config(use_augmentation=True)`` mini-step
     on the card: its draws printed, the augmentation card vs CPU within
     1e-6, a finite loss, the step's launches.
@@ -180,8 +194,9 @@ from pointcloud_style_transfer_torch.ops.kernels.fps import (
     MAX_THREADS as FPS_MAX_THREADS, PERS, STREAM, fps_plan)
 from pointcloud_style_transfer_torch.ops.kernels.knn import (
     CLUSTER_SIZES, knn_topk_plan)
+from pointcloud_style_transfer_torch.ops.kernels import _common
 from pointcloud_style_transfer_torch.ops.kernels._common import (
-    BUILD_ROOT, NVCC_FLAGS, library_path, nvcc_path, pairwise_sq_dist,
+    NVCC_FLAGS, library_path, nvcc_path, pairwise_sq_dist,
     source_define)
 from pointcloud_style_transfer_torch.ops.kernels.ball_query import \
     radius_sq_f32
@@ -210,7 +225,7 @@ PRUNED_S = source_define("knn_pruned", "PCST_PRUNED_S")
 PRUNED_CHUNK = source_define("knn_pruned", "PCST_PRUNED_CHUNK")
 STEPS, GUIDANCE = 50, 7.5
 # the grid's defaults, which the sampler uses
-GRID_SHAPE, GRID_TQ, SLOT_CAP = (16, 12, 8), 128, 384
+GRID_SHAPE, GRID_TQ, SLOT_CAP = grid_knn.GRID_SHAPE, 128, grid_knn.SLOT_CAP
 
 
 def expect_counts(**launched: int) -> dict:
@@ -351,22 +366,29 @@ extern "C" int pcst_empty(int blocks, int threads, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 """
-EMPTY_LIB = BUILD_ROOT / "launch_floor" / "libempty.so"
+
+
+def empty_lib():
+    """The empty kernel's library, beside the port's kernels (read at use:
+    ``utils.cache.enable_compilation_cache`` may move them)."""
+    return _common.BUILD_ROOT / "launch_floor" / "libempty.so"
 
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    EMPTY_LIB.parent.mkdir(parents=True, exist_ok=True)
-    (EMPTY_LIB.parent / "empty.cu").write_text(EMPTY_SOURCE)
+    lib = empty_lib()
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    (lib.parent / "empty.cu").write_text(EMPTY_SOURCE)
     empty = subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(EMPTY_LIB),
-         str(EMPTY_LIB.parent / "empty.cu")], stdout=subprocess.PIPE,
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(lib),
+         str(lib.parent / "empty.cu")], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT)
     paths = build_all()
     if empty.wait():
         fail(f"empty kernel: nvcc failed\n{empty.stdout.read().decode()}")
     dt = time.perf_counter() - t0
-    print(f"[build] {len(paths)} kernels built in {dt:.1f}s into {BUILD_ROOT}")
+    print(f"[build] {len(paths)} kernels built in {dt:.1f}s into "
+          f"{_common.BUILD_ROOT}")
     for name in paths:
         usage = ptxas_usage(library_path(name).with_suffix(".log").read_text())
         print(f"[build] {name} ptxas (registers, spill-store bytes): " + ", ".join(
@@ -494,7 +516,7 @@ def phase_kernels(rng: np.random.Generator, dev: torch.device) -> dict:
 def empty_kernel_ms(blocks: int) -> float:
     """Device time of an empty kernel on ``blocks`` blocks of the ball
     query's threads: the launch floor no launch of that grid gets under."""
-    lib = ctypes.CDLL(str(EMPTY_LIB))
+    lib = ctypes.CDLL(str(empty_lib()))
     lib.pcst_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
     def run():
@@ -2084,9 +2106,11 @@ def phase_batch_and_ddim(rng: np.random.Generator, engine: DiffusionInference,
     got = dict(LAUNCH_COUNTS)
     unsafe = list(grid_knn.UNSAFE_COUNTS)
     # two batches of two clouds (the tail padded with its last pair): the
-    # encoder's kernels take the batch at once, the grid runs cloud by cloud
-    want = expect_counts(grid_interp=4 * STEPS, fps=4, ball_query=4,
-                         knn_topk=sum(u > 0 for u in unsafe))
+    # encoder's kernels take the batch at once, and so does the grid, one
+    # flat-batched pass a step (a patch launch if either cloud has unsafe
+    # rows); four unsafe counts a step, one a cloud
+    want = expect_counts(grid_interp=2 * STEPS, fps=4, ball_query=4,
+                         knn_topk=patch_launches(unsafe, [2] * 2 * STEPS))
     names = sorted(os.listdir(out_dir)) if rc == 0 else []
     outs = [np.load(os.path.join(out_dir, f)) for f in names]
     if rc != 0 or got != want or len(unsafe) != 4 * STEPS or names != [
@@ -2122,6 +2146,239 @@ def phase_batch_and_ddim(rng: np.random.Generator, engine: DiffusionInference,
     print(f"[main] ddim_sample_loop, 5 steps at {N_POINTS} points: output "
           f"{tuple(out.shape)} finite; launches {got}; {times[1]:.4f} s "
           f"(first run {times[0]:.4f} s) ({card})")
+
+
+def patch_launches(unsafe: list, groups) -> int:
+    """The brute-force patch launches of a run of grid passes: one for each
+    group of clouds (one flat-batched pass, or one cloud's) with any unsafe
+    row. ``unsafe`` is ``grid_knn.UNSAFE_COUNTS``, one entry a cloud;
+    ``groups`` the clouds of each pass in order."""
+    n, i = 0, 0
+    for g in groups:
+        n += any(u > 0 for u in unsafe[i:i + g])
+        i += g
+    if i != len(unsafe):
+        fail(f"{len(unsafe)} grid unsafe counts for {i} clouds in "
+             f"{len(groups)} passes")
+    return n
+
+
+def batch_groups(B: int) -> list:
+    """The clouds of each pass of a B-cloud grid upsample: flat groups of
+    at most ``grid_knn._BATCHED_MAX_GROUP``."""
+    g = grid_knn._BATCHED_MAX_GROUP
+    return [min(g, B - s) for s in range(0, B, g)]
+
+
+def call_times(fn, reps: int = 3) -> tuple[float, float]:
+    """(host ms, device ms) of one call of ``fn``: the wall clock with a
+    sync after each call, and the summed device time of every kernel the
+    profiler traced, a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA)
+    return host, dev / 1e3 / reps
+
+
+FLAT_SEED = 24
+FLAT_BATCHES = (2, 9)  # one group; a group of 8 and a trailing one
+
+
+def flat_safe(q: torch.Tensor, r: torch.Tensor, v: torch.Tensor
+              ) -> list:
+    """Per cloud of ``q`` [B, Nq, 3], the grid pass's safe flags in that
+    cloud's layout order as the flat-batched entry point groups them."""
+    B, Nq = q.shape[:2]
+    out, s = [], 0
+    for g in batch_groups(B):
+        if g == 1:
+            st = grid_knn._build_struct(r[s], GRID_SHAPE, skip_z_sort=True)
+            _, safe, qid, _ = grid_knn._query_pass(
+                st, q[s], 3, GRID_SHAPE, GRID_TQ, SLOT_CAP, values=v[s],
+                layout_out=True)
+        else:
+            sb = grid_knn._build_struct_batched(r[s:s + g], GRID_SHAPE)
+            _, safe, qid, _ = grid_knn._query_pass(
+                sb, q[s:s + g], 3, GRID_SHAPE, GRID_TQ, SLOT_CAP,
+                values=v[s:s + g], layout_out=True)
+        for b in range(g):
+            out.append(safe[(qid >= b * Nq) & (qid < (b + 1) * Nq)])
+        s += g
+    return out
+
+
+def phase_flat_batch(dev: torch.device, card: str) -> dict:
+    """The flat-batched grid at full width (120,000-point clouds: 30,000
+    coarse refs, 90,000 unknown queries, ``Config()``'s grid): the batched
+    layout's ``grid_interp`` against its plain version and in device time
+    beside the two clouds' own launches; ``grid_knn_interpolate_layout_
+    batched`` at B = 2 and 9 against the per-cloud layout path (each
+    cloud's layout order identical, values identical on rows both prove
+    safe, launches a group); the strip patch against its plain run.
+    Returns numbers for the kernels line."""
+    rng = np.random.default_rng(FLAT_SEED)
+    B = max(FLAT_BATCHES)
+    q, r = [], []
+    for _ in range(B):
+        pts = normalize_point_cloud(make_cloud(rng, N_POINTS))[0]
+        q.append(pts[M_POINTS:])
+        r.append(pts[:M_POINTS])
+    q = torch.from_numpy(np.stack(q)).to(dev)
+    r = torch.from_numpy(np.stack(r)).to(dev)
+    v = torch.from_numpy(rng.standard_normal((B, M_POINTS, 3)).astype(
+        np.float32)).to(dev)
+    Nq = q.shape[1]
+
+    # the batched layout of two clouds: kernel against plain
+    sb = grid_knn._build_struct_batched(r[:2], GRID_SHAPE)
+    sl = grid_knn._layout_slots(sb, q[:2], GRID_SHAPE, GRID_TQ, SLOT_CAP)
+    vals = grid_knn._sorted_values(sb, v[:2])
+    lo = sl.tb[:, None] * sb.M_pad
+    busy = sl.en > sl.st
+    if not (((sl.st >= lo) & (sl.en <= lo + sb.M)) | ~busy).all():
+        fail("[flat batch] a tile's run leaves its own cloud's refs")
+    args = (sl.q_pad, sb.refs_pad, vals, sl.st, sl.en, 3)
+    v_k, d_k = grid_interp_cuda(*args, n_real=sl.n_real)
+    v_p, d_p = grid_interp_plain(*args, n_real=sl.n_real)
+    d_t, i_t = grid_topk_cuda(sl.q_pad, sb.refs_pad, sl.st, sl.en, 3,
+                              n_real=sl.n_real)
+    d_tp, i_tp = grid_topk_plain(sl.q_pad, sb.refs_pad, sl.st, sl.en, 3,
+                                 n_real=sl.n_real)
+    check_equal("[flat batch] grid_interp", d_k.view(torch.int32),
+                d_p.view(torch.int32), "distance bits")
+    check_equal("[flat batch] grid_topk", i_t, i_tp, "positions")
+    check_equal("[flat batch] grid_topk", d_t.view(torch.int32),
+                d_tp.view(torch.int32), "distance bits")
+    full = d_p[:, -1] < 1e29
+    err = values_err(v_k[full], v_p[full])
+    if not np.isfinite(err) or not torch.isfinite(v_k).all():
+        fail("[flat batch] grid_interp values differ from the plain version "
+             "beyond rtol 1e-6, atol 1e-6 * max|v|")
+    ms_flat = device_ms(lambda: grid_interp_cuda(*args, n_real=sl.n_real),
+                        "grid_interp")
+    ms_one = []
+    for b in range(2):
+        st1, sl1 = grid_tables(q[b:b + 1], r[b:b + 1])
+        args1 = (sl1.q_pad, st1.refs_pad, grid_knn._sorted_values(st1, v[b]),
+                 sl1.st, sl1.en, 3)
+        ms_one.append(device_ms(lambda: grid_interp_cuda(
+            *args1, n_real=sl1.n_real), "grid_interp"))
+    print(f"[flat batch] grid_interp on the B=2 layout ({sl.st.shape[0]} "
+          f"tiles, refs {tuple(sb.refs_pad.shape)}): distance bits and "
+          f"positions identical to the plain versions, max |v| err {err:.3g};"
+          f" runs inside their cloud's refs; device time {ms_flat:.4f} ms in "
+          f"one launch against {ms_one[0]:.4f} + {ms_one[1]:.4f} ms for the "
+          f"two clouds' own launches ({card})")
+
+    # the entry point, flat against cloud by cloud
+    out = {"flat_b2_ms": ms_flat, "per_cloud_ms": ms_one}
+    for B in FLAT_BATCHES:
+        groups = batch_groups(B)
+        reset_launch_counts()
+        grid_knn.UNSAFE_COUNTS.clear()
+        v_lay, qid = grid_knn.grid_knn_interpolate_layout_batched(
+            q[:B], r[:B], v[:B])
+        torch.cuda.synchronize()
+        got = dict(LAUNCH_COUNTS)
+        unsafe = list(grid_knn.UNSAFE_COUNTS)
+        want = expect_counts(grid_interp=len(groups),
+                             knn_topk=patch_launches(unsafe, groups))
+        if got != want or len(unsafe) != B:
+            fail(f"[flat batch] B={B}: launches {got} != {want} "
+                 f"({len(unsafe)} unsafe counts)")
+        grid_knn.UNSAFE_COUNTS.clear()
+        one = [grid_knn.grid_knn_interpolate_layout(q[b], r[b], v[b])
+               for b in range(B)]
+        unsafe_one = list(grid_knn.UNSAFE_COUNTS)
+        if unsafe_one != unsafe:
+            fail(f"[flat batch] B={B}: unsafe rows a cloud {unsafe} flat, "
+                 f"{unsafe_one} cloud by cloud")
+        safe_flat = flat_safe(q[:B], r[:B], v[:B])
+        n_diff, worst, n_both = 0, 0.0, 0
+        for b, (v1, qid1) in enumerate(one):
+            mine = (qid >= b * Nq) & (qid < (b + 1) * Nq)
+            real1 = qid1 < Nq
+            if not torch.equal(qid[mine] - b * Nq, qid1[real1]):
+                fail(f"[flat batch] B={B}: cloud {b}'s layout order differs "
+                     "from its own pass's")
+            st1 = grid_knn._build_struct(r[b], GRID_SHAPE, skip_z_sort=True)
+            _, safe1, _, _ = grid_knn._query_pass(
+                st1, q[b], 3, GRID_SHAPE, GRID_TQ, SLOT_CAP, values=v[b],
+                layout_out=True)
+            both = safe_flat[b] & safe1[real1]
+            a, w = v_lay[mine], v1[real1]
+            n_both += int(both.sum())
+            if not torch.equal(a[both], w[both]):
+                fail(f"[flat batch] B={B}: cloud {b}'s values differ on rows "
+                     "both paths prove safe")
+            if not np.isfinite(values_err(a, w)):
+                fail(f"[flat batch] B={B}: cloud {b}'s values differ beyond "
+                     "rtol 1e-6")
+            n_diff += int((a != w).any(1).sum())
+            worst = max(worst, float((a - w).abs().max()))
+        flat_t = call_times(
+            lambda: grid_knn.grid_knn_interpolate_layout_batched(
+                q[:B], r[:B], v[:B]))
+        one_t = call_times(lambda: [grid_knn.grid_knn_interpolate_layout(
+            q[b], r[b], v[b]) for b in range(B)])
+        out[f"B{B}"] = dict(launches={k: n for k, n in got.items() if n},
+                            unsafe=unsafe, rows_differ=n_diff,
+                            host_ms=[flat_t[0], one_t[0]],
+                            device_ms=[flat_t[1], one_t[1]])
+        print(f"[flat batch] grid_knn_interpolate_layout_batched B={B} "
+              f"(groups {groups}) x {Nq} queries x {M_POINTS} refs: launches "
+              f"{out[f'B{B}']['launches']}; unsafe rows a cloud {unsafe} "
+              f"(the same cloud by cloud); each cloud's layout order that of "
+              f"its own pass; values identical on the {n_both} rows both "
+              f"paths prove safe, {n_diff} rows differ in all, largest "
+              f"|diff| {worst:.3g}; a call {flat_t[0]:.2f} ms host, "
+              f"{flat_t[1]:.2f} ms device, cloud by cloud {one_t[0]:.2f} / "
+              f"{one_t[1]:.2f} ms ({card})")
+
+    # the strip patch: the unsafe rows of cloud 0 (at most 4,096), kernel
+    # against the plain version on the same inputs
+    st0 = grid_knn._build_struct(r[0], GRID_SHAPE)
+    _, unsafe0 = grid_knn._query_pass(st0, q[0], 3, GRID_SHAPE, GRID_TQ,
+                                      SLOT_CAP, values=v[0])
+    ids = unsafe0.nonzero()[:, 0][:4096].int()
+    ids = torch.cat([ids, ids.new_full((4096 - len(ids),), Nq)])
+    vals0 = grid_knn._sorted_values(st0, v[0])
+    reset_launch_counts()
+    ids_k, v_sk, fail_k = grid_knn._strip_interp_patch(
+        st0, GRID_SHAPE, q[0], ids, vals0, 3, 1e-8)
+    torch.cuda.synchronize()
+    launched = LAUNCH_COUNTS["grid_interp"]
+    kernel = grid_knn.grid_interp
+    grid_knn.grid_interp = grid_interp_plain
+    try:
+        ids_p, v_sp, fail_p = grid_knn._strip_interp_patch(
+            st0, GRID_SHAPE, q[0], ids, vals0, 3, 1e-8)
+    finally:
+        grid_knn.grid_interp = kernel
+    real = ids_p < Nq
+    check_equal("[flat batch] strip patch", ids_k, ids_p, "row ids")
+    check_equal("[flat batch] strip patch", fail_k, fail_p, "fail flags")
+    s_err = values_err(v_sk[real], v_sp[real])
+    if launched != 1 or not np.isfinite(s_err):
+        fail(f"[flat batch] strip patch: {launched} grid_interp launches, "
+             f"values err {s_err}")
+    print(f"[flat batch] _strip_interp_patch, {int(real.sum())} unsafe rows "
+          f"of cloud 0 in 32 tiles of 128, 64-block strips: one grid_interp "
+          f"launch; ids and fail flags identical to its plain run "
+          f"({int(fail_k.sum())} rows fail), max |v| err {s_err:.3g} ({card})")
+    return out
 
 
 # each training mini-step's launches (the Chamfer's two k=1 kNN, the
@@ -2668,13 +2925,15 @@ def phase_test(rng: np.random.Generator, dev: torch.device, card: str,
             orig_emd
     if rc != 0 or len(testers) != 1:
         fail(f"test CLI: rc {rc}, {len(testers)} testers")
-    # per direction: the grid cloud by cloud every step, the encoder's FPS
+    # per direction: the grid one flat-batched pass a step for the batch
+    # (a patch launch when either cloud has unsafe rows), the encoder's FPS
     # and ball query once for the batch; the metrics: 14 row minima
     # (4 Chamfer x 2, Hausdorff 2 x 2, coverage 1 x 2) and one k=9 kNN per
     # uniformity
     n_clouds = 2 * TEST_BATCH
-    want = expect_counts(grid_interp=n_clouds * STEPS, fps=4, ball_query=4,
-                         rowmin=14, knn_topk=sum(u > 0 for u in unsafe) + 2)
+    want = expect_counts(grid_interp=2 * STEPS, fps=4, ball_query=4,
+                         rowmin=14, knn_topk=patch_launches(
+                             unsafe, [TEST_BATCH] * 2 * STEPS) + 2)
     if counts != want or len(unsafe) != n_clouds * STEPS:
         fail(f"test CLI: launches {counts} != {want} ({len(unsafe)} grid "
              "passes)")
@@ -2698,8 +2957,9 @@ def phase_test(rng: np.random.Generator, dev: torch.device, card: str,
     print(f"[test] cli.test from {os.path.basename(paths['best'])}/, "
           f"{TEST_PAIRS} pairs of {N_POINTS} points at --batch_size "
           f"{TEST_BATCH}, both directions, {STEPS} steps, every metric: "
-          f"launches {counts} ({sum(u > 0 for u in unsafe)} grid steps "
-          f"patched); {tester.seconds:.3f} s per batch (Tester.test, "
+          f"launches {counts} ({sum(u > 0 for u in unsafe)} of "
+          f"{len(unsafe)} clouds' grid steps with unsafe rows); "
+          f"{tester.seconds:.3f} s per batch (Tester.test, "
           f"{tester.seconds / n_clouds:.4f} s per generated cloud with its "
           f"metrics), {cli_s:.3f} s for the CLI with checkpoint load and "
           f"file IO ({card})")
@@ -2816,10 +3076,14 @@ def phase_benchmark(card: str, work: str) -> None:
     with open(path) as f:
         res = json.load(f)
     samples = [res["sampling"]] + res["sampling_batched"]
-    clouds = 3 * sum(s["batch"] for s in samples)  # warm-up + 2 timed calls
-    want = expect_counts(grid_interp=clouds * STEPS, fps=2 * 3 * len(samples),
+    # warm-up + 2 timed calls of each batch size, the grid one pass a step
+    # for each group of at most 8 clouds
+    groups = [g for s in samples for _ in range(3 * STEPS)
+              for g in batch_groups(s["batch"])]
+    want = expect_counts(grid_interp=len(groups), fps=2 * 3 * len(samples),
                          ball_query=2 * 3 * len(samples),
-                         knn_topk=sum(u > 0 for u in grid_knn.UNSAFE_COUNTS))
+                         knn_topk=patch_launches(
+                             list(grid_knn.UNSAFE_COUNTS), groups))
     rows = res["forward"] + res["scaling"] + samples + [
         res["hierarchical_vs_direct"]]
     keys = {"device", "quick", "forward", "hierarchical_vs_direct", "scaling",
@@ -3089,6 +3353,7 @@ def main() -> int:
     records = phase_kernels(rng, dev)
     phase_reference(rng, dev)
     counts = phase_main_path(rng, dev, card)
+    flat = phase_flat_batch(dev, card)
     with tempfile.TemporaryDirectory() as work:
         paths = phase_train(rng, dev, card, work)
         phase_train_reference(dev)
@@ -3103,6 +3368,7 @@ def main() -> int:
     parallel = phase_parallel(dev, card)
     records["grid_topk"].update(launches=counts["grid_topk"],
                                 path="cli.inference --fast")
+    records["grid_interp"]["flat_batch"] = flat
     for name, rec in records.items():
         rec.setdefault("launches", counts[name])
         rec["cli_test_launches"] = test_counts[name]

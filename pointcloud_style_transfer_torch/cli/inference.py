@@ -38,6 +38,7 @@ from ..data.preprocessing import (PointCloudPreprocessor,
 from ..device import resolve_device
 from ..models import (guided_sample_loop, guided_sample_loop_coarse,
                       make_schedule)
+from ..utils.cache import enable_compilation_cache
 from ..utils.checkpoint import load_for_inference
 from ..utils.visualization import plot_style_transfer_result
 from ._common import load_point_cloud
@@ -196,6 +197,7 @@ def main(argv=None) -> int:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    enable_compilation_cache()
     logging.basicConfig(level=logging.INFO)
 
     if args.source_dir is None and not (args.source and args.reference

@@ -17,6 +17,7 @@ import os
 import numpy as np
 
 from ..device import resolve_device
+from ..utils.cache import enable_compilation_cache
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logger import get_logger
 from ._common import load_point_cloud
@@ -38,6 +39,7 @@ def main(argv=None) -> int:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    enable_compilation_cache()
     device = resolve_device(args.device)
 
     log = get_logger("progress")

@@ -47,6 +47,7 @@ from ..evaluation import (chamfer_distance, coverage_score,
 from ..models import (guided_sample_loop, guided_sample_loop_coarse,
                       make_schedule)
 from ..parallel import POINTS_AXIS, make_mesh
+from ..utils.cache import enable_compilation_cache
 from ..utils.checkpoint import load_for_inference
 from ..utils.logger import get_logger
 from ..utils.visualization import plot_style_transfer_result
@@ -226,6 +227,7 @@ def main(argv=None) -> int:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    enable_compilation_cache()
     device = resolve_device(args.device)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # under torchrun
         make_mesh(device_type=device.type)  # joins the default group

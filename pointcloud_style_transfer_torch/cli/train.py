@@ -14,6 +14,7 @@ from ..config import Config
 from ..data import create_dataloaders
 from ..device import resolve_device
 from ..training import DiffusionTrainer
+from ..utils.cache import enable_compilation_cache
 from ._common import add_config_overrides, apply_overrides
 
 
@@ -28,6 +29,7 @@ def main(argv=None) -> int:
                         choices=(0, 1))
     parser.add_argument("--val_interval", type=int, default=None)
     args = parser.parse_args(argv)
+    enable_compilation_cache()
 
     config = apply_overrides(Config(), args)
     if args.learning_rate is not None:

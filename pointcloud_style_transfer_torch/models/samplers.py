@@ -90,7 +90,9 @@ def _upsample_unknown(x: torch.Tensor, idx: torch.Tensor,
 
     ``unknown`` (the complement of ``idx``), ``ref_xyz`` (x at ``idx``) and
     ``unknown_xyz`` (x at ``unknown``) are recomputed when not given. The
-    grid backend runs cloud by cloud. ``selections`` (a dict) pins the
+    grid backend takes one cloud in its layout order, and B > 1 clouds
+    through ``grid_knn_interpolate`` (flat-batched where the grid allows).
+    ``selections`` (a dict) pins the
     neighbours: replayed from ``selections[key]`` when it holds them (their
     distances recomputed in the kernels' form), else the backend's recorded
     there (the grid's from its kNN path, ``grid_knn``); the points they are
@@ -118,9 +120,11 @@ def _upsample_unknown(x: torch.Tensor, idx: torch.Tensor,
     elif knn_backend == "grid":
         if selections is not None:
             selections[key] = knn(q_unknown, ref_xyz, k, backend="grid")[1]
-        vals = torch.stack([_grid_interpolate(q[b], ref_xyz[b],
-                                              coarse_vals[b], k)
-                            for b in range(B)])
+        if B == 1:
+            vals = _grid_interpolate(q[0], ref_xyz[0], coarse_vals[0],
+                                     k)[None]
+        else:  # flat-batched when the grid allows, as on the TPU
+            vals = grid_knn.grid_knn_interpolate(q, ref_xyz, coarse_vals, k)
         return _unpermute_assemble(idx, unknown, coarse_vals, gather(vals), N)
     else:
         sq_d, nbr = knn(q, ref_xyz, k, backend=knn_backend)

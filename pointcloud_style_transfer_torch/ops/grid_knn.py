@@ -20,11 +20,20 @@ candidates near each query (counterpart of
    rows, or every row once they outnumber the last tier of
    ``_fallback_caps``, as the TPU's ``lax.switch`` ladder does.
 
+A batch of B > 1 clouds runs flat when the grid covers whole columns
+(``_batched_grid_ok``), as on the TPU: one structure build over all clouds
+(``_build_struct_batched``, cloud b's sorted refs at [b*M_pad, b*M_pad + M)
+of one array), one layout over the B*Sx*Sy (cloud, slab, row) rows with
+each tile's runs shifted into its cloud's part of the refs, one
+``grid_interp`` launch, and one fallback ladder whose tier comes from the
+largest per-cloud unsafe count: one host sync and at most one brute-force
+launch (with a batch axis) a group of at most ``_BATCHED_MAX_GROUP`` clouds.
+
 The TPU path's devices for its memory (one-hot matmul lookups, sorts that
 stand for scatters, float-valued query ids, 128-aligned kernel windows,
 padded patch buffers) are plain indexing and scatters here; they change no
 result. The number of rows each pass could not prove exact is kept in
-``UNSAFE_COUNTS`` (one entry per pass, the latest 4,096).
+``UNSAFE_COUNTS`` (one entry per cloud and pass, the latest 4,096).
 """
 
 from __future__ import annotations
@@ -42,8 +51,10 @@ from .kernels.knn_packed import MAX_REFS, padded_refs
 _FAR = 1e15  # padding coordinate of queries and refs
 _INF = 3e38  # open domain edges of the boundary tables
 _LANE = 128  # the slot-window granularity of the grid's tables
+GRID_SHAPE = (16, 12, 8)  # the entry points' default grid
+SLOT_CAP = 384  # and slot window (refs)
 
-# rows each grid pass could not prove exact, one entry per pass
+# rows each grid pass could not prove exact, one entry per cloud and pass
 UNSAFE_COUNTS: collections.deque = collections.deque(maxlen=4096)
 
 
@@ -103,10 +114,11 @@ def _device_tables(M: int, grid_shape, device: torch.device) -> dict:
 
 
 def _stable_argsort_2key(k1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
-    """Permutation sorting by (k1, k2), ties in input order: a stable sort
-    on the second key, then on the first."""
-    o = torch.sort(k2, stable=True).indices
-    return o[torch.sort(k1[o], stable=True).indices]
+    """Permutation sorting by (k1, k2) along k2's last axis, ties in input
+    order: a stable sort on the second key, then on the first (``k1`` [M]
+    holds the first key of each position, shared by every row of k2)."""
+    o = torch.sort(k2, dim=-1, stable=True).indices
+    return torch.gather(o, -1, torch.sort(k1[o], dim=-1, stable=True).indices)
 
 
 def _build_ref_structure(ref: torch.Tensor, grid_shape,
@@ -148,11 +160,61 @@ def _build_struct(ref: torch.Tensor, grid_shape,
                       yb_full, zb_full, CS, M, M_pad)
 
 
+class GridStructBatched(NamedTuple):
+    """The grids over B ref sets of M refs each, built together with whole
+    columns (no z order): cloud b's sorted refs at [b*M_pad, b*M_pad + M)
+    of one array, ``_FAR`` padding between the clouds. The JAX package's
+    tuple order, then the cell starts (a constant there)."""
+    refs_pad: torch.Tensor   # [B*M_pad, 3]
+    order_g: torch.Tensor    # [B*M] sorted position -> global ref id b*M + i
+    xb: torch.Tensor         # [B, Sx-1]
+    yb: torch.Tensor         # [B, Sx, Sy-1]
+    xb_full: torch.Tensor    # [B, Sx+1]
+    yb_full: torch.Tensor    # [B, Sx, Sy+1]
+    M: int
+    M_pad: int
+    CS: torch.Tensor         # [Sx*Sy*Sz+1] cell starts of one cloud
+
+
+def _build_struct_batched(ref: torch.Tensor, grid_shape) -> GridStructBatched:
+    """The grids of B ref sets [B, M, 3] float32 in one build: each sort
+    runs over every cloud at once along the point axis, which orders like
+    the TPU's composite (cloud, key) sorts over [B*M]; each cloud's order is
+    that of its own ``_build_struct(..., skip_z_sort=True)``."""
+    Sx, Sy, _ = grid_shape
+    B, M, _ = ref.shape
+    tab = _device_tables(M, tuple(grid_shape), ref.device)
+    x1, i1 = torch.sort(ref[..., 0], dim=1, stable=True)
+    i2 = torch.gather(i1, 1, _stable_argsort_2key(
+        tab["slab_pos"], torch.gather(ref[..., 1], 1, i1)))
+    y2 = torch.gather(ref[..., 1], 1, i2)
+    xb = x1[:, tab["SB_inner"]]
+    yb = y2[:, tab["RB_inner"]]
+    M_pad = -(-M // _LANE) * _LANE
+    refs_s = torch.gather(ref, 1, i2[..., None].expand(B, M, 3))
+    refs_pad = torch.cat([refs_s, refs_s.new_full((B, M_pad - M, 3), _FAR)],
+                         dim=1).reshape(B * M_pad, 3)
+    inf = ref.new_full((B, 1), _INF)
+    xb_full = torch.cat([-inf, xb, inf], dim=1)
+    yb_full = torch.cat([(-inf)[:, None].expand(B, Sx, 1), yb,
+                         inf[:, None].expand(B, Sx, 1)], dim=2)
+    order_g = (i2 + torch.arange(B, device=ref.device)[:, None] * M
+               ).reshape(-1)
+    return GridStructBatched(refs_pad.contiguous(), order_g, xb, yb, xb_full,
+                             yb_full, M, M_pad, tab["CS"])
+
+
+def _at(table: torch.Tensor, tb: Optional[torch.Tensor], *idx):
+    """``table[tb, *idx]``: a batched grid's table of the tile's cloud
+    ``tb``; with ``tb`` None a one-cloud table, indexed as it is."""
+    return table[idx] if tb is None else table[(tb,) + idx]
+
+
 class Slots(NamedTuple):
     """A query pass's tile layout and slot tables, with what its margins
     read."""
     q_pad: torch.Tensor      # [NP, 3] row-padded queries, padding at _FAR
-    orig_pad: torch.Tensor   # [NP] query id per position, Nq on padding
+    orig_pad: torch.Tensor   # [NP] query id per position, B*Nq on padding
     real: torch.Tensor       # [T, tq] real (non-padding) positions
     n_real: torch.Tensor     # [T] int32 real rows per tile (a prefix)
     st: torch.Tensor         # [T, S] int32 run starts (sorted positions)
@@ -160,6 +222,7 @@ class Slots(NamedTuple):
     tile_ok: torch.Tensor    # [T] every run fits its window
     full_z: bool
     halo: tuple              # (Hx, Hy)
+    tb: Optional[torch.Tensor]  # [T] the tile's cloud; None for one cloud
     tsx: torch.Tensor        # [T] the tile's slab
     sx3c: torch.Tensor       # [T, 2Hx+1] neighbour slabs, clipped
     slab3_ok: torch.Tensor   # [T, 2Hx+1] neighbour slab exists
@@ -168,18 +231,26 @@ class Slots(NamedTuple):
     #                          valid_pair), else None
 
 
-def _layout_slots(struct: GridStruct, query: torch.Tensor, grid_shape,
+def _layout_slots(struct, query: torch.Tensor, grid_shape,
                   tq: int, slot_cap: int, z_halo: int = 2, xy_halo=1,
                   full_z: Optional[bool] = None) -> Slots:
     """Lay the queries out in row-padded tiles and build each tile's slot
-    runs (``_query_pass`` up to its kernel call, op for op)."""
+    runs (``_query_pass`` up to its kernel call, op for op). ``query`` is
+    [Nq, 3] against a ``GridStruct``, or [B, Nq, 3] against a
+    ``GridStructBatched``: then one layout covers the B*Sx*Sy (cloud, slab,
+    row) rows, query ids are b*Nq + i, and a tile's runs are shifted into
+    its cloud's part of the refs (whole columns only)."""
     Sx, Sy, Sz = grid_shape
-    Nq = query.shape[0]
-    R = Sx * Sy
-    bps = slot_cap // _LANE
     s = struct
+    batched = isinstance(s, GridStructBatched)
     dev = query.device
-    query = query.float()
+    # one cloud's tables are indexed as they are: no cloud arithmetic
+    qb = query.float() if batched else query.float()[None]
+    B, Nq = qb.shape[:2]
+    Ng = B * Nq
+    R = Sx * Sy
+    Rg = B * R
+    bps = slot_cap // _LANE
     full_z_ok = _full_z_ok(s.M, grid_shape, slot_cap)
     if full_z is None:
         full_z = full_z_ok
@@ -187,37 +258,44 @@ def _layout_slots(struct: GridStruct, query: torch.Tensor, grid_shape,
         raise ValueError(
             f"full_z requires max row length + {_LANE - 1} <= slot_cap "
             f"{slot_cap} (M={s.M}, grid_shape={grid_shape})")
+    if batched and not full_z:
+        raise ValueError("the batched grid pass requires whole-column slots "
+                         f"(M={s.M}, grid_shape={grid_shape}, "
+                         f"slot_cap={slot_cap})")
 
-    # --- query cells ---
-    qsx = (query[:, 0:1] >= s.xb[None, :]).sum(1)
-    qsy = (query[:, 1:2] >= s.yb[qsx]).sum(1)
+    # --- query cells (global rows: cloud * R + slab * Sy + row) ---
+    cloud = torch.arange(B, device=dev)[:, None] if batched else None
+    xb = s.xb if batched else s.xb[None]
+    qsx = (qb[..., 0:1] >= xb[:, None, :]).sum(2)  # [B, Nq]
+    qsy = (qb[..., 1:2] >= _at(s.yb, cloud, qsx)).sum(2)
     qrow = qsx * Sy + qsy
     if full_z:
         qsz = torch.zeros_like(qrow)
     else:
-        qsz = (query[:, 2:3] >= s.zb[qrow]).sum(1)
+        qsz = (qb[..., 2:3] >= s.zb[qrow]).sum(2)
+    grow = cloud * R + qrow if batched else qrow
 
     # --- row-padded layout ---
-    ck_s, oq = torch.sort(qrow * Sz + qsz, stable=True)
+    ck_s, oq = torch.sort((grow * Sz + qsz).reshape(-1), stable=True)
     row_s = ck_s // Sz
-    rowstart = torch.searchsorted(row_s, torch.arange(R + 1, device=dev))
+    rowstart = torch.searchsorted(row_s, torch.arange(Rg + 1, device=dev))
     counts = rowstart[1:] - rowstart[:-1]
     pcounts = -(-counts // tq) * tq
     prowstart = torch.cat([counts.new_zeros(1), torch.cumsum(pcounts, 0)])
-    NP = -(-(Nq + R * tq) // tq) * tq  # static bound on the padded length
+    NP = -(-(Ng + Rg * tq) // tq) * tq  # static bound on the padded length
     T = NP // tq
     trow_all = torch.searchsorted(
         prowstart, torch.arange(T, device=dev) * tq, right=True) - 1
-    trow = trow_all.clamp(0, R - 1)
-    in_rows = (trow_all < R) & (trow_all >= 0)
+    trow = trow_all.clamp(0, Rg - 1)
+    in_rows = (trow_all < Rg) & (trow_all >= 0)
     src = (torch.arange(NP, device=dev).reshape(T, tq)
            - (prowstart[trow] - rowstart[trow])[:, None])
     valid = (src < rowstart[trow + 1][:, None]) & in_rows[:, None]
-    src = src.clamp(0, Nq - 1).reshape(-1)
+    src = src.clamp(0, Ng - 1).reshape(-1)
     vflat = valid.reshape(-1)
-    q_pad = torch.where(vflat[:, None], query[oq[src]],
-                        query.new_full((1, 3), _FAR)).contiguous()
-    orig_pad = torch.where(vflat, oq[src], Nq)
+    q_pad = torch.where(vflat[:, None], qb.reshape(Ng, 3)[oq[src]],
+                        qb.new_full((1, 3), _FAR)).contiguous()
+    orig_pad = torch.where(vflat, oq[src], Ng)
 
     # --- per-tile value ranges over real queries ---
     qt = q_pad.reshape(T, tq, 3)
@@ -233,15 +311,20 @@ def _layout_slots(struct: GridStruct, query: torch.Tensor, grid_shape,
                             torch.where(valid, qt[:, :, 2], _INF).amin(1))
         vzmax = torch.where(empty_t, 0.0,
                             torch.where(valid, qt[:, :, 2], -_INF).amax(1))
-    tsx = trow // Sy
+    # a tile never straddles clouds
+    tb, tsx = (trow // R, (trow % R) // Sy) if batched else (None, trow // Sy)
+    tb2 = None if tb is None else tb[:, None]
 
-    # --- slots ---
+    # --- slots, shifted into the tile's cloud's part of the refs ---
     Hx, Hy = (xy_halo, xy_halo) if isinstance(xy_halo, int) else xy_halo
     W1 = 2 * Hx + 1
     sx3 = tsx[:, None] + torch.arange(-Hx, Hx + 1, device=dev)[None, :]
     slab3_ok = (sx3 >= 0) & (sx3 < Sx)
     sx3c = sx3.clamp(0, Sx - 1)
-    r3 = (yc[:, None, None] >= s.yb[sx3c]).sum(2)  # [T, W1]
+    r3 = (yc[:, None, None] >= _at(s.yb, tb2, sx3c)).sum(2)  # [T, W1]
+
+    def shift(pos):  # into the tile's cloud's part of the refs
+        return pos if tb is None else pos + tb2 * s.M_pad
     yrun = False
     if full_z:
         # y-run slots: a slab's rows are adjacent runs of the sorted refs,
@@ -258,8 +341,9 @@ def _layout_slots(struct: GridStruct, query: torch.Tensor, grid_shape,
     if yrun:
         y_lo_r = (r3 - Hy).clamp(0, Sy - 1)
         y_hi_r = (r3 + Hy).clamp(0, Sy - 1)
-        st = torch.where(slab3_ok, CS[(sx3c * Sy + y_lo_r) * Sz], 0)
-        en = torch.where(slab3_ok, CS[(sx3c * Sy + y_hi_r) * Sz + Sz], 0)
+        st = torch.where(slab3_ok, shift(CS[(sx3c * Sy + y_lo_r) * Sz]), 0)
+        en = torch.where(slab3_ok,
+                         shift(CS[(sx3c * Sy + y_hi_r) * Sz + Sz]), 0)
         tile_ok = torch.ones(T, dtype=torch.bool, device=dev)
     else:
         offs = np.array([(dx, dy) for dx in range(-Hx, Hx + 1)
@@ -270,10 +354,10 @@ def _layout_slots(struct: GridStruct, query: torch.Tensor, grid_shape,
         valid_pair = slab3_ok[:, dxi] & (sy2 >= 0) & (sy2 < Sy)
         row2 = sx2.clamp(0, Sx - 1) * Sy + sy2.clamp(0, Sy - 1)
         if full_z:
-            st = torch.where(valid_pair, CS[row2 * Sz], 0)
-            en = torch.where(valid_pair, CS[row2 * Sz + Sz], 0)
+            st = torch.where(valid_pair, shift(CS[row2 * Sz]), 0)
+            en = torch.where(valid_pair, shift(CS[row2 * Sz + Sz]), 0)
             tile_ok = torch.ones(T, dtype=torch.bool, device=dev)
-        else:
+        else:  # one cloud: the batched pass takes whole columns only
             zb2 = s.zb[row2]  # [T, S, Sz-1]
             zlo = ((vzmin[:, None, None] >= zb2).sum(2) - z_halo).clamp(
                 0, Sz - 1)
@@ -287,40 +371,49 @@ def _layout_slots(struct: GridStruct, query: torch.Tensor, grid_shape,
             tile_ok = (en - stb * _LANE <= slot_cap).all(1)
             pairs = (sx2, sy2, row2, zlo, zhi, valid_pair)
     return Slots(q_pad, orig_pad, valid, n_real, st.int().contiguous(),
-                 en.int().contiguous(), tile_ok, full_z, (Hx, Hy), tsx,
+                 en.int().contiguous(), tile_ok, full_z, (Hx, Hy), tb, tsx,
                  sx3c, slab3_ok, r3, pairs)
 
 
-def _safe_rows(struct: GridStruct, sl: Slots, d_s: torch.Tensor, k: int,
-               grid_shape) -> torch.Tensor:
+def _safe_rows(struct, sl: Slots, d_s: torch.Tensor, k: int, grid_shape,
+               diag: bool = False):
     """[T, tq] rows whose k nearest candidates are provably the k nearest
     refs: the ball of the k-th distance stays inside the covered region
     (the x strip, each covered slab's y band, and in windowed mode each
     pair's z-run; all in squared distance), the tile's runs fit their
-    windows and k candidates were found."""
+    windows and k candidates were found. Each tile reads its own cloud's
+    boundary tables. ``diag`` also returns the margin terms ([T, tq] each:
+    ``msq_x``, ``msq_slab``, ``msq_pair`` (inf with whole columns),
+    ``d_last``, ``tile_ok``)."""
     Sx, Sy, Sz = grid_shape
     s = struct
+    xb_full, yb_full = s.xb_full, s.yb_full
     Hx, Hy = sl.halo
     T, tq = sl.real.shape
+    tb = sl.tb
+    tb2 = None if tb is None else tb[:, None]
     qt = sl.q_pad.reshape(T, tq, 3)
     qx_t, qy_t, qz_t = qt[:, :, 0], qt[:, :, 1], qt[:, :, 2]
-    x_lo = s.xb_full[(sl.tsx - Hx).clamp(min=0)]
-    x_hi = s.xb_full[(sl.tsx + Hx).clamp(max=Sx - 1) + 1]
+    x_lo = _at(xb_full, tb, (sl.tsx - Hx).clamp(min=0))
+    x_hi = _at(xb_full, tb, (sl.tsx + Hx).clamp(max=Sx - 1) + 1)
     m_x = torch.minimum(qx_t - x_lo[:, None], x_hi[:, None] - qx_t)
     msq_x = m_x * m_x
 
-    sXlo = s.xb_full[sl.sx3c]
-    sXhi = s.xb_full[sl.sx3c + 1]
+    sXlo = _at(xb_full, tb2, sl.sx3c)
+    sXhi = _at(xb_full, tb2, sl.sx3c + 1)
     dx_s = torch.maximum(sXlo[:, None, :] - qx_t[:, :, None],
                          qx_t[:, :, None] - sXhi[:, None, :]).clamp(min=0.0)
-    y_lo_cand = s.yb_full[sl.sx3c, (sl.r3 - Hy).clamp(min=0)]
-    y_hi_cand = s.yb_full[sl.sx3c, (sl.r3 + Hy).clamp(max=Sy - 1) + 1]
+    y_lo_cand = _at(yb_full, tb2, sl.sx3c, (sl.r3 - Hy).clamp(min=0))
+    y_hi_cand = _at(yb_full, tb2, sl.sx3c,
+                    (sl.r3 + Hy).clamp(max=Sy - 1) + 1)
     my_s = torch.minimum(qy_t[:, :, None] - y_lo_cand[:, None, :],
                          y_hi_cand[:, None, :] - qy_t[:, :, None]
                          ).clamp(min=0.0)
     term_s = torch.where(sl.slab3_ok[:, None, :], dx_s * dx_s + my_s * my_s,
                          _INF)
-    msq = torch.minimum(msq_x, term_s.amin(2))
+    msq_slab = term_s.amin(2)
+    msq = torch.minimum(msq_x, msq_slab)
+    msq_pair = None
     if sl.pairs is not None:
         sx2, sy2, row2, zlo, zhi, valid_pair = sl.pairs
         sx2c, sy2c = sx2.clamp(0, Sx - 1), sy2.clamp(0, Sy - 1)
@@ -339,22 +432,39 @@ def _safe_rows(struct: GridStruct, sl: Slots, d_s: torch.Tensor, k: int,
                              ).clamp(min=0.0)
         term_p = torch.where(valid_pair[:, None, :],
                              dx_p * dx_p + dy_p * dy_p + mz_p * mz_p, _INF)
-        msq = torch.minimum(msq, term_p.amin(2))
+        msq_pair = term_p.amin(2)
+        msq = torch.minimum(msq, msq_pair)
     d_last = d_s[:, k - 1].reshape(T, tq)
-    return sl.tile_ok[:, None] & (d_last <= msq) & (d_last < 1e29)
+    safe = sl.tile_ok[:, None] & (d_last <= msq) & (d_last < 1e29)
+    if not diag:
+        return safe
+    return safe, {
+        "msq_x": msq_x, "msq_slab": msq_slab,
+        "msq_pair": (torch.full_like(msq_x, _INF) if msq_pair is None
+                     else msq_pair),
+        "d_last": d_last, "tile_ok": sl.tile_ok[:, None].expand(T, tq)}
 
 
-def _query_pass(struct: GridStruct, query: torch.Tensor, k: int, grid_shape,
+def _query_pass(struct, query: torch.Tensor, k: int, grid_shape,
                 tq: int, slot_cap: int, z_halo: int = 2, xy_halo=1,
                 values: Optional[torch.Tensor] = None, eps: float = 1e-8,
-                full_z: Optional[bool] = None, layout_out: bool = False):
+                full_z: Optional[bool] = None, layout_out: bool = False,
+                diag: bool = False):
     """One grid query pass against a built structure. Returns (d [Nq, k],
     ref ids [Nq, k], unsafe [Nq]) in query order, or (v [Nq, C], unsafe) in
     interpolation mode (``values`` [M, C] given). ``layout_out``
     (interpolation only) returns the padded layout instead: (v [NP, C],
-    safe [NP], qid [NP] with Nq on padding, q_pad [NP, 3]). ``xy_halo`` is
-    an int or (Hx, Hy)."""
+    safe [NP], qid [NP] with Nq on padding, q_pad [NP, 3]). ``diag`` (not
+    with ``layout_out``) appends a dict of the margin terms in query order
+    (see ``_safe_rows``). ``xy_halo`` is an int or (Hx, Hy). A
+    ``GridStructBatched`` takes [B, Nq, 3] queries and [B, M, C] values in
+    layout mode only: one ``grid_interp`` launch over every cloud's tiles,
+    qid the global query ids b*Nq + i with B*Nq on padding."""
     s = struct
+    if isinstance(s, GridStructBatched) and not (
+            layout_out and values is not None):
+        raise ValueError("a batched grid pass runs the interpolation in "
+                         "layout order only")
     sl = _layout_slots(s, query, grid_shape, tq, slot_cap, z_halo, xy_halo,
                        full_z)
     if values is not None:
@@ -365,9 +475,12 @@ def _query_pass(struct: GridStruct, query: torch.Tensor, k: int, grid_shape,
                               sl.n_real)
         gidx = gidx.long()
         ridx = torch.where(gidx < s.M, s.order_r[gidx.clamp(0, s.M - 1)], 0)
-    safe = _safe_rows(s, sl, d_s, k, grid_shape).reshape(-1)
+    safe = _safe_rows(s, sl, d_s, k, grid_shape, diag)
+    if diag:
+        safe, terms = safe
+    safe = safe.reshape(-1)
     if layout_out:
-        assert values is not None
+        assert values is not None and not diag
         return v_s, safe, sl.orig_pad, sl.q_pad
     # query order: position of each query id in the layout (padding rows,
     # all carrying id Nq, land in the dropped last slot)
@@ -376,15 +489,24 @@ def _query_pass(struct: GridStruct, query: torch.Tensor, k: int, grid_shape,
     posq = sl.orig_pad.new_empty(Nq + 1).scatter_(
         0, sl.orig_pad, torch.arange(NP, device=query.device))[:Nq]
     unsafe = ~safe[posq]
-    if values is not None:
-        return v_s[posq], unsafe
-    return d_s[posq], ridx[posq].int(), unsafe
+    out = ((v_s[posq], unsafe) if values is not None
+           else (d_s[posq], ridx[posq].int(), unsafe))
+    if diag:
+        out += ({n: t.reshape(-1)[posq] for n, t in terms.items()},)
+    return out
 
 
-def _sorted_values(struct: GridStruct, values: torch.Tensor) -> torch.Tensor:
-    """values [M, C] in the grid's sorted order, zero-padded to M_pad."""
-    v = values.float()[struct.order_r]
-    return torch.cat([v, v.new_zeros((struct.M_pad - struct.M, v.shape[1]))]
+def _sorted_values(struct, values: torch.Tensor) -> torch.Tensor:
+    """values [M, C] ([B, M, C] for a batched grid) in the grid's sorted
+    order, zero-padded to M_pad a cloud."""
+    s = struct
+    if isinstance(s, GridStructBatched):
+        B, M, C = values.shape
+        v = values.float().reshape(B * M, C)[s.order_g].reshape(B, M, C)
+        return torch.cat([v, v.new_zeros((B, s.M_pad - M, C))], dim=1
+                         ).reshape(B * s.M_pad, C).contiguous()
+    v = values.float()[s.order_r]
+    return torch.cat([v, v.new_zeros((s.M_pad - s.M, v.shape[1]))]
                      ).contiguous()
 
 
@@ -418,8 +540,21 @@ def _interp_weights(sq_d: torch.Tensor, eps: float) -> torch.Tensor:
     return w / w.sum(-1, keepdim=True)
 
 
+def _brute_interp_batched(query, ref, values, k: int, eps: float
+                          ) -> torch.Tensor:
+    """Brute kNN (the exact kernel, one launch for the batch) + inverse-
+    distance interpolation: [B, n, 3] x [B, M, 3], [B, M, C] -> [B, n, C]."""
+    d, i = knn_topk(query.contiguous(), ref.contiguous(), k)
+    w = _interp_weights(d, eps)
+    B, n, _ = query.shape
+    M, C = values.shape[1:]
+    idx = i.long().clamp(0, M - 1).reshape(B, n * k, 1).expand(B, n * k, C)
+    vb = torch.gather(values, 1, idx).reshape(B, n, k, C)
+    return (vb * w[..., None]).sum(2)
+
+
 def _brute_interp(query, ref, values, k: int, eps: float) -> torch.Tensor:
-    """Brute kNN + inverse-distance interpolation: [n, C]."""
+    """Brute kNN + inverse-distance interpolation of one cloud: [n, C]."""
     d, i = _brute(query, ref, k)
     w = _interp_weights(d, eps)
     vb = values[i.long().clamp(0, values.shape[0] - 1)]  # [n, k, C]
@@ -483,21 +618,215 @@ def _grid_interp_single(query, ref, values, k, grid_shape, tq, slot_cap,
     return v_out
 
 
+def _grid_interp_batched_layout(query, ref, values, k, grid_shape, tq,
+                                slot_cap, fallback_cap, eps, xy_halo):
+    """The flat-batched ``_grid_interp_single`` in layout order: query
+    [B, Nq, 3], ref [B, M, 3], values [B, M, C] -> (v [NPg, C], qid [NPg]
+    int32 global query ids b*Nq + i, B*Nq on padding), in one structure
+    build, one kernel pass and one fallback ladder for every cloud.
+
+    The ladder takes each cloud's unsafe count in one host sync (kept in
+    ``UNSAFE_COUNTS``, one entry a cloud) and picks the shared tier from
+    the largest, as the TPU does: above the last tier every row of every
+    cloud is brute-forced (in query order, then put in layout order through
+    qid); else each cloud's unsafe rows, compacted into [B, n_max] rows
+    padded at ``_FAR``, go through one brute-force launch with a batch
+    axis, each row against its own cloud's refs."""
+    B, Nq, _ = query.shape
+    Ng = B * Nq
+    query, ref, values = query.float(), ref.float(), values.float()
+    structb = _build_struct_batched(ref, grid_shape)
+    v_out, safe, qid, q_pad = _query_pass(
+        structb, query, k, grid_shape, tq, slot_cap, xy_halo=xy_halo,
+        values=values, eps=eps, layout_out=True)
+    NPg, C = v_out.shape
+    dev = query.device
+    unsafe = ~safe & (qid < Ng)  # padding never counts
+    cloud = torch.div(qid, Nq, rounding_mode="floor")  # B on padding
+    counts = torch.zeros(B + 1, dtype=torch.int64, device=dev).scatter_add_(
+        0, cloud, unsafe.long())[:B]
+    counts_l = counts.tolist()  # the one host sync of a group
+    UNSAFE_COUNTS.extend(counts_l)
+    n_max = max(counts_l)
+    if n_max > _fallback_caps(fallback_cap, Nq)[-1]:
+        v_orig = _brute_interp_batched(query, ref, values, k, eps)
+        v_out = torch.where((qid < Ng)[:, None],
+                            v_orig.reshape(Ng, C)[qid.clamp(max=Ng - 1)],
+                            v_out)
+    elif n_max:
+        # sorting (qid | Ng) puts each cloud's unsafe positions in one run,
+        # cloud after cloud; row j of cloud b is run entry starts[b] + j
+        pos_s = torch.sort(torch.where(unsafe, qid, Ng), stable=True).indices
+        starts = torch.cumsum(counts, 0) - counts
+        j = torch.arange(n_max, device=dev)
+        ok = j[None, :] < counts[:, None]
+        pos = torch.where(
+            ok, pos_s[(starts[:, None] + j[None, :]).clamp(max=NPg - 1)], NPg)
+        rows = torch.where(ok[..., None], q_pad[pos.clamp(max=NPg - 1)],
+                           _FAR)
+        patch = _brute_interp_batched(rows, ref, values, k, eps)
+        # padding rows of the patch all land in the dropped last row
+        v_out = torch.cat([v_out, v_out.new_zeros((1, C))]).index_copy_(
+            0, pos.reshape(-1), patch.reshape(-1, C))[:NPg]
+    return v_out, qid.int()
+
+
+# Clouds a flat-batched pass takes at most: larger batches run in groups of
+# this many, each one structure build, kernel pass and fallback ladder. The
+# TPU's ceiling is its on-chip memory; here the same groups keep the
+# reference's ladders (a group's tier follows its largest unsafe count) and
+# bound the layout's working memory.
+_BATCHED_MAX_GROUP = 8
+
+
+def _batched_grid_ok(B: int, Nq: int, M: int, grid_shape, slot_cap: int,
+                     k: int) -> bool:
+    """Whether the flat-batched interpolation applies: B > 1, global query
+    ids below 2^24, whole-column slots, and refs the grid engages."""
+    return (B > 1 and B * Nq < 2 ** 24
+            and _full_z_ok(M, tuple(grid_shape), slot_cap)
+            and _grid_engages(M, k, grid_shape, slot_cap))
+
+
+def grid_knn_interpolate_layout_batched(
+        query: torch.Tensor, ref: torch.Tensor, values: torch.Tensor,
+        k: int = 3, *, grid_shape=GRID_SHAPE, tq: int = 128,
+        slot_cap: int = SLOT_CAP, fallback_cap: int = 4096, eps: float = 1e-8,
+        xy_halo=1):
+    """The flat-batched ``grid_knn_interpolate_layout``: query [B, Nq, 3],
+    ref [B, M, 3], values [B, M, C] -> (v [NPg, C], qid [NPg] int32) with
+    global query ids b*Nq + i and B*Nq on padding. Needs
+    ``_batched_grid_ok``. Batches above ``_BATCHED_MAX_GROUP`` clouds run
+    in groups (a trailing group of one through the one-cloud layout path),
+    their ids lifted to the batch's."""
+    if slot_cap % _LANE:
+        raise ValueError(f"slot_cap must be a multiple of {_LANE}, got "
+                         f"{slot_cap}")
+    B, Nq, _ = query.shape
+    if not _batched_grid_ok(B, Nq, ref.shape[1], grid_shape, slot_cap, k):
+        raise ValueError(
+            f"flat-batched grid interp requires B > 1, B*Nq < 2^24, a "
+            f"full-column-z grid config and non-degenerate refs; got "
+            f"B={B}, Nq={Nq}, M={ref.shape[1]}, grid_shape={grid_shape}, "
+            f"slot_cap={slot_cap}")
+    k = min(k, ref.shape[1])
+    grid_shape = tuple(grid_shape)
+    group = _BATCHED_MAX_GROUP
+    args = (k, grid_shape, tq, slot_cap, fallback_cap)
+    if B <= group:
+        return _grid_interp_batched_layout(query, ref, values, *args, eps,
+                                           xy_halo)
+    vs, qids = [], []
+    for s in range(0, B, group):
+        e = min(s + group, B)
+        if e - s == 1:
+            v_g, qid_g = _grid_interp_single(query[s], ref[s], values[s],
+                                             *args, 2, eps, xy_halo, True)
+        else:
+            v_g, qid_g = _grid_interp_batched_layout(
+                query[s:e], ref[s:e], values[s:e], *args, eps, xy_halo)
+        qids.append(torch.where(qid_g < (e - s) * Nq, qid_g + s * Nq,
+                                B * Nq))
+        vs.append(v_g)
+    return torch.cat(vs), torch.cat(qids).int()
+
+
+def _strip_interp_patch(struct: GridStruct, grid_shape, query: torch.Tensor,
+                        ids: torch.Tensor, vals_pad: torch.Tensor, k: int,
+                        eps: float, strip_blocks: int = 64, tp: int = 128):
+    """Exact kNN + interpolation of chosen rows against their own +-1
+    x-slab strip: the refs of slabs [lo, hi] are the contiguous run
+    [SB[lo], SB[hi + 1]) of the slab-sorted refs, so a tile of ``tp`` rows
+    (sorted by slab) takes one run through ``grid_interp``.
+
+    ``ids`` [cap] (a multiple of ``tp``) are rows of ``query`` (``Nq`` on
+    unused slots); ``vals_pad`` is ``_sorted_values``. Returns (ids_s [cap]
+    int32, vals [cap, C], fail [cap]) in slab order; callers scatter by
+    ``ids_s``. ``fail`` marks real rows the strip does not prove exact:
+    the run overflows the TPU kernel's window of ``strip_blocks`` 128-ref
+    blocks from its 128-aligned start (the kernel here scans the run whole,
+    but the window decides, as ``tile_ok`` does in ``_layout_slots``), or
+    the ball of the k-th distance reaches past the strip's x-interval
+    (open at the domain's edges). A library facility: no entry point calls
+    it."""
+    if ids.shape[0] % tp:
+        raise ValueError(f"cap={ids.shape[0]} must be a multiple of "
+                         f"tp={tp}")
+    Sx, Sy, Sz = grid_shape
+    s = struct
+    Nq = query.shape[0]
+    cap = ids.shape[0]
+    dev = query.device
+    SB = torch.from_numpy(_partition_tables(s.M, Sx, Sy, Sz)[0]).to(dev)
+    ids = ids.long()
+    rows_ok = ids < Nq
+    q_rows = query.float()[ids.clamp(0, Nq - 1)]
+    qsx = torch.where(rows_ok, (q_rows[:, 0:1] >= s.xb[None, :]).sum(1), Sx)
+    q_rows = torch.where(rows_ok[:, None], q_rows, _FAR)
+    order = torch.sort(qsx, stable=True).indices  # unused slots sort last
+    sx_s = qsx[order]
+    ids_s = ids[order].clamp(max=Nq)
+    q_pad = q_rows[order].contiguous()
+
+    Tp = cap // tp
+    sx_t = sx_s.reshape(Tp, tp)
+    ok_t = (ids_s < Nq).reshape(Tp, tp)
+    lo = (torch.where(ok_t, sx_t, Sx).amin(1) - 1).clamp(0, Sx - 1)
+    hi = (torch.where(ok_t, sx_t, -1).amax(1) + 1).clamp(0, Sx - 1)
+    st = SB[lo]
+    en = torch.where(ok_t.any(1), SB[hi + 1], 0)
+    bps = strip_blocks
+    stb = (st // _LANE).clamp(0, max(s.M_pad // _LANE - bps, 0))
+    tile_fit = (en - stb * _LANE) <= bps * _LANE  # [Tp]
+
+    # a tile's real rows are a prefix of it: unused slots sort last
+    v_s, d_s = grid_interp(q_pad, s.refs_pad, vals_pad,
+                           st[:, None].int().contiguous(),
+                           en[:, None].int().contiguous(), k, eps,
+                           ok_t.sum(1, dtype=torch.int32))
+    x_lo = s.xb_full[lo]  # [Tp]; +-inf at the domain's edges
+    x_hi = s.xb_full[hi + 1]
+    qx_t = q_pad[:, 0].reshape(Tp, tp)
+    m = torch.minimum(qx_t - x_lo[:, None], x_hi[:, None] - qx_t)
+    d_last = d_s[:, k - 1].reshape(Tp, tp)
+    safe = tile_fit[:, None] & (d_last <= m * m) & (d_last < 1e29)
+    fail = ~safe.reshape(-1) & (ids_s < Nq)
+    return ids_s.int(), v_s, fail
+
+
 def grid_knn_interpolate(query: torch.Tensor, ref: torch.Tensor,
                          values: torch.Tensor, k: int = 3, *,
-                         grid_shape=(16, 12, 8), tq: int = 128,
-                         slot_cap: int = 384, fallback_cap: int = 4096,
+                         grid_shape=GRID_SHAPE, tq: int = 128,
+                         slot_cap: int = SLOT_CAP, fallback_cap: int = 4096,
                          z_halo: int = 2, eps: float = 1e-8,
                          xy_halo=1) -> torch.Tensor:
     """Exact kNN + inverse-distance interpolation: query [B, N, 3], ref
-    [B, M, 3], values [B, M, C] -> [B, N, C] float32. Clouds of a batch run
-    one after another."""
+    [B, M, 3], values [B, M, C] -> [B, N, C] float32. A batch runs flat
+    when ``_batched_grid_ok`` holds (in groups of ``_BATCHED_MAX_GROUP``
+    clouds), else cloud after cloud."""
     _check_grid_args(slot_cap, query.shape[1], "grid_knn_interpolate")
     k = min(k, ref.shape[1])
     if not _grid_engages(ref.shape[1], k, grid_shape, slot_cap):
         return torch.stack([
             _brute_interp(q.float(), r.float(), v.float(), k, eps)
             for q, r, v in zip(query, ref, values)])
+    B, Nq, _ = query.shape
+    if _batched_grid_ok(B, Nq, ref.shape[1], grid_shape, slot_cap, k):
+        kw = dict(grid_shape=grid_shape, tq=tq, slot_cap=slot_cap,
+                  fallback_cap=fallback_cap, z_halo=z_halo, eps=eps,
+                  xy_halo=xy_halo)
+        group = _BATCHED_MAX_GROUP
+        if B > group:
+            return torch.cat([grid_knn_interpolate(
+                query[s:s + group], ref[s:s + group], values[s:s + group], k,
+                **kw) for s in range(0, B, group)])
+        v_lay, qid = _grid_interp_batched_layout(
+            query, ref, values, k, tuple(grid_shape), tq, slot_cap,
+            fallback_cap, eps, xy_halo)
+        # layout row j to query qid[j]; padding rows to a dropped row
+        out = v_lay.new_empty((B * Nq + 1, v_lay.shape[1]))
+        return out.index_copy_(0, qid.long(), v_lay)[:B * Nq].reshape(
+            B, Nq, -1)
     return torch.stack([
         _grid_interp_single(q, r, v, k, tuple(grid_shape), tq, slot_cap,
                             fallback_cap, z_halo, eps, xy_halo, False)
@@ -506,8 +835,9 @@ def grid_knn_interpolate(query: torch.Tensor, ref: torch.Tensor,
 
 def grid_knn_interpolate_layout(query: torch.Tensor, ref: torch.Tensor,
                                 values: torch.Tensor, k: int = 3, *,
-                                grid_shape=(16, 12, 8), tq: int = 128,
-                                slot_cap: int = 384, fallback_cap: int = 4096,
+                                grid_shape=GRID_SHAPE, tq: int = 128,
+                                slot_cap: int = SLOT_CAP,
+                                fallback_cap: int = 4096,
                                 z_halo: int = 2, eps: float = 1e-8,
                                 xy_halo=1):
     """One cloud's ``grid_knn_interpolate`` in the grid's layout order:
@@ -544,7 +874,8 @@ def _grid_knn_single(query, ref, k, grid_shape, tq, slot_cap, fallback_cap,
 
 
 def grid_knn(query: torch.Tensor, ref: torch.Tensor, k: int = 3, *,
-             grid_shape=(16, 12, 8), tq: int = 128, slot_cap: int = 384,
+             grid_shape=GRID_SHAPE, tq: int = 128,
+             slot_cap: int = SLOT_CAP,
              fallback_cap: int = 4096, exact: bool = True, z_halo: int = 2,
              xy_halo=1) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact kd-grid kNN: query [B, N, 3], ref [B, M, 3] -> (sq_dists

@@ -5,7 +5,8 @@ points. It is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/torch_kernels/<source>-<hash>/lib<source>.so`` at the root of the
 checkout (the hash covers the source and the flags, so an edited source builds
 anew; a source includes no header of its own, so the hash covers all its code)
-and loaded with ``ctypes``. Nothing is built on import: the first launch builds
+and loaded with ``ctypes``; ``utils.cache.enable_compilation_cache`` moves
+that directory (``BUILD_ROOT``). Nothing is built on import: the first launch builds
 its library, and ``build_all`` builds every library at once, one ``nvcc``
 process per source, all started together.
 
@@ -33,6 +34,7 @@ from typing import Dict, Iterable, Sequence
 import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
+# utils.cache.enable_compilation_cache may move it
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -290,6 +290,8 @@ def _terms(loss_dict: LossDict, layout) -> LossDict:
 class DiffusionTrainer:
     def __init__(self, config: Config, resume: bool = True,
                  device: str | torch.device | None = None):
+        from ..utils.cache import enable_compilation_cache
+        enable_compilation_cache()
         self.config = config
         self.device = resolve_device(device)
         self.mesh = None

@@ -14,8 +14,11 @@ Two forms, both read by ``load_for_inference``:
 
 Tensors are stored on the CPU by state-dict name and read with
 ``weights_only=True``. ``convert.py`` turns JAX variables and train states
-into the same names. Reading the JAX package's orbax checkpoints is not
-ported: orbax needs JAX.
+into the same names. A checkpoint directory of the JAX package (orbax
+arrays beside the same ``meta.json``) is converted once, where JAX and
+orbax are installed, by ``tools/orbax_to_torch.py`` (one epoch directory or
+a whole experiment); ``restore`` given such a directory raises an error
+that names it.
 """
 
 from __future__ import annotations
@@ -119,6 +122,7 @@ class CheckpointManager:
     @staticmethod
     def restore(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         """(state, meta) of one checkpoint directory, tensors on the CPU."""
+        check_port_checkpoint_dir(path)
         state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                            weights_only=True)
         with open(os.path.join(path, META_FILE)) as f:
@@ -134,6 +138,22 @@ class CheckpointManager:
             return None, {}, 0
         state, meta = self.restore(self.epoch_dir(epochs[-1]))
         return state, meta, epochs[-1] + 1
+
+
+def check_port_checkpoint_dir(path: str) -> None:
+    """Raise unless ``path`` holds a port payload: a JAX package checkpoint
+    (``meta.json`` and orbax arrays, no ``state.pt``) must be converted
+    first."""
+    if os.path.exists(os.path.join(path, STATE_FILE)):
+        return
+    if os.path.exists(os.path.join(path, META_FILE)):
+        raise ValueError(
+            f"{path} holds no {STATE_FILE}: it looks like a checkpoint of the "
+            "JAX package (orbax). Convert it where JAX and orbax are "
+            "installed: python tools/orbax_to_torch.py "
+            f"--checkpoint {path} --output <port checkpoint dir>")
+    raise FileNotFoundError(f"no checkpoint ({STATE_FILE}, {META_FILE}) in "
+                            f"{path}")
 
 
 def load_checkpoint_config(path: str) -> Config:

@@ -547,6 +547,60 @@ def test_grid_paths_launch_kernels(rng, cuda):
                        torch.arange(9000, device=cuda))
 
 
+def test_grid_batched_layout_matches_plain(rng, cuda):
+    """The flat-batched layout of three clouds of different densities: one
+    launch over every cloud's tiles, each tile's runs inside its own
+    cloud's part of the refs, against the plain versions; the entry point
+    launches grid_interp once for the batch, and each cloud gets its own
+    pass's layout order and values."""
+    scales = np.array([0.3, 1.0, 3.0], np.float32)[:, None, None]
+    r = torch.from_numpy(points(rng, 3, 6500) * scales).to(cuda)
+    q = torch.from_numpy(points(rng, 3, 9000) * scales).to(cuda)
+    v = torch.randn((3, 6500, 3), device=cuda)
+    sb = grid_knn._build_struct_batched(r, (16, 12, 8))
+    sl = grid_knn._layout_slots(sb, q, (16, 12, 8), 128, 384)
+    lo = sl.tb[:, None] * sb.M_pad
+    busy = sl.en > sl.st
+    assert (((sl.st >= lo) & (sl.en <= lo + sb.M)) | ~busy).all()
+    check_grid_kernels(sl.q_pad, sb.refs_pad,
+                       grid_knn._sorted_values(sb, v), sl.st, sl.en, 3,
+                       sl.n_real)
+    before = dict(LAUNCH_COUNTS)
+    v_lay, qid = grid_knn.grid_knn_interpolate_layout_batched(q, r, v)
+    assert LAUNCH_COUNTS["grid_interp"] == before["grid_interp"] + 1
+    assert LAUNCH_COUNTS["knn_topk"] <= before["knn_topk"] + 1
+    for b in range(3):
+        v1, qid1 = grid_knn.grid_knn_interpolate_layout(q[b], r[b], v[b])
+        mine = (qid >= b * 9000) & (qid < (b + 1) * 9000)
+        assert torch.equal(qid[mine] - b * 9000, qid1[qid1 < 9000])
+        want = v1[qid1 < 9000]
+        tol = 1e-6 * want.abs().max().item()
+        assert ((v_lay[mine] - want).abs() <= tol + 1e-6 * want.abs()).all()
+
+
+def test_strip_patch_matches_plain(rng, cuda, monkeypatch):
+    """``_strip_interp_patch``: one grid_interp launch for its tiles, ids,
+    fail flags and values those of its plain run."""
+    r = torch.from_numpy(points(rng, 1, 6500)[0]).to(cuda)
+    q = torch.from_numpy(points(rng, 1, 9000)[0]).to(cuda)
+    v = torch.randn((6500, 3), device=cuda)
+    s = grid_knn._build_struct(r, (16, 12, 8))
+    vals = grid_knn._sorted_values(s, v)
+    ids = torch.cat([torch.from_numpy(rng.choice(9000, 1000, replace=False)),
+                     torch.full((24,), 9000)]).int().to(cuda)
+    before = LAUNCH_COUNTS["grid_interp"]
+    got = grid_knn._strip_interp_patch(s, (16, 12, 8), q, ids, vals, 3, 1e-8)
+    assert LAUNCH_COUNTS["grid_interp"] == before + 1
+    monkeypatch.setattr(grid_knn, "grid_interp", grid_interp_plain)
+    ids_p, v_p, fail_p = grid_knn._strip_interp_patch(s, (16, 12, 8), q, ids,
+                                                      vals, 3, 1e-8)
+    assert torch.equal(got[0], ids_p) and torch.equal(got[2], fail_p)
+    real = ids_p < 9000
+    want = v_p[real]
+    tol = 1e-6 * want.abs().max().item()
+    assert ((got[1][real] - want).abs() <= tol + 1e-6 * want.abs()).all()
+
+
 def test_grid_wrappers_reject_bad_inputs(cuda):
     q = torch.zeros((256, 3), device=cuda)
     refs = torch.zeros((128, 3), device=cuda)
