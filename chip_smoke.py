@@ -64,17 +64,19 @@ Phases, each printing one line per result:
 4. main path — a seeded full-width checkpoint (``Config()`` defaults, bf16,
    ``knn_backend="auto"``: the kd-grid), 120,000-point source and condition
    clouds, 50 steps at guidance 7.5 through the inference CLI's ``main``:
-   output shape and finiteness, launch counts (50 grid interpolations, one
-   brute-force patch for each step with unsafe rows, 2 FPS, 2 ball query
-   per cloud), the per-step unsafe counts, seconds per cloud for the grid
-   and for the brute-force kNN (``knn_backend="pallas"``), and a profiler
-   breakdown of one grid cloud. Then the other serving paths at the same
-   width, each with its launch counts asserted and its seconds per cloud:
-   ``knn_backend="pallas_f32packed"`` and
-   ``"pallas_pruned"``, ``--fast`` (one ``grid_topk``, at most one brute
-   patch), ``--source_dir`` with 3 clouds at ``--batch_size 2`` (the grid
-   flat-batched: one interpolation launch a step for each batch of two),
-   and ``ddim_sample_loop`` for 5 steps.
+   output shape and finiteness, launch counts (the CLI's one call is its
+   engine's first, which runs eagerly: the loop's 50 grid interpolations,
+   50 counted brute-force patch launches, 2 FPS and 2 ball queries; a
+   later call captures the loop and replays it, and a replay counts the
+   same launches), the per-step unsafe counts, seconds per cloud (replays)
+   for the grid and for the brute-force kNN (``knn_backend="pallas"``), and
+   a profiler breakdown of one grid cloud. Then the other serving paths at
+   the same width, each with its launch counts asserted and its seconds
+   per cloud: ``knn_backend="pallas_f32packed"`` and ``"pallas_pruned"``
+   (eager: the host paces its passes), ``--fast`` (one ``grid_topk``, one
+   counted patch), ``--source_dir`` with 3 clouds at ``--batch_size 2``
+   (the grid flat-batched: one interpolation launch a step for each batch
+   of two), and ``ddim_sample_loop`` for 5 steps.
    flat batch — the kd-grid's flat-batched path at full width (120,000-point
    clouds, 30,000 refs and 90,000 unknown queries each, ``Config()``'s
    grid): ``grid_interp`` on the two-cloud layout against its plain version
@@ -86,6 +88,22 @@ Phases, each printing one line per result:
    both prove safe and within rtol 1e-6 elsewhere, one ``grid_interp`` and
    at most one ``knn_topk`` a group, host and device ms a call both ways;
    ``_strip_interp_patch`` on cloud 0's unsafe rows against its plain run.
+   graph — the samplers as captured programs at ``Config()`` (random
+   weights, bf16, the grid): ``guided_sample_loop`` at B = 1 and B = 2 (50
+   steps), ``--fast`` and ``ddim_sample_loop`` (5 steps), each on drawn-in
+   draws: the eager body twice, the second time under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no sync allowed); through
+   the capture runner the first call (eager) and the second (captured,
+   then replayed), each identical to it (max |d| = 0) with the same unsafe
+   counts and launch counts, their seconds, capture + instantiate
+   seconds, replay seconds (best and spread), the graph's memory, and one
+   profiled replay: its device busy share and the port's kernels it ran,
+   by name (50 ``grid_interp``, 50 ``knn_topk``, 2 ``fps``, 2
+   ``ball_query`` a cloud or batch); and ``knn_topk`` and
+   ``knn_f32packed`` with their count on the device at the main path's
+   shapes, identical to their plain twins at counts of 0, 1,825, 2,124
+   and the whole buffer, in device time beside the same rows launched on
+   their own (``knn_topk``) or the whole buffer (``knn_f32packed``).
 5. train — ``Config()`` defaults, nothing cut: four synthetic 120,000-point
    scene pairs through ``cli.preprocess`` (3 train, 1 val), then 2 epochs of
    ``cli.train`` (6 mini-steps, 2 optimizer steps, 2 validations, 2
@@ -107,9 +125,10 @@ Phases, each printing one line per result:
 7. test — ``cli.test`` from ``best_model`` on a test split of two synthetic
    120,000-point pairs at ``--batch_size 2``: sim->real and real->sim, 50
    steps, every metric, generated clouds and plots saved; its launches
-   asserted (100 grid interpolations: one flat-batched pass a step and
-   direction, 4 FPS, 4 ball queries, 14 row minima, the patches and two
-   k=9 kNN); seconds per batch and the EMD's
+   asserted (the first direction runs the loop eagerly, the second
+   captures and replays it; one flat-batched pass and one counted patch a
+   step: 100 grid interpolations, 4 FPS, 4 ball queries, 100 patches;
+   14 row minima and two k=9 kNN); seconds per batch and the EMD's
    peak memory; its metrics held to the CPU's recomputation from the saved
    clouds (float64 nearest neighbours and Sinkhorn on the card run's
    subsample permutations; rtol 1e-4, coverage 1e-4 absolute, EMD 1e-3).
@@ -131,14 +150,17 @@ Phases, each printing one line per result:
     ``rowmin`` launches; ``guided_sample_loop_sharded`` and
     ``guided_sample_loop_dp`` at 120,000 / 30,000 points, 50 steps,
     guidance 7.5 on the grid, identical to ``guided_sample_loop`` with the
-    same draws and with its launches, seconds per cloud in turns;
+    same draws, and the kernels each run launched (the single-device and
+    data-parallel paths share one key of the capture runner, eager once,
+    then captured and replayed; the point-sharded one runs eagerly) the
+    same, seconds per cloud in turns;
     ``DiffusionTrainer(mesh_shape={"data": 1})`` against the single-device
     trainer for 3 float32 mini-steps at ``Config()`` width: loss terms
     within 1e-5, the accumulated gradients at ``GRAD_RTOL``.
 
 Then one JSON line with every kernel's numbers (``launches`` on the main
-path, ``cli_test_launches`` in the test phase, ``parallel_launches`` by
-``[parallel]`` path), the ``nvidia-smi`` name and power-limit line, and the
+path, ``replay_launches`` by ``[graph]`` path, ``cli_test_launches`` in
+the test phase, ``parallel_launches`` by ``[parallel]`` path), the ``nvidia-smi`` name and power-limit line, and the
 final JSON line. Without a card (or without the
 package beside it) it exits non-zero and prints no result.
 """
@@ -172,9 +194,10 @@ from pointcloud_style_transfer_torch.data import (PointCloudPreprocessor,
 from pointcloud_style_transfer_torch.data.synthetic import lidar_scene_pair
 from pointcloud_style_transfer_torch.evaluation import metrics
 from pointcloud_style_transfer_torch.models import (
-    DiffusionNet, PointCloudDiffusionModel, ddim_sample_loop, ddim_step,
-    ddim_timesteps, dtype_of, guided_sample_loop, guided_sample_loop_coarse,
-    make_schedule, networks, samplers, time_embedding)
+    DiffusionNet, PointCloudDiffusionModel, capture, ddim_sample_loop,
+    ddim_step, ddim_timesteps, dtype_of, guided_sample_loop,
+    guided_sample_loop_coarse, make_schedule, networks, samplers,
+    time_embedding)
 from pointcloud_style_transfer_torch.ops import (
     brute_knn, chamfer_distance, farthest_point_sample, grid_knn,
     index_points, knn, min_sq_dist, pruned_knn, query_ball_point,
@@ -231,6 +254,13 @@ GRID_SHAPE, GRID_TQ, SLOT_CAP = grid_knn.GRID_SHAPE, 128, grid_knn.SLOT_CAP
 def expect_counts(**launched: int) -> dict:
     """Every kernel's launch count, 0 where not named."""
     return {name: 0 for name in LAUNCH_COUNTS} | launched
+
+
+def n_calls(counts: dict, n: int) -> dict:
+    """``counts`` of ``n`` calls: a sampler's launches are the same in its
+    eager first call and in each replay (``models.capture`` counts a
+    replay's kernel nodes)."""
+    return {name: n * v for name, v in counts.items()}
 
 
 def fail(msg: str) -> None:
@@ -1151,7 +1181,7 @@ def phase_grid_kernels(rng: np.random.Generator, query: torch.Tensor,
     # the grid's interpolation after its fallback vs brute interpolation
     grid_knn.UNSAFE_COUNTS.clear()
     v_lay, qid = grid_knn.grid_knn_interpolate_layout(query[0], ref[0], vals)
-    n_unsafe = grid_knn.UNSAFE_COUNTS[-1]
+    n_unsafe = grid_knn.unsafe_counts()[-1]
     real = qid < nq
     v_grid = torch.empty_like(v_lay[:nq])
     v_grid[qid[real].long()] = v_lay[real]
@@ -1461,15 +1491,17 @@ def phase_pruned_kernel(query: torch.Tensor, ref: torch.Tensor,
 
 def phase_grid_inexact(query: torch.Tensor, ref: torch.Tensor) -> None:
     """``grid_knn(exact=False)``: the grid pass, then the f32-packed kernel
-    (never the exact one) on the rows it could not prove exact."""
+    (never the exact one) on the rows it could not prove exact: one launch
+    a pass over the ladder's buffer with the count on the device, whose
+    query blocks past the count exit without work."""
     nq, m = query.shape[1], ref.shape[1]
     reset_launch_counts()
     grid_knn.UNSAFE_COUNTS.clear()
     d, i = grid_knn.grid_knn(query, ref, 3, exact=False)
     torch.cuda.synchronize()
     counts = dict(LAUNCH_COUNTS)
-    n_unsafe = grid_knn.UNSAFE_COUNTS[-1]
-    if counts != expect_counts(grid_topk=1, knn_f32packed=int(n_unsafe > 0)):
+    n_unsafe = grid_knn.unsafe_counts()[-1]
+    if counts != expect_counts(grid_topk=1, knn_f32packed=1):
         fail(f"grid_knn(exact=False) launches {counts} with {n_unsafe} "
              "unsafe rows")
     d_e, i_e = grid_knn.grid_knn(query, ref, 3)
@@ -1513,9 +1545,11 @@ def grid_breakdown(q: torch.Tensor, r: torch.Tensor,
     safe, ms["margins"] = best(lambda: grid_knn._safe_rows(struct, sl, d, 3,
                                                            GRID_SHAPE))
     unsafe = ~safe.reshape(-1) & (sl.orig_pad < nq)
-    _, ms["sync+patch"] = best(lambda: grid_knn._apply_fallback(
+    _, ms["ladder"] = best(lambda: grid_knn._apply_fallback(
         (v,), unsafe, sl.q_pad, nq, 4096,
-        lambda rows: (grid_knn._brute_interp(rows, r, vals, 3, 1e-8),)))
+        lambda rows, row_ids, count: (grid_knn._brute_interp(
+            rows, r, vals, 3, 1e-8, row_ids, count,
+            grid_knn._patch_plan_rows(4096)),)))
     _, brute_ms = best(lambda: grid_knn._brute_interp(q, r, vals, 3, 1e-8))
 
     from torch.autograd import DeviceType
@@ -1584,8 +1618,9 @@ def reference_run(rng: np.random.Generator, dev: torch.device, n: int,
         sampler, what = guided_sample_loop, ""
         draws["step_priorities"] = torch.from_numpy(
             rng.random((STEPS, 1, n), np.float32))
-        want = ({"grid_interp": STEPS} if backend == "auto"
+        want = ({"grid_interp": STEPS, "knn_topk": STEPS} if backend == "auto"
                 else {"grid_interp": 0, "knn_topk": STEPS})
+    # the card's own run is a new model's first call: eager, and counted
     def run(device, net, selections=None):
         model = PointCloudDiffusionModel(cfg, device, net=net)
         kw = {} if selections is None else dict(selections=selections)
@@ -1964,7 +1999,7 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         counts = dict(LAUNCH_COUNTS)
-        unsafe = list(grid_knn.UNSAFE_COUNTS)
+        unsafe = grid_knn.unsafe_counts()
         if rc != 0:
             fail(f"inference CLI returned {rc}")
         out = np.load(out_path)
@@ -1973,7 +2008,10 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
                  f"{bool(np.isfinite(out).all())}")
         patched = sum(u > 0 for u in unsafe)
         last_tier = grid_knn._fallback_caps(4096, N_POINTS - M_POINTS)[-1]
-        expected = expect_counts(knn_topk=patched, fps=2, ball_query=2,
+        # the CLI's engine is new, so its loop runs eagerly in this call
+        # (the capture runner captures a key's second call): one counted
+        # patch launch a step, whatever the unsafe count
+        expected = expect_counts(knn_topk=STEPS, fps=2, ball_query=2,
                                  grid_interp=STEPS)
         if len(unsafe) != STEPS or counts != expected:
             fail(f"launch counts {counts} != {expected} ({len(unsafe)} grid "
@@ -1986,7 +2024,7 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
               f"{cli_s:.3f} s including checkpoint load and file IO ({card})")
         print(f"[main] unsafe rows per step (of {N_POINTS - M_POINTS}): min "
               f"{min(unsafe)}, median {int(np.median(unsafe))}, max "
-              f"{max(unsafe)}; {patched} steps patched by knn_topk, "
+              f"{max(unsafe)}; {patched} steps with rows for knn_topk, "
               f"{sum(u > last_tier for u in unsafe)} of them all-brute "
               f"(> {last_tier} rows); per step: {unsafe}")
 
@@ -2007,6 +2045,9 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
                   f"{', '.join(f'{t:.4f}' for t in times)}), "
                   f"{N_POINTS / best:.0f} points/s ({card})")
 
+        # each engine is new: its first call runs eagerly, and the timed
+        # calls after it capture and replay (the pruned kNN's passes, paced
+        # by the host, keep that path eager)
         for name, backend, fast, want in (
                 ("brute (pallas)", "pallas", False,
                  expect_counts(knn_topk=STEPS, fps=2, ball_query=2)),
@@ -2014,7 +2055,9 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
                  expect_counts(knn_f32packed=STEPS, fps=2, ball_query=2)),
                 ("pruned (pallas_pruned)", "pallas_pruned", False,
                  expect_counts(knn_pruned=2 * STEPS, fps=2, ball_query=2)),
-                ("fast (--fast, auto)", "auto", True, None)):
+                ("fast (--fast, auto)", "auto", True,
+                 expect_counts(grid_topk=1, knn_topk=1, fps=2,
+                               ball_query=2))):
             path = save_checkpoint(os.path.join(tmp, f"{backend}.pt"),
                                    cfg.replace(knn_backend=backend), params,
                                    stats)
@@ -2024,10 +2067,8 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
             out = eng.transfer_style_hierarchical(src, ref, STEPS, GUIDANCE)
             torch.cuda.synchronize()
             got = dict(LAUNCH_COUNTS)
-            if fast:  # one upsample: the grid pass and at most one patch
-                unsafe = list(grid_knn.UNSAFE_COUNTS)
-                want = expect_counts(grid_topk=1, fps=2, ball_query=2,
-                                     knn_topk=int(unsafe[0] > 0))
+            if fast:  # one upsample: the grid pass and its counted patch
+                unsafe = grid_knn.unsafe_counts()
                 if len(unsafe) != 1:
                     fail(f"--fast ran {len(unsafe)} grid passes")
                 print(f"[main] --fast: one upsample of {N_POINTS} points "
@@ -2104,13 +2145,14 @@ def phase_batch_and_ddim(rng: np.random.Generator, engine: DiffusionInference,
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t0
     got = dict(LAUNCH_COUNTS)
-    unsafe = list(grid_knn.UNSAFE_COUNTS)
+    unsafe = grid_knn.unsafe_counts()
     # two batches of two clouds (the tail padded with its last pair): the
     # encoder's kernels take the batch at once, and so does the grid, one
-    # flat-batched pass a step (a patch launch if either cloud has unsafe
-    # rows); four unsafe counts a step, one a cloud
-    want = expect_counts(grid_interp=2 * STEPS, fps=4, ball_query=4,
-                         knn_topk=patch_launches(unsafe, [2] * 2 * STEPS))
+    # flat-batched pass and one counted patch launch a step; the first
+    # batch runs the loop eagerly, the second captures and replays it;
+    # four unsafe counts a step, one a cloud
+    want = n_calls(expect_counts(grid_interp=STEPS, fps=2, ball_query=2,
+                               knn_topk=STEPS), 2)
     names = sorted(os.listdir(out_dir)) if rc == 0 else []
     outs = [np.load(os.path.join(out_dir, f)) for f in names]
     if rc != 0 or got != want or len(unsafe) != 4 * STEPS or names != [
@@ -2127,40 +2169,37 @@ def phase_batch_and_ddim(rng: np.random.Generator, engine: DiffusionInference,
     cond = torch.from_numpy(normalize_point_cloud(np.load(ref_path))[0])[None]
     shape_like = torch.zeros((1, N_POINTS, 3))
     gen = torch.Generator(device=engine.device).manual_seed(3)
-    times = []
-    for _ in range(2):  # warm-up, then the counted and timed run
+    want = expect_counts(grid_interp=5, fps=10, ball_query=10, knn_topk=5)
+    secs = []
+    for _ in range(3):  # eager, then captured and replayed, then replayed
         reset_launch_counts()
         grid_knn.UNSAFE_COUNTS.clear()
         t0 = time.perf_counter()
         out = ddim_sample_loop(engine.model, make_schedule(cfg), shape_like,
                                cond, num_inference_steps=5, generator=gen)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    got = dict(LAUNCH_COUNTS)
-    want = expect_counts(grid_interp=5, fps=10, ball_query=10, knn_topk=sum(
-        u > 0 for u in grid_knn.UNSAFE_COUNTS))
-    if got != want or tuple(out.shape) != (1, N_POINTS, 3) \
-            or not torch.isfinite(out).all():
-        fail(f"ddim_sample_loop: launches {got} != {want}, output "
-             f"{tuple(out.shape)}")
+        secs.append(time.perf_counter() - t0)
+        got = dict(LAUNCH_COUNTS)
+        if got != want or tuple(out.shape) != (1, N_POINTS, 3) \
+                or not torch.isfinite(out).all():
+            fail(f"ddim_sample_loop call {len(secs)}: launches {got} != "
+                 f"{want}, output {tuple(out.shape)}")
     print(f"[main] ddim_sample_loop, 5 steps at {N_POINTS} points: output "
-          f"{tuple(out.shape)} finite; launches {got}; {times[1]:.4f} s "
-          f"(first run {times[0]:.4f} s) ({card})")
+          f"{tuple(out.shape)} finite; launches each call {got}; first call "
+          f"(eager) {secs[0]:.4f} s, second (capture + replay) "
+          f"{secs[1]:.4f} s, replay {secs[2]:.4f} s ({card})")
 
 
 def patch_launches(unsafe: list, groups) -> int:
-    """The brute-force patch launches of a run of grid passes: one for each
-    group of clouds (one flat-batched pass, or one cloud's) with any unsafe
-    row. ``unsafe`` is ``grid_knn.UNSAFE_COUNTS``, one entry a cloud;
-    ``groups`` the clouds of each pass in order."""
-    n, i = 0, 0
-    for g in groups:
-        n += any(u > 0 for u in unsafe[i:i + g])
-        i += g
-    if i != len(unsafe):
-        fail(f"{len(unsafe)} grid unsafe counts for {i} clouds in "
+    """The brute-force patch launches of a run of grid passes: one counted
+    launch for each group of clouds (one flat-batched pass, or one
+    cloud's), whatever its unsafe rows. ``unsafe`` is
+    ``grid_knn.unsafe_counts()``, one entry a cloud; ``groups`` the clouds
+    of each pass in order."""
+    if sum(groups) != len(unsafe):
+        fail(f"{len(unsafe)} grid unsafe counts for {sum(groups)} clouds in "
              f"{len(groups)} passes")
-    return n
+    return len(groups)
 
 
 def batch_groups(B: int) -> list:
@@ -2292,7 +2331,7 @@ def phase_flat_batch(dev: torch.device, card: str) -> dict:
             q[:B], r[:B], v[:B])
         torch.cuda.synchronize()
         got = dict(LAUNCH_COUNTS)
-        unsafe = list(grid_knn.UNSAFE_COUNTS)
+        unsafe = grid_knn.unsafe_counts()
         want = expect_counts(grid_interp=len(groups),
                              knn_topk=patch_launches(unsafe, groups))
         if got != want or len(unsafe) != B:
@@ -2301,7 +2340,7 @@ def phase_flat_batch(dev: torch.device, card: str) -> dict:
         grid_knn.UNSAFE_COUNTS.clear()
         one = [grid_knn.grid_knn_interpolate_layout(q[b], r[b], v[b])
                for b in range(B)]
-        unsafe_one = list(grid_knn.UNSAFE_COUNTS)
+        unsafe_one = grid_knn.unsafe_counts()
         if unsafe_one != unsafe:
             fail(f"[flat batch] B={B}: unsafe rows a cloud {unsafe} flat, "
                  f"{unsafe_one} cloud by cloud")
@@ -2378,6 +2417,301 @@ def phase_flat_batch(dev: torch.device, card: str) -> dict:
           f"of cloud 0 in 32 tiles of 128, 64-block strips: one grid_interp "
           f"launch; ids and fail flags identical to its plain run "
           f"({int(fail_k.sum())} rows fail), max |v| err {s_err:.3g} ({card})")
+    return out
+
+
+GRAPH_SEED = 40
+# what one replay of a captured sampler launches of the port's kernels at
+# Config(): every step's grid interpolation and its one counted patch
+# launch (the fallback ladder on the device), the encoder's two FPS and two
+# ball queries; at B = 2 the same (the grid and the encoder take the batch)
+GRAPH_LAUNCHES = expect_counts(grid_interp=STEPS, knn_topk=STEPS, fps=2,
+                               ball_query=2)
+DDIM_STEPS = 5
+
+
+@contextlib.contextmanager
+def eager_samplers():
+    """Within the block the samplers run their body eagerly on the card
+    (the captured runner replaced by a direct call), for the comparisons
+    with the captured loop and the sync check."""
+    own = samplers.run_captured
+    samplers.run_captured = lambda key, body, inputs, owner: body(inputs)
+    try:
+        yield
+    finally:
+        samplers.run_captured = own
+
+
+def port_kernel(key: str):
+    """The ``LAUNCH_COUNTS`` name of a device kernel in a profiler key (its
+    demangled name), or None for a kernel of PyTorch's own."""
+    for name in LAUNCH_COUNTS:
+        ident = "knn_pruned_pass" if name == "knn_pruned" else name
+        if re.search(rf"(?<![A-Za-z0-9_]){ident}(_global|_stream)?_kernel",
+                     key):
+            return name
+    return None
+
+
+def profiled_replay(fn, want: dict):
+    """One replay ``fn`` of a captured sampler under the profiler: (its
+    result, the port's kernels the device ran by ``LAUNCH_COUNTS`` name,
+    every device kernel and copy it ran, device busy ms, wall ms). A replay
+    runs every kernel node of its fixed graph, so while the traced port
+    kernels differ from ``want`` the replay is profiled again, at most
+    twice: the card's tracer has dropped kernel records (``device_ms``; one
+    ``knn_topk`` of a 50-step replay once). Each retake is noted on stderr;
+    the caller holds the last trace to ``want``. Used for captured paths
+    only: an eager path's launches are its ``LAUNCH_COUNTS``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches, n_all, busy = expect_counts(), 0, 0.0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            busy += e.self_device_time_total / 1e3
+            n_all += e.count
+            name = port_kernel(e.key)
+            if name:
+                launches[name] += e.count
+        if launches == want:
+            break
+        print(f"profiled_replay: traced {launches}, expected {want} (trace "
+              f"{attempt + 1} of at most 3)", file=sys.stderr)
+    return out, launches, n_all, busy, wall * 1e3
+
+
+def graph_run(what: str, run, want: dict, card: str, reps: int = 5) -> dict:
+    """A sampler call ``run`` (its draws passed in) on the card: its eager
+    body twice, the second time under ``set_sync_debug_mode("error")``;
+    then through the capture runner its first call (eager, the warm-up)
+    and its second (the capture and instantiation, timed by
+    ``models.capture``, and a replay), each identical to the eager body
+    (max |d| = 0) with the same unsafe counts and ``want`` launches;
+    ``reps`` replays timed, each identical; one profiled replay, its port
+    kernels by name against ``want``."""
+    # the eager body first: once to build its lazy tables (a host copy
+    # each, once a process), then under the sync check
+    grid_knn.UNSAFE_COUNTS.clear()
+    with eager_samplers():
+        eager = run()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager_checked = run()
+        except RuntimeError as e:
+            fail(f"[graph] {what}: the eager body synchronised: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    eager_unsafe = grid_knn.unsafe_counts()
+    if not torch.equal(eager, eager_checked):
+        fail(f"[graph] {what}: two eager runs on the same draws differ")
+    n_cap = len(capture.CAPTURES)
+    calls = []  # (seconds, output, launches, unsafe counts) a call
+    for _ in range(2):  # the first call (eager), the second (captured)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        reset_launch_counts()
+        grid_knn.UNSAFE_COUNTS.clear()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, out, dict(LAUNCH_COUNTS),
+                      grid_knn.unsafe_counts()))
+    pool_gib = (torch.cuda.memory_reserved() - reserved0) / 2**30
+    if len(capture.CAPTURES) != n_cap + 1:
+        fail(f"[graph] {what}: {len(capture.CAPTURES) - n_cap} captures in "
+             "two calls")
+    cap = capture.CAPTURES[-1]
+    (first_s, first, _, unsafe), (second_s, second, _, _) = calls
+    for i, (_, out, launched, u) in enumerate(calls):
+        if launched != want or u != unsafe:
+            fail(f"[graph] {what}: call {i + 1} launched {launched} != "
+                 f"{want}, unsafe counts {u} vs {unsafe}")
+    times_s = []
+    grid_knn.UNSAFE_COUNTS.clear()
+    reset_launch_counts()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times_s.append(time.perf_counter() - t0)
+        if not torch.equal(out, first):
+            fail(f"[graph] {what}: a replay differs from the first call "
+                 f"({(out - first).abs().max().item()})")
+    if grid_knn.unsafe_counts() != unsafe * reps or dict(
+            LAUNCH_COUNTS) != n_calls(want, reps):
+        fail(f"[graph] {what}: {reps} replays' unsafe counts or launches "
+             f"{dict(LAUNCH_COUNTS)} differ")
+    diff = max((eager - out).abs().max().item() for out in (first, second))
+    if not (torch.equal(eager, first) and torch.equal(eager, second)) \
+            or eager_unsafe != unsafe * 2:
+        fail(f"[graph] {what}: first / captured vs eager max |d| {diff}, "
+             f"unsafe counts {unsafe} vs {eager_unsafe}")
+    if not torch.isfinite(first).all():
+        fail(f"[graph] {what}: output not finite")
+    reset_launch_counts()
+    _, launches, n_all, busy, wall = profiled_replay(run, want)
+    if launches != want:
+        fail(f"[graph] {what}: a replay launched {launches} != {want}")
+    best = min(times_s)
+    spread = (max(times_s) - best) / best
+    print(f"[graph] {what}: eager first call and captured second call == "
+          f"eager body on the same draws (max |d| {diff}), no sync in the "
+          f"eager body (set_sync_debug_mode 'error'); launches a call "
+          f"{dict((k, v) for k, v in want.items() if v)}; unsafe rows a pass "
+          f"{unsafe[:8]}{'...' if len(unsafe) > 8 else ''}")
+    print(f"[graph] {what}: first call (eager) {first_s:.3f} s; second call "
+          f"{second_s:.3f} s (capture + instantiate {cap['capture_s']:.3f} "
+          f"s, then a replay); replay s/call best {best:.4f}, spread "
+          f"{100 * spread:.1f}% (runs {', '.join(f'{t:.4f}' for t in times_s)}); "
+          f"graph memory (reserved growth at the capture) {pool_gib:.3f} GiB "
+          f"({card})")
+    print(f"[graph] {what}: profiled replay: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms ({100 * busy / wall:.1f}%), {n_all} device kernels "
+          f"and copies, the port's {dict((k, v) for k, v in launches.items() if v)}")
+    return {"first_s": first_s, "second_s": second_s, **cap,
+            "replay_best_s": best, "replay_spread": spread,
+            "busy_share": busy / wall, "device_ms": busy,
+            "pool_gib": pool_gib, "launches": launches}
+
+
+def predicated_knn(dev: torch.device, card: str) -> dict:
+    """``knn_topk`` with the count on the device at the main path's shapes
+    (a 114,688-row layout buffer x 30,000 refs, k = 3; the plan made for
+    the ladder's first tier), bit-identical to its plain twin at counts of
+    0, 1,825 (the sampler's median patch), a count that ends inside a
+    cluster's query block, and the whole buffer; device ms at 1,825 rows
+    beside the unpredicated launch on the same rows gathered."""
+    rng = np.random.default_rng(GRAPH_SEED)
+    n_buf, m = 114_688, M_POINTS
+    q = torch.from_numpy(normalize_point_cloud(make_cloud(rng, n_buf))[0]
+                         )[None].to(dev)
+    r = torch.from_numpy(normalize_point_cloud(make_cloud(rng, m))[0]
+                         )[None].to(dev)
+    perm = torch.from_numpy(rng.permutation(n_buf).astype(np.int32))
+    row_ids = perm[None].to(dev).contiguous()
+    plan_rows = grid_knn._patch_plan_rows(4096)
+    S = knn_topk_plan(1, plan_rows, m)
+    out = {"plan_rows": plan_rows, "S": S}
+    for n in (0, 1825, 1825 + 37 * 8 + 3, n_buf):
+        count = torch.tensor([n], dtype=torch.int32, device=dev)
+        d, i = knn_topk_cuda(q, r, 3, row_ids=row_ids, count=count,
+                             plan_rows=plan_rows)
+        dp, ip = knn_topk_plain(q, r, 3, row_ids, count)
+        check_equal(f"[graph] knn_topk count {n}", i, ip)
+        check_equal(f"[graph] knn_topk count {n}", d.view(torch.int32),
+                    dp.view(torch.int32), "distance bits")
+    count = torch.tensor([1825], dtype=torch.int32, device=dev)
+    ms = device_ms(lambda: knn_topk_cuda(q, r, 3, row_ids=row_ids,
+                                         count=count, plan_rows=plan_rows),
+                   "knn_topk")
+    rows = q[:, perm[:1825].long().to(dev)].contiguous()
+    ms_plain_launch = device_ms(lambda: knn_topk_cuda(rows, r, 3), "knn_topk")
+    bound = no_fma_ms(1825 * m * 8)
+    out.update(count_ms=ms, gathered_ms=ms_plain_launch, bound_ms=bound)
+    print(f"[graph] knn_topk with the count on the device: {n_buf}-row "
+          f"buffer x {m} refs, k=3, S={S} (planned for {plan_rows} rows): "
+          f"identical to its plain twin at counts 0, 1825, 2124, {n_buf}; "
+          f"count 1825: {ms:.4f} ms device vs {ms_plain_launch:.4f} ms for "
+          f"the same rows gathered and launched with their own plan, no-FMA "
+          f"bound {bound:.4f} ms ({card})")
+    # the f32-packed kernel, which grid_knn(exact=False)'s ladder launches
+    # the same way (refs padded to its 2,048 tile)
+    m_total = knn_packed.padded_refs(m, 2048)
+    for n in (0, 1825, 1825 + 37 * 8 + 3, n_buf):
+        count = torch.tensor([n], dtype=torch.int32, device=dev)
+        keys = knn_f32packed_keys_cuda(q, r, 3, m_total, row_ids=row_ids,
+                                       count=count, plan_rows=plan_rows)
+        want = knn_f32packed_keys_plain(q, r, 3, m_total, row_ids, count)
+        check_equal(f"[graph] knn_f32packed count {n}", keys.view(torch.int32),
+                    want.view(torch.int32), "keys")
+    count = torch.tensor([1825], dtype=torch.int32, device=dev)
+    f_ms = device_ms(lambda: knn_f32packed_keys_cuda(
+        q, r, 3, m_total, row_ids=row_ids, count=count, plan_rows=plan_rows),
+        "knn_f32packed")
+    whole = q[:, perm.long().to(dev)].contiguous()
+    f_whole_ms = device_ms(lambda: knn_f32packed_keys_cuda(
+        whole, r, 3, m_total), "knn_f32packed")
+    out.update(f32packed_count_ms=f_ms, f32packed_buffer_ms=f_whole_ms)
+    print(f"[graph] knn_f32packed with the count on the device (the same "
+          f"buffer, grid_knn(exact=False)'s ladder): identical to its plain "
+          f"twin at counts 0, 1825, 2124, {n_buf}; count 1825: {f_ms:.4f} ms "
+          f"device vs {f_whole_ms:.4f} ms for the whole {n_buf}-row buffer "
+          f"without a count ({card})")
+    return out
+
+
+def phase_graph(dev: torch.device, card: str) -> dict:
+    """The samplers as captured programs at ``Config()`` (random weights,
+    bf16, the kd-grid): ``guided_sample_loop`` at 120,000 / 30,000 points,
+    50 steps, guidance 7.5 at B = 1 and B = 2, ``guided_sample_loop_coarse``
+    (``--fast``) at B = 1 and ``ddim_sample_loop`` for 5 steps, each
+    through ``graph_run``; and ``knn_topk`` with its count on the device
+    (``predicated_knn``). Returns the readings for the kernels line."""
+    cfg = Config()
+    torch.manual_seed(GRAPH_SEED)
+    model = PointCloudDiffusionModel(cfg, device=dev)
+    schedule = make_schedule(cfg).to(dev)
+    encoder = model.net.style_encoder.encoder
+    rng = np.random.default_rng(GRAPH_SEED)
+    out = {"knn_topk_count": predicated_knn(dev, card)}
+
+    def clouds(B):
+        return torch.from_numpy(np.stack([
+            normalize_point_cloud(make_cloud(rng, N_POINTS, dup_frac=0.0))[0]
+            for _ in range(B)])).to(dev)
+
+    for B in (1, 2):
+        src, cond = clouds(B), clouds(B)
+        gen = torch.Generator(device=dev).manual_seed(GRAPH_SEED + B)
+        draws = dict(
+            cond_priority=torch.rand((B, N_POINTS), generator=gen, device=dev),
+            fps_starts=encoder.draw_fps_starts(M_POINTS, B, gen, dev),
+            x_init=torch.randn((B, N_POINTS, 3), generator=gen, device=dev),
+            step_priorities=torch.rand((STEPS, B, N_POINTS), generator=gen,
+                                       device=dev))
+        out[f"guided_B{B}"] = graph_run(
+            f"guided_sample_loop B={B}", lambda: guided_sample_loop(
+                model, schedule, src, cond, STEPS, GUIDANCE, **draws),
+            GRAPH_LAUNCHES, card)
+    src, cond = clouds(1), clouds(1)
+    gen = torch.Generator(device=dev).manual_seed(GRAPH_SEED + 3)
+    draws = dict(
+        cond_priority=torch.rand((1, N_POINTS), generator=gen, device=dev),
+        fps_starts=encoder.draw_fps_starts(M_POINTS, 1, gen, dev),
+        src_priority=torch.rand((1, N_POINTS), generator=gen, device=dev),
+        x_init=torch.randn((1, M_POINTS, 3), generator=gen, device=dev))
+    out["fast"] = graph_run(
+        "--fast (guided_sample_loop_coarse) B=1",
+        lambda: guided_sample_loop_coarse(model, schedule, src, cond, STEPS,
+                                          GUIDANCE, **draws),
+        expect_counts(grid_topk=1, knn_topk=1, fps=2, ball_query=2), card)
+    draws = dict(
+        x_init=torch.randn((1, N_POINTS, 3), generator=gen, device=dev),
+        cond_priorities=torch.rand((DDIM_STEPS, 1, N_POINTS), generator=gen,
+                                   device=dev),
+        fps_starts=torch.stack([encoder.draw_fps_starts(M_POINTS, 1, gen, dev)
+                                for _ in range(DDIM_STEPS)]),
+        step_priorities=torch.rand((DDIM_STEPS, 1, N_POINTS), generator=gen,
+                                   device=dev))
+    out["ddim"] = graph_run(
+        f"ddim_sample_loop {DDIM_STEPS} steps B=1",
+        lambda: ddim_sample_loop(model, schedule, src, cond, DDIM_STEPS,
+                                 **draws),
+        expect_counts(grid_interp=DDIM_STEPS, knn_topk=DDIM_STEPS,
+                      fps=2 * DDIM_STEPS, ball_query=2 * DDIM_STEPS), card)
     return out
 
 
@@ -2723,8 +3057,8 @@ def phase_eval(dev: torch.device, card: str, work: str,
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
     counts = dict(LAUNCH_COUNTS)
-    patched = sum(u > 0 for u in grid_knn.UNSAFE_COUNTS)
-    want = expect_counts(knn_topk=patched, fps=2, ball_query=2,
+    # a new engine: its loop runs eagerly in this call
+    want = expect_counts(knn_topk=STEPS, fps=2, ball_query=2,
                          grid_interp=STEPS)
     out = np.load(out_path) if rc == 0 else None
     if rc != 0 or counts != want or out.shape != (N_POINTS, 3) or \
@@ -2919,21 +3253,23 @@ def phase_test(rng: np.random.Generator, dev: torch.device, card: str,
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         counts = dict(LAUNCH_COUNTS)
-        unsafe = list(grid_knn.UNSAFE_COUNTS)
+        unsafe = grid_knn.unsafe_counts()
     finally:
         cli_test.Tester.test, cli_test.earth_mover_distance = orig_test, \
             orig_emd
     if rc != 0 or len(testers) != 1:
         fail(f"test CLI: rc {rc}, {len(testers)} testers")
-    # per direction: the grid one flat-batched pass a step for the batch
-    # (a patch launch when either cloud has unsafe rows), the encoder's FPS
-    # and ball query once for the batch; the metrics: 14 row minima
+    # per direction: the grid one flat-batched pass and one counted patch
+    # launch a step for the batch, the encoder's FPS and ball query once for
+    # the batch; the first direction runs the loop eagerly, the second
+    # captures and replays it, each counted once; the metrics: 14 row minima
     # (4 Chamfer x 2, Hausdorff 2 x 2, coverage 1 x 2) and one k=9 kNN per
     # uniformity
     n_clouds = 2 * TEST_BATCH
-    want = expect_counts(grid_interp=2 * STEPS, fps=4, ball_query=4,
-                         rowmin=14, knn_topk=patch_launches(
-                             unsafe, [TEST_BATCH] * 2 * STEPS) + 2)
+    patch_launches(unsafe, [TEST_BATCH] * 2 * STEPS)  # a count a cloud
+    want = n_calls(expect_counts(grid_interp=STEPS, fps=2, ball_query=2,
+                               knn_topk=STEPS), 2)
+    want.update(rowmin=14, knn_topk=want["knn_topk"] + 2)
     if counts != want or len(unsafe) != n_clouds * STEPS:
         fail(f"test CLI: launches {counts} != {want} ({len(unsafe)} grid "
              "passes)")
@@ -3045,8 +3381,9 @@ def phase_progress(card: str, work: str) -> None:
     finally:
         os.chdir(cwd)
     counts = dict(LAUNCH_COUNTS)
+    # an engine a checkpoint, each running its loop eagerly in its one call
     want = expect_counts(grid_interp=2 * STEPS, fps=4, ball_query=4,
-                         knn_topk=sum(u > 0 for u in grid_knn.UNSAFE_COUNTS))
+                         knn_topk=2 * STEPS)
     outputs = [png] if HAVE_MATPLOTLIB else [
         os.path.join(work, f"progress_epoch_{ep:04d}.npy") for ep in (0, 1)]
     if rc != 0 or counts != want or not all(
@@ -3076,14 +3413,17 @@ def phase_benchmark(card: str, work: str) -> None:
     with open(path) as f:
         res = json.load(f)
     samples = [res["sampling"]] + res["sampling_batched"]
-    # warm-up + 2 timed calls of each batch size, the grid one pass a step
-    # for each group of at most 8 clouds
-    groups = [g for s in samples for _ in range(3 * STEPS)
+    # 2 warm-ups + 2 timed calls of each batch size: the first runs the
+    # loop eagerly, the second captures and replays it, the others replay,
+    # each counted once; the grid one pass and one counted patch launch a
+    # step for each group of at most 8 clouds, one unsafe count a cloud
+    groups = [g for s in samples for _ in range(4 * STEPS)
               for g in batch_groups(s["batch"])]
-    want = expect_counts(grid_interp=len(groups), fps=2 * 3 * len(samples),
-                         ball_query=2 * 3 * len(samples),
-                         knn_topk=patch_launches(
-                             list(grid_knn.UNSAFE_COUNTS), groups))
+    patch_launches(grid_knn.unsafe_counts(), groups)
+    passes = STEPS * sum(len(batch_groups(s["batch"])) for s in samples)
+    want = n_calls(expect_counts(grid_interp=passes, knn_topk=passes,
+                               fps=2 * len(samples),
+                               ball_query=2 * len(samples)), 4)
     rows = res["forward"] + res["scaling"] + samples + [
         res["hierarchical_vs_direct"]]
     keys = {"device", "quick", "forward", "hierarchical_vs_direct", "scaling",
@@ -3270,25 +3610,27 @@ def phase_parallel(dev: torch.device, card: str) -> dict:
         ("guided_sample_loop_dp", lambda: guided_sample_loop_dp(
             model, schedule, src, cond, data, STEPS, GUIDANCE,
             draws=[draws])))
+    # the single-device and data-parallel samplers share one key of the
+    # capture runner (a: eager, c: captured and replayed, then replays),
+    # the point-sharded one runs eagerly; each run's launches, counted
+    # where the device runs them, are the single-device sampler's
+    single = {k: v for k, v in GRAPH_LAUNCHES.items() if v}
     outs, firsts, secs = {}, {}, {}
     for path, fn in paths + paths[::-1]:  # in turns: a, b, c, c, b, a
         outs[path], s = counted(path, fn)
         firsts.setdefault(path, outs[path])
         secs.setdefault(path, []).append(s)
+        if launches[path] != single:
+            fail(f"[parallel] {path} run {len(secs[path])} launches "
+                 f"{launches[path]} != {single}")
     for path, _ in paths:  # run to run: the voxel choice is exact
         if not torch.equal(firsts[path], outs[path]):
             fail(f"[parallel] two runs of {path} on the same inputs differ")
-    single = launches["guided_sample_loop"]
-    if single.get("grid_interp") != STEPS or single.get("fps") != 2 \
-            or single.get("ball_query") != 2:
-        fail(f"[parallel] single-device sampler launches {single}")
     for path, _ in paths[1:]:
         if not torch.equal(outs[path], outs["guided_sample_loop"]):
             err = float((outs[path] - outs["guided_sample_loop"]).abs().max())
             fail(f"[parallel] {path} differs from guided_sample_loop "
                  f"(max |diff| {err:.3e})")
-        if launches[path] != single:
-            fail(f"[parallel] {path} launches {launches[path]} != {single}")
     for path, _ in paths:
         print(f"[parallel] {path}: {N_POINTS} / {M_POINTS} points, {STEPS} "
               f"steps, guidance {GUIDANCE}, grid; identical output, "
@@ -3350,10 +3692,14 @@ def main() -> int:
 
     phase_build()
     card = card_line()
+    if sys.argv[1:] == ["--only", "graph"]:  # the [graph] phase alone
+        print(json.dumps(phase_graph(dev, card), default=str))
+        return 0
     records = phase_kernels(rng, dev)
     phase_reference(rng, dev)
     counts = phase_main_path(rng, dev, card)
     flat = phase_flat_batch(dev, card)
+    graph = phase_graph(dev, card)
     with tempfile.TemporaryDirectory() as work:
         paths = phase_train(rng, dev, card, work)
         phase_train_reference(dev)
@@ -3369,8 +3715,16 @@ def main() -> int:
     records["grid_topk"].update(launches=counts["grid_topk"],
                                 path="cli.inference --fast")
     records["grid_interp"]["flat_batch"] = flat
+    counted = graph.pop("knn_topk_count")
+    records["knn_f32packed"]["count_on_device"] = {
+        k: counted.pop(k) for k in ("f32packed_count_ms",
+                                    "f32packed_buffer_ms")}
+    records["knn_topk"]["count_on_device"] = counted
     for name, rec in records.items():
         rec.setdefault("launches", counts[name])
+        # what one replay of each captured sampler ran (the profiler's)
+        rec["replay_launches"] = {path: got["launches"][name]
+                                  for path, got in graph.items()}
         rec["cli_test_launches"] = test_counts[name]
         rec["parallel_launches"] = {path: got[name] for path, got in
                                     parallel.items() if name in got}

@@ -10,8 +10,10 @@
 4. full 50-step guided sampling at batch 1 (``sampling``) and at batch 2, 4
    and 8 (``sampling_batched``).
 
-Seeded random weights and inputs. Each case is called once to warm up, then
-``--reps`` times, each to a ``torch.cuda.synchronize()``; latencies are the
+Seeded random weights and inputs. Each case is called once to warm up (the
+sampling cases twice: on the card a sampler's first call with a shape runs
+eagerly and its second captures the loop as a CUDA graph, which later
+calls replay), then ``--reps`` times, each to a ``torch.cuda.synchronize()``; latencies are the
 mean of the warm calls, host clock. Memory is
 ``torch.cuda.max_memory_allocated()`` over the warm calls (after
 ``reset_peak_memory_stats()``), in MB; null on the CPU. ``--quick`` runs
@@ -48,10 +50,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _time(fn, device: torch.device, reps: int = 5):
-    """(min, mean) seconds of ``reps`` warm calls, and the peak memory in MB
-    over them (None on the CPU)."""
-    fn()  # warm-up
+def _time(fn, device: torch.device, reps: int = 5, warmup: int = 1):
+    """(min, mean) seconds of ``reps`` calls after ``warmup`` calls, and the
+    peak memory in MB over them (None on the CPU)."""
+    for _ in range(warmup):
+        fn()
     _sync(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -137,7 +140,8 @@ def bench_sampling(model: PointCloudDiffusionModel, schedule, n: int,
         return guided_sample_loop(model, schedule, src, cond,
                                   num_inference_steps=steps,
                                   guidance_scale=7.5, generator=gen)
-    _, tmean, mem = _time(run, dev, reps)
+    # two warm-ups: the eager first call, then the capture (models.capture)
+    _, tmean, mem = _time(run, dev, reps, warmup=2)
     return {"points": n, "steps": steps, "batch": batch,
             "seconds_per_batch": round(tmean, 4),
             "seconds_per_cloud": round(tmean / batch, 4),

@@ -28,6 +28,13 @@
 //     stored (all lie at one place, so only the first k can matter).
 // The wrapper decodes the index, recomputes the exact distance and sorts the
 // k results, as the TPU wrappers do outside their kernels.
+// The f32-packed kernel takes the count on the device as csrc/knn_topk.cu
+// does (the kd-grid's inexact fallback, whose patch size is not known on the
+// host): an int32 row-index array through which output row qi reads its
+// query row, and a per-cloud int32 count of the output rows computed. The
+// skip is decided per query block (blockIdx.x / S), the same for every rank
+// of a cluster, so a cluster past the count exits before either barrier; a
+// row at or past the count gets the start keys.
 //
 // What bounds it on the card: operations (2.7e9 pairs a sampler step against
 // about 1.5 MB of inputs), 8 float ops a pair that may not be contracted
@@ -89,6 +96,20 @@ __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
   const float dz = __fsub_rn(qz, rz);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
+}
+
+// The rows cloud b's launch computes: count[b] clipped to [0, nq], or nq.
+__device__ __forceinline__ int row_count(const int* count, int b, int nq) {
+  return count == nullptr ? nq : min(max(count[b], 0), nq);
+}
+
+// The query row (of the nsrc of its cloud) output row qi of cloud b reads:
+// rows[b * nq + qi] clipped to [0, nsrc - 1], or qi itself.
+__device__ __forceinline__ size_t query_row(const int* rows, int b, int nq,
+                                            int nsrc, int qi) {
+  if (rows == nullptr) return static_cast<size_t>(qi);
+  const int r = rows[static_cast<size_t>(b) * nq + qi];
+  return static_cast<size_t>(min(max(r, 0), nsrc - 1));
 }
 
 // The f32-packed key: unsigned, from 1e30's bits.
@@ -200,31 +221,45 @@ __device__ __forceinline__ uint32_t group_of_eight(const float4* smem, int j,
 }
 
 // grid (query blocks * S, batch), clusters of (S, 1, 1); thread t of the
-// cluster of query block g serves query g * kThreads + t (padding queries
-// past nq are scanned at the origin, never written).
+// cluster of query block g serves output row qi = g * kThreads + t, which
+// reads query row rows[b * nq + qi] (or qi without rows) of the nsrc rows of
+// cloud b (padding rows past the count are scanned at the origin and get
+// the start keys; a cluster wholly past it scans nothing).
 template <class Key, int K>
 __device__ __forceinline__ void scan_keys(const float* __restrict__ query,
                                           const float* __restrict__ ref,
                                           typename Key::T* __restrict__ k_out,
-                                          int nq, int m, int m_total, int S,
-                                          int idx_bits) {
+                                          const int* __restrict__ rows,
+                                          const int* __restrict__ count,
+                                          int nq, int nsrc, int m, int m_total,
+                                          int S, int idx_bits) {
   using T = typename Key::T;
   // a ref tile, then (S > 1) the rank's keys: key t of thread l at
   // [t * kThreads + l]
   static_assert(K * kThreads <= 4 * kTile, "keys > tile");
   __shared__ float4 smem[kTile];
   const int b = blockIdx.y;
-  query += static_cast<size_t>(b) * nq * 3;
+  query += static_cast<size_t>(b) * nsrc * 3;
   ref += static_cast<size_t>(b) * m * 3;
   k_out += static_cast<size_t>(b) * nq * K;
 
   const int rank = blockIdx.x % S;  // the block's rank in its cluster
-  const int qi = (blockIdx.x / S) * kThreads + threadIdx.x;
+  const int block0 = static_cast<int>(blockIdx.x) / S * kThreads;  // 1st row
+  const int qi = block0 + threadIdx.x;
+  const int n_rows = row_count(count, b, nq);
+  if (block0 >= n_rows) {  // the whole cluster: no row of it is computed
+    if (rank == 0 && qi < nq) {
+      for (int t = 0; t < K; ++t)
+        k_out[static_cast<size_t>(qi) * K + t] = Key::kStart;
+    }
+    return;
+  }
   float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (qi < nq) {
-    qx = query[static_cast<size_t>(qi) * 3 + 0];
-    qy = query[static_cast<size_t>(qi) * 3 + 1];
-    qz = query[static_cast<size_t>(qi) * 3 + 2];
+  if (qi < n_rows) {
+    const size_t src = query_row(rows, b, nq, nsrc, qi);
+    qx = query[src * 3 + 0];
+    qy = query[src * 3 + 1];
+    qz = query[src * 3 + 2];
   }
   T keys[K];
 #pragma unroll
@@ -280,6 +315,12 @@ __device__ __forceinline__ void scan_keys(const float* __restrict__ query,
   }
 
   if (qi >= nq) return;
+  if (qi >= n_rows) {  // past the count: the start keys
+#pragma unroll
+    for (int t = 0; t < K; ++t)
+      k_out[static_cast<size_t>(qi) * K + t] = Key::kStart;
+    return;
+  }
   // the padding refs: one place, ascending index, so k of them suffice
   const int n_pad = min(K, m_total - m);
   const float d_pad = sq_dist(qx, qy, qz, kFar, kFar, kFar);
@@ -290,26 +331,33 @@ __device__ __forceinline__ void scan_keys(const float* __restrict__ query,
 }
 
 // grid (query blocks, batch), no cluster; any k >= 1. Thread t of query
-// block g serves query g * kThreads + t, its list at k_out [qi, :].
+// block g serves output row qi = g * kThreads + t, its list at k_out [qi, :];
+// rows and count as in scan_keys.
 template <class Key>
 __device__ __forceinline__ void scan_keys_global(
     const float* __restrict__ query, const float* __restrict__ ref,
-    typename Key::T* __restrict__ k_out, int nq, int m, int m_total, int k,
-    int idx_bits) {
+    typename Key::T* __restrict__ k_out, const int* __restrict__ rows,
+    const int* __restrict__ count, int nq, int nsrc, int m, int m_total,
+    int k, int idx_bits) {
   using T = typename Key::T;
   __shared__ float4 smem[kTile];
   const int b = blockIdx.y;
-  query += static_cast<size_t>(b) * nq * 3;
+  query += static_cast<size_t>(b) * nsrc * 3;
   ref += static_cast<size_t>(b) * m * 3;
   const int qi = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = qi < nq;
   T* keys = k_out + (static_cast<size_t>(b) * nq + qi) * k;
+  if (qi < nq) {
+    for (int t = 0; t < k; ++t) keys[t] = Key::kStart;
+  }
+  const int n_rows = row_count(count, b, nq);
+  if (static_cast<int>(blockIdx.x) * kThreads >= n_rows) return;  // no scan
+  const bool active = qi < n_rows;
   float qx = 0.f, qy = 0.f, qz = 0.f;
   if (active) {
-    qx = query[static_cast<size_t>(qi) * 3 + 0];
-    qy = query[static_cast<size_t>(qi) * 3 + 1];
-    qz = query[static_cast<size_t>(qi) * 3 + 2];
-    for (int t = 0; t < k; ++t) keys[t] = Key::kStart;
+    const size_t src = query_row(rows, b, nq, nsrc, qi);
+    qx = query[src * 3 + 0];
+    qy = query[src * 3 + 1];
+    qz = query[src * 3 + 2];
   }
   T kth = Key::kStart;
   uint32_t bound = Key::bound(kth, idx_bits);
@@ -351,9 +399,12 @@ template <int K>
 __global__ void __launch_bounds__(kThreads, 1)
 knn_f32packed_kernel(const float* __restrict__ query,
                      const float* __restrict__ ref,
-                     uint32_t* __restrict__ k_out, int nq, int m,
+                     uint32_t* __restrict__ k_out,
+                     const int* __restrict__ rows,
+                     const int* __restrict__ count, int nq, int nsrc, int m,
                      int m_total, int S) {
-  scan_keys<F32Key, K>(query, ref, k_out, nq, m, m_total, S, 0);
+  scan_keys<F32Key, K>(query, ref, k_out, rows, count, nq, nsrc, m, m_total,
+                       S, 0);
 }
 
 template <int K>
@@ -361,15 +412,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 knn_packed_kernel(const float* __restrict__ query,
                   const float* __restrict__ ref, int* __restrict__ k_out,
                   int nq, int m, int m_total, int S, int idx_bits) {
-  scan_keys<IntKey, K>(query, ref, k_out, nq, m, m_total, S, idx_bits);
+  scan_keys<IntKey, K>(query, ref, k_out, nullptr, nullptr, nq, nq, m,
+                       m_total, S, idx_bits);
 }
 
 __global__ void __launch_bounds__(kThreads)
 knn_f32packed_global_kernel(const float* __restrict__ query,
                             const float* __restrict__ ref,
-                            uint32_t* __restrict__ k_out, int nq, int m,
-                            int m_total, int k) {
-  scan_keys_global<F32Key>(query, ref, k_out, nq, m, m_total, k, 0);
+                            uint32_t* __restrict__ k_out,
+                            const int* __restrict__ rows,
+                            const int* __restrict__ count, int nq, int nsrc,
+                            int m, int m_total, int k) {
+  scan_keys_global<F32Key>(query, ref, k_out, rows, count, nq, nsrc, m,
+                           m_total, k, 0);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -377,7 +432,8 @@ knn_packed_global_kernel(const float* __restrict__ query,
                          const float* __restrict__ ref,
                          int* __restrict__ k_out, int nq, int m, int m_total,
                          int k, int idx_bits) {
-  scan_keys_global<IntKey>(query, ref, k_out, nq, m, m_total, k, idx_bits);
+  scan_keys_global<IntKey>(query, ref, k_out, nullptr, nullptr, nq, nq, m,
+                           m_total, k, idx_bits);
 }
 
 // A launch of grid (query blocks * S, batch) in clusters of S.
@@ -414,32 +470,41 @@ cudaError_t finish(cudaError_t err) {
   X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) \
   X(14) X(15) X(16)
 
-// query [batch, nq, 3] f32, ref [batch, m, 3] f32 -> keys_out [batch, nq, k]
-// (the bits of the f32-packed keys, ascending), all contiguous. m <= m_total
-// <= 2^15: refs m..m_total-1 are padding points at 1e15. k >= 1; S in
-// {1, 2, 4, 8} ranks per cluster for k <= 16, S = 1 above. Returns the CUDA
-// error code of the launch (0 on success).
+// query [batch, nsrc, 3] f32, ref [batch, m, 3] f32 -> keys_out
+// [batch, nq, k] (the bits of the f32-packed keys, ascending), all
+// contiguous. rows (nullable): [batch, nq] i32, the query row each output row
+// reads (else row qi reads query row qi, and nsrc must be nq); count
+// (nullable): [batch] i32 on the device, the output rows of each cloud that
+// are computed (the rest get the start keys). m <= m_total <= 2^15: refs
+// m..m_total-1 are padding points at 1e15. k >= 1; S in {1, 2, 4, 8} ranks
+// per cluster for k <= 16, S = 1 above. Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int pcst_knn_f32packed(const void* query, const void* ref,
-                                  void* keys_out, int batch, int nq, int m,
-                                  int m_total, int k, int S, void* stream) {
-  if (m_total < m || m_total > (1 << 15) || bad_plan(k, S)) {
+                                  void* keys_out, const void* rows,
+                                  const void* count, int batch, int nq,
+                                  int nsrc, int m, int m_total, int k, int S,
+                                  void* stream) {
+  if (m_total < m || m_total > (1 << 15) || bad_plan(k, S) || nsrc < 1 ||
+      (rows == nullptr && nsrc != nq)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* q = static_cast<const float*>(query);
   const float* r = static_cast<const float*>(ref);
   uint32_t* o = static_cast<uint32_t*>(keys_out);
+  const int* rw = static_cast<const int*>(rows);
+  const int* c = static_cast<const int*>(count);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k > kMaxK) {
     return static_cast<int>(finish(launch(knn_f32packed_global_kernel, batch,
-                                          nq, 1, s, q, r, o, nq, m, m_total,
-                                          k)));
+                                          nq, 1, s, q, r, o, rw, c, nq, nsrc,
+                                          m, m_total, k)));
   }
   cudaError_t err = cudaSuccess;
   switch (k) {
-#define PCST_K(KK)                                                         \
-  case KK:                                                                 \
-    err = launch(knn_f32packed_kernel<KK>, batch, nq, S, s, q, r, o, nq, m, \
-                 m_total, S);                                              \
+#define PCST_K(KK)                                                          \
+  case KK:                                                                  \
+    err = launch(knn_f32packed_kernel<KK>, batch, nq, S, s, q, r, o, rw, c,  \
+                 nq, nsrc, m, m_total, S);                                  \
     break;
     PCST_KS(PCST_K)
 #undef PCST_K

@@ -33,6 +33,14 @@
 //     equal distance arriving later has the higher index and is refused: the
 //     result is the (distance, index)-lexicographic k smallest, as one scan
 //     gives. A second barrier keeps every rank alive while it is read.
+// The count on the device (the kd-grid's fallback ladder, whose patch size is
+// not known on the host): a launch may take a per-cloud int32 count of the
+// rows it serves and an int32 row-index array through which it gathers its
+// query rows. The decision to skip is taken per query block (blockIdx.x / S),
+// the same for every rank of a cluster, so a cluster whose rows all lie at or
+// past the count exits before either barrier and one that straddles it
+// arrives at both. A row at or past the count gets the start list
+// (1e30, 0), so every output row is defined.
 // Above k = 16 the lists leave the registers: knn_topk_global_kernel keeps
 // each query's sorted list in the output buffer itself (global memory, hot
 // in L1 and L2) and only its k-th distance in a register, with the same
@@ -62,6 +70,29 @@ __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
                    __fmul_rn(dz, dz));
 }
 
+// The rows cloud b's launch computes: count[b] clipped to [0, nq], or nq.
+__device__ __forceinline__ int row_count(const int* count, int b, int nq) {
+  return count == nullptr ? nq : min(max(count[b], 0), nq);
+}
+
+// The query row (of the nsrc of its cloud) output row qi of cloud b reads:
+// rows[b * nq + qi] clipped to [0, nsrc - 1], or qi itself.
+__device__ __forceinline__ size_t query_row(const int* rows, int b, int nq,
+                                            int nsrc, int qi) {
+  if (rows == nullptr) return static_cast<size_t>(qi);
+  const int r = rows[static_cast<size_t>(b) * nq + qi];
+  return static_cast<size_t>(min(max(r, 0), nsrc - 1));
+}
+
+// The start list (1e30, 0) of a row that is not computed.
+__device__ __forceinline__ void write_start(float* d_out, int* i_out, int qi,
+                                            int k) {
+  for (int t = 0; t < k; ++t) {
+    d_out[static_cast<size_t>(qi) * k + t] = kBig;
+    i_out[static_cast<size_t>(qi) * k + t] = 0;
+  }
+}
+
 // Sorted insert on strict '<' (a NaN never passes).
 template <int K>
 __device__ __forceinline__ void insert(float (&D)[K], int (&I)[K], float d,
@@ -84,30 +115,40 @@ __device__ __forceinline__ void insert(float (&D)[K], int (&I)[K], float d,
 }
 
 // grid (query blocks * S, batch), clusters of (S, 1, 1); thread t of query
-// block g serves query g * kThreads + t. (The minimum of one block per SM
+// block g serves output row g * kThreads + t, which reads query row
+// rows[b * nq + that] (or itself without rows) of the nsrc rows of cloud b;
+// rows at or past count[b] (nq without count) are not computed. (The minimum of one block per SM
 // lets ptxas give k = 3 48 registers rather than 34; with 34 a block that
 // has its SM to itself scanned 1.2x slower, PERF.md PR 5.)
 template <int K>
 __global__ void __launch_bounds__(kThreads, 1)
 knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
-                float* __restrict__ d_out, int* __restrict__ i_out, int nq,
-                int m, int S) {
+                float* __restrict__ d_out, int* __restrict__ i_out,
+                const int* __restrict__ rows, const int* __restrict__ count,
+                int nq, int nsrc, int m, int S) {
   // a ref tile, then (S > 1) the rank's lists: list t of query l at
   // s_d[t * kThreads + l], s_i likewise; the tile is the larger
   __shared__ float4 smem[kTile];
   const int b = blockIdx.y;
-  query += static_cast<size_t>(b) * nq * 3;
+  query += static_cast<size_t>(b) * nsrc * 3;
   ref += static_cast<size_t>(b) * m * 3;
   d_out += static_cast<size_t>(b) * nq * K;
   i_out += static_cast<size_t>(b) * nq * K;
 
   const int rank = blockIdx.x % S;  // the block's rank in its cluster
-  const int qi = (blockIdx.x / S) * kThreads + threadIdx.x;
+  const int block0 = static_cast<int>(blockIdx.x) / S * kThreads;  // 1st row
+  const int qi = block0 + threadIdx.x;
+  const int n_rows = row_count(count, b, nq);
+  if (block0 >= n_rows) {  // the whole cluster: no row of it is computed
+    if (rank == 0 && qi < nq) write_start(d_out, i_out, qi, K);
+    return;
+  }
   float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (qi < nq) {
-    qx = query[static_cast<size_t>(qi) * 3 + 0];
-    qy = query[static_cast<size_t>(qi) * 3 + 1];
-    qz = query[static_cast<size_t>(qi) * 3 + 2];
+  if (qi < n_rows) {
+    const size_t src = query_row(rows, b, nq, nsrc, qi);
+    qx = query[src * 3 + 0];
+    qy = query[src * 3 + 1];
+    qz = query[src * 3 + 2];
   }
 
   float D[K];
@@ -181,12 +222,14 @@ knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
     if (rank != 0) return;
   }
 
-  if (qi < nq) {
+  if (qi < n_rows) {
 #pragma unroll
     for (int t = 0; t < K; ++t) {
       d_out[static_cast<size_t>(qi) * K + t] = D[t];
       i_out[static_cast<size_t>(qi) * K + t] = min(max(I[t], 0), m - 1);
     }
+  } else if (qi < nq) {
+    write_start(d_out, i_out, qi, K);
   }
 }
 
@@ -206,29 +249,37 @@ __device__ __forceinline__ float insert_global(float* D, int* I, int k,
 }
 
 // grid (query blocks, batch), no cluster; any k >= 1. Thread t of query
-// block g serves query g * kThreads + t, its list at d_out/i_out [qi, :].
+// block g serves output row qi = g * kThreads + t, its list at
+// d_out/i_out [qi, :]; rows and count as in knn_topk_kernel.
 __global__ void __launch_bounds__(kThreads)
 knn_topk_global_kernel(const float* __restrict__ query,
                        const float* __restrict__ ref,
                        float* __restrict__ d_out, int* __restrict__ i_out,
-                       int nq, int m, int k) {
+                       const int* __restrict__ rows,
+                       const int* __restrict__ count, int nq, int nsrc,
+                       int m, int k) {
   __shared__ float4 smem[kTile];
   const int b = blockIdx.y;
-  query += static_cast<size_t>(b) * nq * 3;
+  query += static_cast<size_t>(b) * nsrc * 3;
   ref += static_cast<size_t>(b) * m * 3;
+  d_out += static_cast<size_t>(b) * nq * k;
+  i_out += static_cast<size_t>(b) * nq * k;
   const int qi = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = qi < nq;
-  float* D = d_out + (static_cast<size_t>(b) * nq + qi) * k;
-  int* I = i_out + (static_cast<size_t>(b) * nq + qi) * k;
+  const int n_rows = row_count(count, b, nq);
+  if (static_cast<int>(blockIdx.x) * kThreads >= n_rows) {  // nothing to scan
+    if (qi < nq) write_start(d_out, i_out, qi, k);
+    return;
+  }
+  const bool active = qi < n_rows;
+  float* D = d_out + static_cast<size_t>(qi) * k;
+  int* I = i_out + static_cast<size_t>(qi) * k;
   float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (qi < nq) write_start(d_out, i_out, qi, k);
   if (active) {
-    qx = query[static_cast<size_t>(qi) * 3 + 0];
-    qy = query[static_cast<size_t>(qi) * 3 + 1];
-    qz = query[static_cast<size_t>(qi) * 3 + 2];
-    for (int t = 0; t < k; ++t) {
-      D[t] = kBig;
-      I[t] = 0;
-    }
+    const size_t src = query_row(rows, b, nq, nsrc, qi);
+    qx = query[src * 3 + 0];
+    qy = query[src * 3 + 1];
+    qz = query[src * 3 + 2];
   }
   float kth = kBig;
 
@@ -274,7 +325,8 @@ static_assert(16 * kThreads * 8 <= kTile * sizeof(float4), "lists > tile");
 
 template <int K>
 cudaError_t launch(const float* q, const float* r, float* d, int* i,
-                   int batch, int nq, int m, int S, cudaStream_t stream) {
+                   const int* rows, const int* count, int batch, int nq,
+                   int nsrc, int m, int S, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((nq + kThreads - 1) / kThreads) * S, batch, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
@@ -286,34 +338,45 @@ cudaError_t launch(const float* q, const float* r, float* d, int* i,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = S > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, knn_topk_kernel<K>, q, r, d, i, nq, m, S);
+  return cudaLaunchKernelEx(&cfg, knn_topk_kernel<K>, q, r, d, i, rows, count,
+                            nq, nsrc, m, S);
 }
 
 }  // namespace
 
-// query [batch, nq, 3] f32, ref [batch, m, 3] f32 -> d_out [batch, nq, k] f32,
-// i_out [batch, nq, k] i32, all contiguous. k >= 1; S in {1, 2, 4, 8} ranks
-// per cluster for k <= 16, S = 1 above. Returns the CUDA error code of the
-// launch (0 on success).
+// query [batch, nsrc, 3] f32, ref [batch, m, 3] f32 -> d_out [batch, nq, k]
+// f32, i_out [batch, nq, k] i32, all contiguous. rows (nullable): [batch, nq]
+// i32, the query row each output row reads (else row qi reads query row qi,
+// and nsrc must be nq); count (nullable): [batch] i32 on the device, the
+// output rows of each cloud that are computed (the rest get (1e30, 0)). k >= 1;
+// S in {1, 2, 4, 8} ranks per cluster for k <= 16, S = 1 above. Returns the
+// CUDA error code of the launch (0 on success).
 extern "C" int pcst_knn_topk(const void* query, const void* ref, void* d_out,
-                             void* i_out, int batch, int nq, int m, int k,
-                             int S, void* stream) {
-  if ((S != 1 && S != 2 && S != 4 && S != 8) || k < 1 || (k > 16 && S != 1))
+                             void* i_out, const void* rows, const void* count,
+                             int batch, int nq, int nsrc, int m, int k, int S,
+                             void* stream) {
+  if ((S != 1 && S != 2 && S != 4 && S != 8) || k < 1 || (k > 16 && S != 1) ||
+      nsrc < 1 || (rows == nullptr && nsrc != nq))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* q = static_cast<const float*>(query);
   const float* r = static_cast<const float*>(ref);
   float* d = static_cast<float*>(d_out);
   int* i = static_cast<int*>(i_out);
+  const int* rw = static_cast<const int*>(rows);
+  const int* c = static_cast<const int*>(count);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (k > 16) {
     knn_topk_global_kernel<<<dim3((nq + kThreads - 1) / kThreads, batch),
-                             kThreads, 0, s>>>(q, r, d, i, nq, m, k);
+                             kThreads, 0, s>>>(q, r, d, i, rw, c, nq, nsrc, m,
+                                               k);
     return static_cast<int>(cudaGetLastError());
   }
   switch (k) {
 #define PCST_K(KK) \
-  case KK: err = launch<KK>(q, r, d, i, batch, nq, m, S, s); break;
+  case KK:                                                            \
+    err = launch<KK>(q, r, d, i, rw, c, batch, nq, nsrc, m, S, s);    \
+    break;
     PCST_K(1) PCST_K(2) PCST_K(3) PCST_K(4) PCST_K(5) PCST_K(6) PCST_K(7)
     PCST_K(8) PCST_K(9) PCST_K(10) PCST_K(11) PCST_K(12) PCST_K(13)
     PCST_K(14) PCST_K(15) PCST_K(16)

@@ -234,6 +234,16 @@ class PointNet2Encoder(nn.Module):
         self.sa3 = SetAbstraction(None, None, None, 3 + 256,
                                   (256, 512, feature_dim), group_all=True, **kw)
 
+    def draw_fps_starts(self, n_points: int, batch: int,
+                        generator: Optional[torch.Generator],
+                        device: torch.device) -> torch.Tensor:
+        """The [2, B] int64 FPS start indices ``forward`` draws when none
+        are given, drawn now, in its order: sa1's over the ``n_points``
+        cloud, then sa2's over sa1's centroids."""
+        return torch.stack([
+            torch.randint(0, n, (batch,), generator=generator, device=device)
+            for n in (n_points, self.sa1.npoint)])
+
     def forward(self, xyz: torch.Tensor,
                 fps_starts: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,

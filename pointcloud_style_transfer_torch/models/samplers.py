@@ -29,6 +29,8 @@ the style re-encoded every step through the model's full forward.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import os
 from typing import Optional
 
@@ -41,6 +43,7 @@ from ..ops import (complement_indices, grid_knn, index_points, knn,
 from ..ops.interpolate import apply_interpolation, knn_interpolate_weights
 from ..ops.kernels.knn_packed import selected_sq_dist
 from ..ops.voxel import voxel_order
+from .capture import model_key, run_captured
 from .diffusion import DiffusionSchedule, ddim_step, ddim_timesteps
 from .model import PointCloudDiffusionModel
 
@@ -171,6 +174,48 @@ def _step_schedule(num_timesteps: int, num_inference_steps: int
     return ts, t_prev
 
 
+def _draws(device: torch.device, *wanted) -> list:
+    """Each ``(given, draw)`` of ``wanted`` in turn: ``given`` on ``device``
+    (float32, or int64 for indices), else ``draw()``, else None where the
+    call needs no such draw (``draw`` None). The draws are taken here,
+    before the loop, in the order the eager loop took them, so that one
+    seed gives the same numbers on the CPU and, before a captured loop, on
+    the card."""
+    out = []
+    for given, draw in wanted:
+        if given is not None:
+            given = given.to(device)
+            out.append(given.float() if given.is_floating_point() else
+                       given.long())
+        else:
+            out.append(None if draw is None else draw())
+    return out
+
+
+def _schedule_inputs(schedule: DiffusionSchedule) -> dict:
+    return {f"schedule.{f.name}": getattr(schedule, f.name)
+            for f in dataclasses.fields(schedule)}
+
+
+def _schedule_of(ins: dict) -> DiffusionSchedule:
+    return DiffusionSchedule(**{f.name: ins[f"schedule.{f.name}"]
+                                for f in dataclasses.fields(
+                                    DiffusionSchedule)})
+
+
+def _run(model: PointCloudDiffusionModel, key: tuple, body, inputs: dict,
+         eager: bool) -> torch.Tensor:
+    """``body(inputs)``: eagerly on the CPU or where ``eager`` says the call
+    needs the host between steps, else on the card through
+    ``models.capture`` under ``key``: eagerly the first time, from a CUDA
+    graph captured the second time and replayed since (a failed capture or
+    replay raises)."""
+    inputs = {n: t for n, t in inputs.items() if t is not None}
+    if eager or model.device.type != "cuda":
+        return body(inputs)
+    return run_captured((key, model_key(model)), body, inputs, model.net)
+
+
 @torch.no_grad()
 def guided_sample_loop(model: PointCloudDiffusionModel,
                        schedule: DiffusionSchedule,
@@ -195,9 +240,10 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
     Draws that may be passed in: ``x_init`` [B, N, 3] initial noise,
     ``cond_priority`` [B, Nc] condition-cloud voxel priorities,
     ``step_priorities`` [steps, B, N] per-step voxel priorities,
-    ``fps_starts`` [2, B] the encoder's FPS start indices. The rest come
-    from ``generator``. The hierarchical branch runs when N > global_points
-    unless ``use_hierarchical`` says otherwise. ``selections`` (a dict)
+    ``fps_starts`` [2, B] the encoder's FPS start indices. The rest are
+    drawn from ``generator`` before the loop (``_draws``). The hierarchical
+    branch runs when N > global_points unless ``use_hierarchical`` says
+    otherwise. ``selections`` (a dict)
     pins each step s's voxel order (``step<s>.voxel``, taken on the state
     ``step<s>.voxel.points``) and the upsample's neighbours (``step<s>.knn``,
     ``_upsample_unknown``): a choice the dict holds is replayed, any other
@@ -210,13 +256,24 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
     and, when they divide M, the denoiser runs on its share of the coarse
     rows; the shares are all-gathered. Every rank passes the same inputs
     and draws (or an identically seeded generator) and returns the same
-    cloud."""
+    cloud.
+
+    On the card the whole call after the draws (condition downsample, style
+    encoder, every step) is one CUDA graph (``models.capture``), captured
+    at the second call with the same static arguments (the first runs
+    eagerly and is its warm-up) and replayed with the same results as the
+    eager loop. It runs eagerly on the CPU,
+    and wherever the call needs the host between steps: with
+    ``selections`` (a dict read and written every step), with ``mesh``
+    (collectives), and with the ``"pallas_pruned"`` backend on the
+    hierarchical branch (the host paces its passes)."""
     cfg = model.config
     device = model.device
     schedule = schedule.to(device)
     source_points = source_points.to(device=device, dtype=torch.float32)
     condition_points = condition_points.to(device=device, dtype=torch.float32)
     B, N, _ = source_points.shape
+    Nc = condition_points.shape[1]
     M = cfg.global_points
     if use_hierarchical is None:
         use_hierarchical = N > M
@@ -229,18 +286,52 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
         if use_hierarchical:
             split.check(N - M, "unknown count N-M")
             rows = split if M % split.n == 0 else None
+    encoder = model.net.style_encoder.encoder
+    rand = functools.partial(torch.rand, generator=generator, device=device)
+    cond_priority, fps_starts, x_init, step_priorities = _draws(
+        device,
+        (cond_priority, (lambda: rand((B, Nc))) if Nc > M else None),
+        (fps_starts, lambda: encoder.draw_fps_starts(min(Nc, M), B,
+                                                     generator, device)),
+        (x_init, lambda: torch.randn((B, N, 3), generator=generator,
+                                     device=device)),
+        (step_priorities, (lambda: torch.stack([
+            rand((B, N)) for _ in range(num_inference_steps)]))
+         if use_hierarchical else None))
+    inputs = dict(source=source_points, condition=condition_points,
+                  x_init=x_init, cond_priority=cond_priority,
+                  fps_starts=fps_starts, step_priorities=step_priorities,
+                  **_schedule_inputs(schedule))
 
-    cond_ds, _ = voxel_downsample(condition_points, M, priority=cond_priority,
-                                  generator=generator)
-    style = model.encode_style(cond_ds, fps_starts, generator)
+    def body(ins: dict) -> torch.Tensor:
+        return _guided_body(model, ins, num_inference_steps, guidance_scale,
+                            use_hierarchical, knn_backend, selections, split,
+                            rows)
+    eager = (selections is not None or mesh is not None
+             or (use_hierarchical and knn_backend == "pallas_pruned"))
+    key = ("guided", num_inference_steps, float(guidance_scale),
+           use_hierarchical, knn_backend)
+    return _run(model, key, body, inputs, eager)
+
+
+def _guided_body(model: PointCloudDiffusionModel, ins: dict, steps: int,
+                 guidance_scale: float, use_hierarchical: bool,
+                 knn_backend: str, selections: Optional[dict], split,
+                 rows) -> torch.Tensor:
+    """``guided_sample_loop`` after its draws, from its inputs ``ins``."""
+    cfg = model.config
+    device = model.device
+    schedule = _schedule_of(ins)
+    source_points = ins["source"]
+    B = source_points.shape[0]
+    M = cfg.global_points
+    step_priorities = ins.get("step_priorities")
+    cond_ds, _ = voxel_downsample(ins["condition"], M,
+                                  priority=ins.get("cond_priority"))
+    style = model.encode_style(cond_ds, ins["fps_starts"])
     style_in = torch.cat([style, torch.zeros_like(style)], dim=0)  # [2B, F]
-
-    if x_init is None:
-        x = torch.randn(source_points.shape, generator=generator,
-                        device=device, dtype=torch.float32)
-    else:
-        x = x_init.to(device=device, dtype=torch.float32)
-    ts, t_prev = _step_schedule(schedule.num_timesteps, num_inference_steps)
+    x = ins["x_init"]
+    ts, t_prev = _step_schedule(schedule.num_timesteps, steps)
 
     for s, (t, tp) in enumerate(zip(ts.tolist(), t_prev.tolist())):
         if use_hierarchical:
@@ -249,9 +340,7 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
             _record_points(selections, key, points=x)
             order = None if selections is None else selections.get(key)
             if order is None:
-                order = voxel_order(x, M, priority=None if step_priorities
-                                    is None else step_priorities[s],
-                                    generator=generator)
+                order = voxel_order(x, M, priority=step_priorities[s])
                 if selections is not None:
                     selections[key] = order
             x_coarse, x_idx, x_unk, x_unk_xyz = voxel_downsample_partition(
@@ -315,36 +404,65 @@ def guided_sample_loop_coarse(model: PointCloudDiffusionModel,
     (``use_hierarchical=False`` or N <= global_points) it is the guided loop
     at full resolution. Returns [B, N, 3] float32.
 
-    Draws that may be passed in, else taken from ``generator`` in this order:
-    ``cond_priority`` [B, Nc], ``fps_starts`` [2, B], ``src_priority`` [B, N]
-    the source's voxel priorities, ``x_init`` [B, Mc, 3] the initial noise at
-    coarse resolution."""
+    Draws that may be passed in, else taken from ``generator`` before the
+    loop in this order: ``cond_priority`` [B, Nc], ``fps_starts`` [2, B],
+    ``src_priority`` [B, N] the source's voxel priorities, ``x_init``
+    [B, Mc, 3] the initial noise at coarse resolution. On the card the call
+    after the draws is one CUDA graph, as ``guided_sample_loop``'s, except
+    with the ``"pallas_pruned"`` backend, which runs eagerly."""
     cfg = model.config
     device = model.device
     schedule = schedule.to(device)
     source_points = source_points.to(device=device, dtype=torch.float32)
     condition_points = condition_points.to(device=device, dtype=torch.float32)
-    N = source_points.shape[1]
+    B, N, _ = source_points.shape
+    Nc = condition_points.shape[1]
     M = cfg.global_points
-
-    cond_ds, _ = voxel_downsample(condition_points, M, priority=cond_priority,
-                                  generator=generator)
-    style = model.encode_style(cond_ds, fps_starts, generator)
-    style_in = torch.cat([style, torch.zeros_like(style)], dim=0)
-
+    coarse = use_hierarchical and N > M
+    encoder = model.net.style_encoder.encoder
     knn_backend = resolve_sampler_knn_backend(cfg)
-    if use_hierarchical and N > M:
+    rand = functools.partial(torch.rand, generator=generator, device=device)
+    cond_priority, fps_starts, src_priority, x_init = _draws(
+        device,
+        (cond_priority, (lambda: rand((B, Nc))) if Nc > M else None),
+        (fps_starts, lambda: encoder.draw_fps_starts(min(Nc, M), B,
+                                                     generator, device)),
+        (src_priority, (lambda: rand((B, N))) if coarse else None),
+        (x_init, lambda: torch.randn((B, M if coarse else N, 3),
+                                     generator=generator, device=device)))
+    inputs = dict(source=source_points, condition=condition_points,
+                  x_init=x_init, cond_priority=cond_priority,
+                  fps_starts=fps_starts, src_priority=src_priority,
+                  **_schedule_inputs(schedule))
+
+    def body(ins: dict) -> torch.Tensor:
+        return _coarse_body(model, ins, num_inference_steps, guidance_scale,
+                            coarse, knn_backend)
+    key = ("coarse", num_inference_steps, float(guidance_scale), coarse,
+           knn_backend)
+    return _run(model, key, body, inputs,
+                coarse and knn_backend == "pallas_pruned")
+
+
+def _coarse_body(model: PointCloudDiffusionModel, ins: dict, steps: int,
+                 guidance_scale: float, coarse: bool, knn_backend: str
+                 ) -> torch.Tensor:
+    """``guided_sample_loop_coarse`` after its draws."""
+    cfg = model.config
+    schedule = _schedule_of(ins)
+    source_points = ins["source"]
+    M = cfg.global_points
+    cond_ds, _ = voxel_downsample(ins["condition"], M,
+                                  priority=ins.get("cond_priority"))
+    style = model.encode_style(cond_ds, ins["fps_starts"])
+    style_in = torch.cat([style, torch.zeros_like(style)], dim=0)
+    if coarse:
         src_coarse, src_idx = voxel_downsample(
-            source_points, M, priority=src_priority, generator=generator)
+            source_points, M, priority=ins["src_priority"])
     else:
         src_coarse, src_idx = source_points, None
-
-    if x_init is None:
-        x = torch.randn(src_coarse.shape, generator=generator, device=device,
-                        dtype=torch.float32)
-    else:
-        x = x_init.to(device=device, dtype=torch.float32)
-    ts, t_prev = _step_schedule(schedule.num_timesteps, num_inference_steps)
+    x = ins["x_init"]
+    ts, t_prev = _step_schedule(schedule.num_timesteps, steps)
     for t, tp in zip(ts.tolist(), t_prev.tolist()):
         final_noise = _guided_step(model, x, t, style_in, guidance_scale)
         x = ddim_step(schedule, x, final_noise, t, tp,
@@ -380,34 +498,83 @@ def ddim_sample_loop(model: PointCloudDiffusionModel,
     Draws that may be passed in: ``x_init`` [B, N, 3], ``cond_priorities``
     [steps, B, Nc] and ``step_priorities`` [steps, B, N] (each step's voxel
     priorities of the condition cloud and of the state), ``fps_starts``
-    [2, B] (used at every step). The rest come from ``generator``: the
-    initial noise, then per step the condition priorities, the FPS starts
-    and the state's priorities."""
+    [2, B] (used at every step) or [steps, 2, B] (one pair a step). The
+    rest are drawn from ``generator`` before the loop, in the order the
+    steps take them: the initial noise, then per step the condition
+    priorities, the FPS starts and the state's priorities. On the card the
+    loop after the draws is one CUDA graph, as ``guided_sample_loop``'s,
+    except with the ``"pallas_pruned"`` backend on the hierarchical branch,
+    which runs eagerly."""
     cfg = model.config
     device = model.device
     schedule = schedule.to(device)
     condition_points = condition_points.to(device=device, dtype=torch.float32)
     B, N, _ = shape_like.shape
+    Nc = condition_points.shape[1]
+    M = cfg.global_points
+    steps = num_inference_steps
     if use_hierarchical is None:
-        use_hierarchical = N > cfg.global_points
-    if x_init is None:
-        x = torch.randn((B, N, 3), generator=generator, device=device,
-                        dtype=torch.float32)
-    else:
-        x = x_init.to(device=device, dtype=torch.float32)
-    ts, t_prev = _step_schedule(schedule.num_timesteps, num_inference_steps)
+        use_hierarchical = N > M
+    encoder = model.net.style_encoder.encoder
+    n_style = M if use_hierarchical and Nc > M else Nc
+    (x_init,) = _draws(device, (x_init, lambda: torch.randn(
+        (B, N, 3), generator=generator, device=device)))
+    if fps_starts is not None and fps_starts.dim() == 2:  # every step's
+        fps_starts = fps_starts.expand(steps, *fps_starts.shape)
+    rand = functools.partial(torch.rand, generator=generator, device=device)
+    per_step = {  # a step's draws in the eager loop's order (None: not drawn)
+        "cond": (lambda: rand((B, Nc))) if cond_priorities is None
+        and use_hierarchical and Nc > M else None,
+        "fps": (lambda: encoder.draw_fps_starts(n_style, B, generator,
+                                                device))
+        if fps_starts is None else None,
+        "state": (lambda: rand((B, N))) if step_priorities is None
+        and use_hierarchical and N > M else None}
+    drawn: dict = {name: [] for name in per_step}
+    for _ in range(steps):
+        for name, draw in per_step.items():
+            if draw is not None:
+                drawn[name].append(draw())
+    cond_priorities, fps_starts, step_priorities = _draws(device, *(
+        (given, (lambda d=drawn[name]: torch.stack(d)) if drawn[name]
+         else None)
+        for name, given in zip(per_step, (cond_priorities, fps_starts,
+                                          step_priorities))))
+    inputs = dict(x_init=x_init, condition=condition_points,
+                  cond_priorities=cond_priorities,
+                  fps_starts=None if fps_starts is None
+                  else fps_starts.contiguous(),
+                  step_priorities=step_priorities,
+                  **_schedule_inputs(schedule))
     knn_backend = resolve_sampler_knn_backend(cfg)
 
+    def body(ins: dict) -> torch.Tensor:
+        return _ddim_body(model, ins, steps, use_hierarchical, knn_backend)
+    key = ("ddim", steps, use_hierarchical, knn_backend)
+    return _run(model, key, body, inputs,
+                use_hierarchical and knn_backend == "pallas_pruned")
+
+
+def _ddim_body(model: PointCloudDiffusionModel, ins: dict, steps: int,
+               use_hierarchical: bool, knn_backend: str) -> torch.Tensor:
+    """``ddim_sample_loop`` after its draws."""
+    cfg = model.config
+    schedule = _schedule_of(ins)
+    x = ins["x_init"]
+    B = x.shape[0]
+    cond_priorities = ins.get("cond_priorities")
+    step_priorities = ins.get("step_priorities")
+    ts, t_prev = _step_schedule(schedule.num_timesteps, steps)
     for s, (t, tp) in enumerate(zip(ts.tolist(), t_prev.tolist())):
-        t_in = torch.full((B,), t, dtype=torch.int64, device=device)
+        t_in = torch.full((B,), t, dtype=torch.int64, device=x.device)
         pred, idx, _ = model.forward(
-            x, t_in, condition_points, cond_drop_prob=0.0,
+            x, t_in, ins["condition"], cond_drop_prob=0.0,
             use_hierarchical=use_hierarchical, train=False,
             cond_priority=None if cond_priorities is None
             else cond_priorities[s],
             noisy_priority=None if step_priorities is None
             else step_priorities[s],
-            fps_starts=fps_starts, generator=generator)
+            fps_starts=ins["fps_starts"][s])
         pred = pred.float()
         if idx is not None:
             pred = _upsample_unknown(x, idx, pred, knn_backend)

@@ -18,7 +18,12 @@ candidates near each query (counterpart of
    the covered region (the margins in ``_query_pass``). Other rows are
    recomputed by the brute-force kernel (``ops/kernels/knn.py``): only those
    rows, or every row once they outnumber the last tier of
-   ``_fallback_caps``, as the TPU's ``lax.switch`` ladder does.
+   ``_fallback_caps``, as the TPU's ``lax.switch`` ladder does. The ladder
+   runs on the device (``_patch_rows``, ``_patched``): the unsafe count
+   never reaches the host, the rows to recompute are compacted in ascending
+   order into a buffer of static size (a cumsum scatter, the order of the
+   TPU's one sort), and one ``knn_topk`` launch reads its row count from
+   device memory, so a sampler step can be captured in a CUDA graph.
 
 A batch of B > 1 clouds runs flat when the grid covers whole columns
 (``_batched_grid_ok``), as on the TPU: one structure build over all clouds
@@ -26,19 +31,22 @@ A batch of B > 1 clouds runs flat when the grid covers whole columns
 of one array), one layout over the B*Sx*Sy (cloud, slab, row) rows with
 each tile's runs shifted into its cloud's part of the refs, one
 ``grid_interp`` launch, and one fallback ladder whose tier comes from the
-largest per-cloud unsafe count: one host sync and at most one brute-force
-launch (with a batch axis) a group of at most ``_BATCHED_MAX_GROUP`` clouds.
+largest per-cloud unsafe count: one brute-force launch (with a batch axis)
+a group of at most ``_BATCHED_MAX_GROUP`` clouds.
 
 The TPU path's devices for its memory (one-hot matmul lookups, sorts that
 stand for scatters, float-valued query ids, 128-aligned kernel windows,
 padded patch buffers) are plain indexing and scatters here; they change no
 result. The number of rows each pass could not prove exact is kept in
-``UNSAFE_COUNTS`` (one entry per cloud and pass, the latest 4,096).
+``UNSAFE_COUNTS``: one 0-d int64 tensor on the pass's device per cloud and
+pass, the latest 4,096, which ``unsafe_counts()`` reads in one host sync
+after the work.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 from typing import NamedTuple, Optional
 
@@ -54,8 +62,43 @@ _LANE = 128  # the slot-window granularity of the grid's tables
 GRID_SHAPE = (16, 12, 8)  # the entry points' default grid
 SLOT_CAP = 384  # and slot window (refs)
 
-# rows each grid pass could not prove exact, one entry per cloud and pass
+# rows each grid pass could not prove exact: one 0-d int64 tensor on the
+# pass's device per cloud and pass, appended without a host sync
 UNSAFE_COUNTS: collections.deque = collections.deque(maxlen=4096)
+
+
+_RECORDERS: list = []  # the lists of open ``recording_unsafe`` blocks
+
+
+def _record_unsafe(counts) -> None:
+    """Keep each pass's per-cloud counts (0-d tensors): in the innermost
+    ``recording_unsafe`` list, else in ``UNSAFE_COUNTS``."""
+    (_RECORDERS[-1] if _RECORDERS else UNSAFE_COUNTS).extend(counts)
+
+
+@contextlib.contextmanager
+def recording_unsafe():
+    """Within the block the passes' counts go to the list it yields, not to
+    ``UNSAFE_COUNTS`` (a captured sampler stacks them inside its graph)."""
+    counts: list = []
+    _RECORDERS.append(counts)
+    try:
+        yield counts
+    finally:
+        _RECORDERS.pop()
+
+
+def unsafe_counts() -> list[int]:
+    """``UNSAFE_COUNTS`` as ints, oldest first: one host sync a device."""
+    entries = list(UNSAFE_COUNTS)
+    out = [0] * len(entries)
+    by_device: dict = {}
+    for j, t in enumerate(entries):
+        by_device.setdefault(t.device, []).append(j)
+    for js in by_device.values():
+        for j, v in zip(js, torch.stack([entries[j] for j in js]).tolist()):
+            out[j] = v
+    return out
 
 
 class GridStruct(NamedTuple):
@@ -98,12 +141,13 @@ def _full_z_ok(M: int, grid_shape, slot_cap: int) -> bool:
     return int(np.max(RB[:, 1:] - RB[:, :-1])) + (_LANE - 1) <= slot_cap
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _device_tables(M: int, grid_shape, device: torch.device) -> dict:
     """``_partition_tables``' arrays as int64 tensors on ``device``, built
     once per (M, grid_shape, device): a copy from pageable host memory
-    synchronises the stream, which a per-step rebuild would pay each
-    time."""
+    synchronises the stream, which a per-step rebuild would pay each time
+    and a CUDA graph's capture refuses. Never evicted: a captured sampler
+    reads them at every replay."""
     Sx, Sy, Sz = grid_shape
     SB, RB, CS, slab_pos, row_pos = _partition_tables(M, Sx, Sy, Sz)
     tables = dict(SB_inner=SB[1:-1], RB_inner=RB[:, 1:-1], CS=CS,
@@ -111,6 +155,18 @@ def _device_tables(M: int, grid_shape, device: torch.device) -> dict:
                   zcs_inner=CS[:-1].reshape(Sx * Sy, Sz)[:, 1:])
     return {k: torch.from_numpy(np.ascontiguousarray(v)).long().to(device)
             for k, v in tables.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_offsets(Hx: int, Hy: int, device: torch.device
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (slab, row) neighbour pairs of a tile, dx-major: (column of the
+    tile's neighbour slab [P], row offset [P]) on ``device``, built once
+    (cached as ``_device_tables`` is, for the same reasons)."""
+    offs = np.array([(dx, dy) for dx in range(-Hx, Hx + 1)
+                     for dy in range(-Hy, Hy + 1)])
+    return (torch.from_numpy(offs[:, 0] + Hx).to(device),
+            torch.from_numpy(offs[:, 1]).to(device))
 
 
 def _stable_argsort_2key(k1: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
@@ -346,10 +402,8 @@ def _layout_slots(struct, query: torch.Tensor, grid_shape,
                          shift(CS[(sx3c * Sy + y_hi_r) * Sz + Sz]), 0)
         tile_ok = torch.ones(T, dtype=torch.bool, device=dev)
     else:
-        offs = np.array([(dx, dy) for dx in range(-Hx, Hx + 1)
-                         for dy in range(-Hy, Hy + 1)])
-        dxi = torch.from_numpy(offs[:, 0] + Hx).to(dev)
-        sy2 = r3[:, dxi] + torch.from_numpy(offs[:, 1]).to(dev)[None, :]
+        dxi, dyo = _pair_offsets(Hx, Hy, dev)
+        sy2 = r3[:, dxi] + dyo[None, :]
         sx2 = sx3[:, dxi]
         valid_pair = slab3_ok[:, dxi] & (sy2 >= 0) & (sy2 < Sy)
         row2 = sx2.clamp(0, Sx - 1) * Sy + sy2.clamp(0, Sy - 1)
@@ -521,16 +575,22 @@ def _fallback_caps(fallback_cap: int, Nq: int) -> list[int]:
 
 
 def _brute(query: torch.Tensor, ref: torch.Tensor, k: int,
-           exact: bool = True):
-    """Brute-force kNN of one cloud: [n, 3] x [M, 3] -> ([n, k], [n, k]).
+           exact: bool = True, row_ids: Optional[torch.Tensor] = None,
+           count: Optional[torch.Tensor] = None,
+           plan_rows: Optional[int] = None):
+    """Brute-force kNN of one cloud: [Nsrc, 3] x [M, 3] -> ([n, k], [n, k]).
     The exact kernel (ties to the lowest ref index), or the f32-packed one
     when near-tie approximation is allowed (``exact=False``) and the refs,
-    padded to 2,048, fit its 2^15 index budget."""
+    padded to 2,048, fit its 2^15 index budget. ``row_ids`` [1, n] and
+    ``count`` [1] (``_patch_rows``) pick the rows: either kernel computes
+    only the counted ones, planned for ``plan_rows`` of them."""
     q, r = query[None].contiguous(), ref[None].contiguous()
     if not exact and padded_refs(ref.shape[0], 2048) <= MAX_REFS:
-        d, i = knn_f32packed(q, r, k, tr=2048)
+        d, i = knn_f32packed(q, r, k, tr=2048, row_ids=row_ids, count=count,
+                             plan_rows=plan_rows)
     else:
-        d, i = knn_topk(q, r, k)
+        d, i = knn_topk(q, r, k, row_ids=row_ids, count=count,
+                        plan_rows=plan_rows)
     return d[0], i[0]
 
 
@@ -540,41 +600,87 @@ def _interp_weights(sq_d: torch.Tensor, eps: float) -> torch.Tensor:
     return w / w.sum(-1, keepdim=True)
 
 
-def _brute_interp_batched(query, ref, values, k: int, eps: float
-                          ) -> torch.Tensor:
+def _brute_interp_batched(query, ref, values, k: int, eps: float,
+                          row_ids: Optional[torch.Tensor] = None,
+                          count: Optional[torch.Tensor] = None,
+                          plan_rows: Optional[int] = None) -> torch.Tensor:
     """Brute kNN (the exact kernel, one launch for the batch) + inverse-
-    distance interpolation: [B, n, 3] x [B, M, 3], [B, M, C] -> [B, n, C]."""
-    d, i = knn_topk(query.contiguous(), ref.contiguous(), k)
+    distance interpolation: [B, n, 3] x [B, M, 3], [B, M, C] -> [B, n, C].
+    ``row_ids`` [B, n] and ``count`` [B] as ``knn_topk`` takes them."""
+    d, i = knn_topk(query.contiguous(), ref.contiguous(), k, row_ids=row_ids,
+                    count=count, plan_rows=plan_rows)
     w = _interp_weights(d, eps)
-    B, n, _ = query.shape
+    B, n = d.shape[:2]
     M, C = values.shape[1:]
     idx = i.long().clamp(0, M - 1).reshape(B, n * k, 1).expand(B, n * k, C)
     vb = torch.gather(values, 1, idx).reshape(B, n, k, C)
     return (vb * w[..., None]).sum(2)
 
 
-def _brute_interp(query, ref, values, k: int, eps: float) -> torch.Tensor:
+def _brute_interp(query, ref, values, k: int, eps: float,
+                  row_ids: Optional[torch.Tensor] = None,
+                  count: Optional[torch.Tensor] = None,
+                  plan_rows: Optional[int] = None) -> torch.Tensor:
     """Brute kNN + inverse-distance interpolation of one cloud: [n, C]."""
-    d, i = _brute(query, ref, k)
+    d, i = _brute(query, ref, k, True, row_ids, count, plan_rows)
     w = _interp_weights(d, eps)
     vb = values[i.long().clamp(0, values.shape[0] - 1)]  # [n, k, C]
     return (vb * w[..., None]).sum(1)
 
 
+def _patch_plan_rows(fallback_cap: int) -> int:
+    """The rows a cloud's patch launch is planned for: the ladder's first
+    tier, ``fallback_cap / 2`` (a ``Config()`` step leaves ~1,500-2,500
+    unsafe rows, PERF.md), whatever the count the device finds."""
+    return max(fallback_cap // 2, 1)
+
+
+def _patch_rows(unsafe: torch.Tensor, all_brute: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ladder's rows on the device: unsafe [B, n] bool and the
+    all-brute tier ``all_brute`` (a bool tensor) -> (row_ids [B, n] int32,
+    count [B] int32). Each cloud's unsafe rows in ascending order, or in
+    the all-brute tier every row, at the front of a buffer of static size n
+    (a cumsum scatter, which orders the rows as the TPU's one sort of
+    ``where(unsafe, iota, n)`` does); the slots past the count hold n."""
+    B, n = unsafe.shape
+    take = unsafe | all_brute
+    pos = torch.cumsum(take, dim=1)
+    slot = torch.where(take, pos - 1, n)  # n: a dropped column
+    ids = torch.full((B, n + 1), n, dtype=torch.int32, device=unsafe.device)
+    iota = torch.arange(n, dtype=torch.int32, device=unsafe.device)
+    ids.scatter_(1, slot, iota.expand(B, n))
+    count = pos[:, -1] if n else pos.new_zeros(B)
+    return ids[:, :n].contiguous(), count.int()
+
+
+def _patched(outs: tuple, patch: tuple, dest: torch.Tensor,
+             count: torch.Tensor) -> tuple:
+    """Each of ``outs`` ([N, ...]) with its rows ``dest`` [B, n] overwritten
+    by ``patch`` ([B, n, ...], the same row order) up to each cloud's
+    ``count``; the slots past it, and their rows, land in a dropped row."""
+    N = outs[0].shape[0]
+    j = torch.arange(dest.shape[1], device=dest.device)
+    dest = torch.where(j[None, :] < count[:, None], dest.long(), N).reshape(-1)
+    return tuple(
+        torch.cat([o, o.new_zeros((1,) + o.shape[1:])]).index_copy_(
+            0, dest, p.reshape((-1,) + o.shape[1:]).to(o.dtype))[:N]
+        for o, p in zip(outs, patch))
+
+
 def _apply_fallback(outs: tuple, unsafe: torch.Tensor, rows: torch.Tensor,
                     n_real: int, fallback_cap: int, brute) -> tuple:
-    """Recompute the rows the grid could not prove exact with ``brute``
-    (rows [n, 3] -> tuple like ``outs``): only those rows, or every row of
-    ``rows`` once they outnumber the last fallback tier."""
-    n_unsafe = int(unsafe.sum())  # the one host sync of a pass
-    UNSAFE_COUNTS.append(n_unsafe)
-    if n_unsafe > _fallback_caps(fallback_cap, n_real)[-1]:
-        return brute(rows)
-    if n_unsafe == 0:
-        return outs
-    ids = unsafe.nonzero()[:, 0]
-    patch = brute(rows[ids])
-    return tuple(o.index_copy(0, ids, p) for o, p in zip(outs, patch))
+    """Recompute the rows the grid could not prove exact, on the device:
+    only those rows, or every row of ``rows`` once they outnumber the last
+    fallback tier. ``brute(rows, row_ids [1, n], count [1])`` -> a tuple
+    like ``outs`` with a leading row axis of n, in ``row_ids`` order, rows
+    past the count unread. The count is recorded in ``UNSAFE_COUNTS``."""
+    n_unsafe = unsafe.sum()
+    _record_unsafe([n_unsafe])
+    all_brute = n_unsafe > _fallback_caps(fallback_cap, n_real)[-1]
+    row_ids, count = _patch_rows(unsafe[None], all_brute)
+    patch = brute(rows, row_ids, count)
+    return _patched(outs, tuple(p[None] for p in patch), row_ids, count)
 
 
 def _check_grid_args(slot_cap: int, Nq: int, name: str) -> None:
@@ -604,8 +710,9 @@ def _grid_interp_single(query, ref, values, k, grid_shape, tq, slot_cap,
     args = (struct, query, k, grid_shape, tq, slot_cap, z_halo, xy_halo,
             values, eps)
 
-    def brute(rows):
-        return (_brute_interp(rows, ref, values, k, eps),)
+    def brute(rows, row_ids, count):
+        return (_brute_interp(rows, ref, values, k, eps, row_ids, count,
+                              _patch_plan_rows(fallback_cap)),)
     if layout:
         v_out, safe, qid, q_pad = _query_pass(*args, layout_out=True)
         # padding positions never count as unsafe
@@ -625,13 +732,14 @@ def _grid_interp_batched_layout(query, ref, values, k, grid_shape, tq,
     int32 global query ids b*Nq + i, B*Nq on padding), in one structure
     build, one kernel pass and one fallback ladder for every cloud.
 
-    The ladder takes each cloud's unsafe count in one host sync (kept in
+    The ladder keeps each cloud's unsafe count on the device (in
     ``UNSAFE_COUNTS``, one entry a cloud) and picks the shared tier from
     the largest, as the TPU does: above the last tier every row of every
-    cloud is brute-forced (in query order, then put in layout order through
-    qid); else each cloud's unsafe rows, compacted into [B, n_max] rows
-    padded at ``_FAR``, go through one brute-force launch with a batch
-    axis, each row against its own cloud's refs."""
+    cloud is brute-forced, else each cloud's unsafe rows. Either way one
+    brute-force launch with a batch axis takes each cloud's rows, in query
+    order through ``_patch_rows``, against its own cloud's refs, and
+    ``_patched`` puts them at their layout positions (padding positions
+    keep the grid's values)."""
     B, Nq, _ = query.shape
     Ng = B * Nq
     query, ref, values = query.float(), ref.float(), values.float()
@@ -639,35 +747,22 @@ def _grid_interp_batched_layout(query, ref, values, k, grid_shape, tq,
     v_out, safe, qid, q_pad = _query_pass(
         structb, query, k, grid_shape, tq, slot_cap, xy_halo=xy_halo,
         values=values, eps=eps, layout_out=True)
-    NPg, C = v_out.shape
+    NPg = v_out.shape[0]
     dev = query.device
-    unsafe = ~safe & (qid < Ng)  # padding never counts
-    cloud = torch.div(qid, Nq, rounding_mode="floor")  # B on padding
-    counts = torch.zeros(B + 1, dtype=torch.int64, device=dev).scatter_add_(
-        0, cloud, unsafe.long())[:B]
-    counts_l = counts.tolist()  # the one host sync of a group
-    UNSAFE_COUNTS.extend(counts_l)
-    n_max = max(counts_l)
-    if n_max > _fallback_caps(fallback_cap, Nq)[-1]:
-        v_orig = _brute_interp_batched(query, ref, values, k, eps)
-        v_out = torch.where((qid < Ng)[:, None],
-                            v_orig.reshape(Ng, C)[qid.clamp(max=Ng - 1)],
-                            v_out)
-    elif n_max:
-        # sorting (qid | Ng) puts each cloud's unsafe positions in one run,
-        # cloud after cloud; row j of cloud b is run entry starts[b] + j
-        pos_s = torch.sort(torch.where(unsafe, qid, Ng), stable=True).indices
-        starts = torch.cumsum(counts, 0) - counts
-        j = torch.arange(n_max, device=dev)
-        ok = j[None, :] < counts[:, None]
-        pos = torch.where(
-            ok, pos_s[(starts[:, None] + j[None, :]).clamp(max=NPg - 1)], NPg)
-        rows = torch.where(ok[..., None], q_pad[pos.clamp(max=NPg - 1)],
-                           _FAR)
-        patch = _brute_interp_batched(rows, ref, values, k, eps)
-        # padding rows of the patch all land in the dropped last row
-        v_out = torch.cat([v_out, v_out.new_zeros((1, C))]).index_copy_(
-            0, pos.reshape(-1), patch.reshape(-1, C))[:NPg]
+    # each query's layout position (padding, qid == Ng, in a dropped slot)
+    posq = qid.new_empty(Ng + 1).scatter_(
+        0, qid, torch.arange(NPg, dtype=qid.dtype, device=dev))[:Ng]
+    unsafe_q = ~safe[posq].reshape(B, Nq)  # in query order
+    counts = unsafe_q.sum(1)
+    _record_unsafe(counts.unbind(0))
+    all_brute = counts.max() > _fallback_caps(fallback_cap, Nq)[-1]
+    row_ids, count = _patch_rows(unsafe_q, all_brute)
+    patch = _brute_interp_batched(query, ref, values, k, eps, row_ids, count,
+                                  _patch_plan_rows(fallback_cap))
+    # the slots past a cloud's count (their ids Nq) are dropped by _patched
+    cloud = torch.arange(B, device=dev)[:, None] * Nq
+    dest = posq[cloud + row_ids.clamp(max=Nq - 1)]
+    (v_out,) = _patched((v_out,), (patch,), dest, count)
     return v_out, qid.int()
 
 
@@ -868,9 +963,11 @@ def _grid_knn_single(query, ref, k, grid_shape, tq, slot_cap, fallback_cap,
         ref.shape[0], grid_shape, slot_cap))
     d_out, i_out, unsafe = _query_pass(struct, query, k, grid_shape, tq,
                                        slot_cap, z_halo, xy_halo)
-    return _apply_fallback((d_out, i_out), unsafe, query, query.shape[0],
-                           fallback_cap,
-                           lambda rows: _brute(rows, ref, k, exact))
+    return _apply_fallback(
+        (d_out, i_out), unsafe, query, query.shape[0], fallback_cap,
+        lambda rows, row_ids, count: _brute(
+            rows, ref, k, exact, row_ids, count,
+            _patch_plan_rows(fallback_cap)))
 
 
 def grid_knn(query: torch.Tensor, ref: torch.Tensor, k: int = 3, *,

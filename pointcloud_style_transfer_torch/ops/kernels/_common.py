@@ -41,8 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 # csrc/<source>.cu -> {C entry point: its argtypes}
 _VP, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "knn_topk": {"pcst_knn_topk": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
-                                   _INT, _VP]},
+    "knn_topk": {"pcst_knn_topk": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
+                                   _INT, _INT, _INT, _INT, _VP]},
     "fps": {"pcst_fps": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
                          _INT, _VP]},
     "ball_query": {"pcst_ball_query": [_VP, _VP, _VP, _INT, _INT, _INT, _INT,
@@ -55,8 +55,8 @@ SIGNATURES = {
                            _INT, _INT, _INT, _VP],
     },
     "knn_packed": {
-        "pcst_knn_f32packed": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-                               _INT, _VP],
+        "pcst_knn_f32packed": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
+                               _INT, _INT, _INT, _INT, _VP],
         "pcst_knn_packed": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
                             _INT, _VP],
     },

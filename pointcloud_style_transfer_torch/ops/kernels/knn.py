@@ -18,6 +18,15 @@ Both versions return ascending squared distances [B, Nq, k] float32 and
 indices [B, Nq, k] int32 with ties to the lowest ref index, for any
 k >= 1; slots no ref fills (k > M) hold (1e30, 0); a NaN distance is never
 taken; indices are clipped to [0, M-1].
+
+The count on the device (the kd-grid's fallback ladder, which decides on
+the device how many rows to recompute): ``row_ids`` [B, n] int32 makes
+output row j of cloud b the query row ``row_ids[b, j]`` (clipped to the
+cloud's rows), and ``count`` [B] int32 computes only the first
+``count[b]`` output rows of cloud b; the others hold the start list
+(1e30, 0). The kernel reads the count from device memory, and its query
+blocks at or past it exit without scanning, so the launch's size stays
+static while the work follows the data.
 """
 
 from __future__ import annotations
@@ -36,7 +45,16 @@ _NAN_KEY = 0x7F800000 << 32  # a NaN distance's key: +inf's bits, never taken
 _CHUNK_ELEMS = 1 << 23  # plain version: distance-matrix elements per chunk
 
 
-def knn_topk_plain(query: torch.Tensor, ref: torch.Tensor, k: int
+def _gather_rows(query: torch.Tensor, row_ids: torch.Tensor) -> torch.Tensor:
+    """[B, Nsrc, 3] query rows at ``row_ids`` [B, n] (clipped as the kernel
+    clips them) -> [B, n, 3]."""
+    idx = row_ids.long().clamp(0, query.shape[1] - 1)
+    return torch.gather(query, 1, idx[..., None].expand(*idx.shape, 3))
+
+
+def knn_topk_plain(query: torch.Tensor, ref: torch.Tensor, k: int,
+                   row_ids: torch.Tensor | None = None,
+                   count: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, for CPU tensors and tests.
 
@@ -44,18 +62,27 @@ def knn_topk_plain(query: torch.Tensor, ref: torch.Tensor, k: int
     non-negative float orders like its bit pattern) and the index are packed
     into one int64 key, so ``topk`` over unique keys keeps the lowest index
     on equal distances. A NaN, whatever its sign bit, takes +inf's key, and
-    an entry at or above 1e30 becomes the start entry (1e30, 0)."""
+    an entry at or above 1e30 becomes the start entry (1e30, 0).
+    ``row_ids`` and ``count`` as the kernel takes them (module docstring);
+    the largest count is read on the host, which on the card is a sync: the
+    plain version is the card's oracle, not its path."""
     query = query.float()
     ref = ref.float()
+    if row_ids is not None:
+        query = _gather_rows(query, row_ids)
     B, N, _ = query.shape
     M = ref.shape[1]
     kk = min(k, M)
     d_out = torch.full((B, N, k), _BIG, dtype=torch.float32, device=query.device)
     i_out = torch.zeros((B, N, k), dtype=torch.int32, device=query.device)
+    n_rows = N
+    if count is not None:
+        count = count.to(query.device).long().clamp(0, N)
+        n_rows = int(count.max()) if B else 0
     ids = torch.arange(M, dtype=torch.int64, device=query.device)
     chunk = max(1, _CHUNK_ELEMS // max(M, 1))
     for b in range(B):
-        for s in range(0, N, chunk):
+        for s in range(0, n_rows, chunk):
             d = pairwise_sq_dist(query[b, s:s + chunk], ref[b])
             keys = (d.view(torch.int32).to(torch.int64) << 32) | ids
             keys = keys.masked_fill(torch.isnan(d), _NAN_KEY)
@@ -65,7 +92,13 @@ def knn_topk_plain(query: torch.Tensor, ref: torch.Tensor, k: int
             taken = dd < _BIG  # the kernel inserts only on strict '<'
             d_out[b, s:s + chunk, :kk] = torch.where(taken, dd, _BIG)
             i_out[b, s:s + chunk, :kk] = torch.where(taken, ii, 0)
-    return d_out, i_out.clamp_(0, max(M - 1, 0))
+    i_out.clamp_(0, max(M - 1, 0))
+    if count is not None:  # rows past the count: the start list
+        skipped = (torch.arange(N, device=query.device)[None, :]
+                   >= count[:, None])[..., None]
+        d_out.masked_fill_(skipped, _BIG)
+        i_out.masked_fill_(skipped, 0)
+    return d_out, i_out
 
 
 def _last_round_full(blocks: int) -> float:
@@ -95,17 +128,42 @@ def knn_topk_plan(B: int, nq: int, m: int) -> int:
     return S
 
 
+def _check_rows(row_ids, count, B: int, device: torch.device) -> None:
+    for t, what in ((row_ids, "row_ids"), (count, "count")):
+        if t is not None and (t.device != device or t.dtype != torch.int32
+                              or not t.is_contiguous()):
+            raise ValueError(f"{what} must be a contiguous int32 tensor on "
+                             f"{device}")
+    if row_ids is not None and (row_ids.dim() != 2 or row_ids.shape[0] != B):
+        raise ValueError(f"row_ids must be [{B}, n], got "
+                         f"{tuple(row_ids.shape)}")
+    if count is not None and count.shape != (B,):
+        raise ValueError(f"count must be [{B}], got {tuple(count.shape)}")
+
+
 def knn_topk_cuda(query: torch.Tensor, ref: torch.Tensor, k: int,
-                  plan: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                  plan: int | None = None,
+                  row_ids: torch.Tensor | None = None,
+                  count: torch.Tensor | None = None,
+                  plan_rows: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/knn_topk.cu`` on the current stream, with
     ``knn_topk_plan``'s cluster size unless ``plan`` (S) is given. Above
-    ``MAX_K`` the global-list kernel runs, which takes no cluster (S = 1)."""
+    ``MAX_K`` the global-list kernel runs, which takes no cluster (S = 1).
+    ``row_ids`` [B, n] and ``count`` [B] (int32, on the card) as the module
+    docstring says; the plan is made for ``plan_rows`` rows a cloud when
+    given (the rows a count is expected to leave, which the host does not
+    know), else for the launch's rows."""
     check_points(query, "query")
     check_points(ref, "ref")
-    B, N, _ = query.shape
+    B, Nsrc, _ = query.shape
     M = ref.shape[1]
     if ref.shape[0] != B or ref.device != query.device:
         raise ValueError("query and ref must share batch size and device")
+    _check_rows(row_ids, count, B, query.device)
+    N = Nsrc if row_ids is None else row_ids.shape[1]
+    if Nsrc == 0 and N:
+        raise ValueError("row_ids need at least one query row")
     if k < 1:
         raise ValueError(f"the kNN kernel takes k >= 1, got {k}")
     if M == 0:
@@ -115,21 +173,30 @@ def knn_topk_cuda(query: torch.Tensor, ref: torch.Tensor, k: int,
         if S != 1:
             raise ValueError(f"k = {k} > {MAX_K} takes no cluster, got S={S}")
     else:
-        S = knn_topk_plan(B, N, M) if plan is None else plan
+        S = (knn_topk_plan(B, N if plan_rows is None else plan_rows, M)
+             if plan is None else plan)
     if S not in CLUSTER_SIZES:
         raise ValueError(f"bad kNN cluster size {S}")
     d = torch.empty((B, N, k), dtype=torch.float32, device=query.device)
     i = torch.empty((B, N, k), dtype=torch.int32, device=query.device)
     if B * N:
         launch("knn_topk", query.device, query.data_ptr(), ref.data_ptr(),
-               d.data_ptr(), i.data_ptr(), B, N, M, k, S)
+               d.data_ptr(), i.data_ptr(),
+               None if row_ids is None else row_ids.data_ptr(),
+               None if count is None else count.data_ptr(), B, N, max(Nsrc, 1),
+               M, k, S)
     return d, i
 
 
-def knn_topk(query: torch.Tensor, ref: torch.Tensor, k: int
+def knn_topk(query: torch.Tensor, ref: torch.Tensor, k: int,
+             row_ids: torch.Tensor | None = None,
+             count: torch.Tensor | None = None,
+             plan_rows: int | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """k nearest refs per query: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors (``row_ids``, ``count``, ``plan_rows`` as
+    ``knn_topk_cuda`` takes them)."""
     if query.device.type == "cpu":
-        return knn_topk_plain(query, ref, k)
-    return knn_topk_cuda(query, ref, k)
+        return knn_topk_plain(query, ref, k, row_ids, count)
+    return knn_topk_cuda(query, ref, k, row_ids=row_ids, count=count,
+                         plan_rows=plan_rows)

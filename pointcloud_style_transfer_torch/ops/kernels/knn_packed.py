@@ -47,6 +47,14 @@ refs (padding included) are left, while a NaN with the sign bit set gives a
 key above 2^30 that it never takes: the outcome follows the platform's NaN
 bit pattern. The port's answer does not: kernel and plain version never take
 a NaN, whatever its bits.
+
+The f32-packed kernel takes the count on the device as ``knn_topk`` does
+(``knn.py``): ``row_ids`` [B, n] int32 makes output row j of cloud b the
+query row ``row_ids[b, j]`` (clipped to the cloud's rows), ``count`` [B]
+int32 computes only the first ``count[b]`` output rows of cloud b, whose
+query blocks at or past it exit without scanning; the rows past it hold the
+start keys. The kd-grid's inexact fallback launches it so, over a buffer of
+static size.
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ from __future__ import annotations
 import torch
 
 from ._common import check_points, launch, pairwise_sq_dist
-from .knn import CLUSTER_SIZES, MAX_K, knn_topk_plan
+from .knn import CLUSTER_SIZES, MAX_K, _check_rows, _gather_rows, knn_topk_plan
 
 MAX_REFS = 1 << 15  # the index budget of both keys
 _FAR = 1e15  # the padding refs' coordinate
@@ -80,11 +88,16 @@ def _check_budget(m_total: int, what: str) -> None:
 
 
 def _keys_plain(query: torch.Tensor, ref: torch.Tensor, k: int, m_total: int,
-                idx_bits: int | None) -> torch.Tensor:
+                idx_bits: int | None, row_ids: torch.Tensor | None = None,
+                count: torch.Tensor | None = None) -> torch.Tensor:
     """The k smallest keys per query, ascending, int32 [B, N, k];
-    ``idx_bits=None`` is the f32-packed key."""
+    ``idx_bits=None`` is the f32-packed key. ``row_ids`` and ``count`` as
+    the f32-packed kernel takes them (module docstring); the largest count
+    is read on the host, a sync on the card, where this is the oracle."""
     query = query.float()
     ref = ref.float()
+    if row_ids is not None:
+        query = _gather_rows(query, row_ids)
     B, N, _ = query.shape
     M = ref.shape[1]
     f32 = idx_bits is None
@@ -93,10 +106,14 @@ def _keys_plain(query: torch.Tensor, ref: torch.Tensor, k: int, m_total: int,
     pad = ref.new_full((B, n_pad, 3), _FAR)
     ref_p = torch.cat([ref, pad], dim=1)
     cols = torch.arange(M + n_pad, dtype=torch.int64, device=query.device)
-    out = torch.empty((B, N, k), dtype=torch.int32, device=query.device)
+    out = torch.full((B, N, k), start, dtype=torch.int32, device=query.device)
+    n_rows = N
+    if count is not None:
+        count = count.to(query.device).long().clamp(0, N)
+        n_rows = int(count.max()) if B else 0
     chunk = max(1, _CHUNK_ELEMS // max(M + n_pad, 1))
     for b in range(B):
-        for s in range(0, N, chunk):
+        for s in range(0, n_rows, chunk):
             d = pairwise_sq_dist(query[b, s:s + chunk], ref_p[b])
             bits = d.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
             if f32:
@@ -111,15 +128,22 @@ def _keys_plain(query: torch.Tensor, ref: torch.Tensor, k: int, m_total: int,
                               keys.new_full((keys.shape[0], k), start)], dim=1)
             top = torch.topk(keys, k, dim=1, largest=False, sorted=True).values
             out[b, s:s + chunk] = top.to(torch.int32)
+    if count is not None:  # rows past the count: the start keys
+        skipped = torch.arange(N, device=query.device)[None, :] >= count[:, None]
+        out.masked_fill_(skipped[..., None], start)
     return out
 
 
 def knn_f32packed_keys_plain(query: torch.Tensor, ref: torch.Tensor, k: int,
-                             m_total: int) -> torch.Tensor:
+                             m_total: int, row_ids: torch.Tensor | None = None,
+                             count: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """The f32-packed kernel's function in plain PyTorch: float32 keys
-    [B, N, k], ascending."""
+    [B, N, k], ascending (``row_ids``, ``count`` as the kernel takes
+    them)."""
     _check_budget(m_total, "f32-packed")
-    return _keys_plain(query, ref, k, m_total, None).view(torch.float32)
+    return _keys_plain(query, ref, k, m_total, None, row_ids, count
+                       ).view(torch.float32)
 
 
 def knn_intpacked_keys_plain(query: torch.Tensor, ref: torch.Tensor, k: int,
@@ -160,20 +184,32 @@ def _cluster_size(B: int, N: int, M: int, k: int, plan: int | None,
 
 
 def knn_f32packed_keys_cuda(query: torch.Tensor, ref: torch.Tensor, k: int,
-                            m_total: int, plan: int | None = None
-                            ) -> torch.Tensor:
+                            m_total: int, plan: int | None = None,
+                            row_ids: torch.Tensor | None = None,
+                            count: torch.Tensor | None = None,
+                            plan_rows: int | None = None) -> torch.Tensor:
     """Launch ``pcst_knn_f32packed`` on the current stream, with
     ``knn_topk_plan``'s cluster size unless ``plan`` (S) is given: the
     kernels share their scan's shape, and S = 2 at the sampler's 90,000
-    rows, 8 at the grid's patches."""
+    rows, 8 at the grid's patches. ``row_ids`` [B, n] and ``count`` [B]
+    (int32, on the card) as the module docstring says; the plan is made for
+    ``plan_rows`` rows a cloud when given, else for the launch's rows."""
     _check_launch_args(query, ref, k, m_total, "f32-packed")
-    B, N, _ = query.shape
+    B, Nsrc, _ = query.shape
     M = ref.shape[1]
-    S = _cluster_size(B, N, M, k, plan, "f32-packed")
+    _check_rows(row_ids, count, B, query.device)
+    N = Nsrc if row_ids is None else row_ids.shape[1]
+    if Nsrc == 0 and N:
+        raise ValueError("row_ids need at least one query row")
+    S = _cluster_size(B, N if plan_rows is None else plan_rows, M, k, plan,
+                      "f32-packed")
     keys = torch.empty((B, N, k), dtype=torch.float32, device=query.device)
     if B * N:
         launch("knn_f32packed", query.device, query.data_ptr(),
-               ref.data_ptr(), keys.data_ptr(), B, N, M, m_total, k, S)
+               ref.data_ptr(), keys.data_ptr(),
+               None if row_ids is None else row_ids.data_ptr(),
+               None if count is None else count.data_ptr(), B, N,
+               max(Nsrc, 1), M, m_total, k, S)
     return keys
 
 
@@ -195,12 +231,17 @@ def knn_intpacked_keys_cuda(query: torch.Tensor, ref: torch.Tensor, k: int,
 
 
 def knn_f32packed_keys(query: torch.Tensor, ref: torch.Tensor, k: int,
-                       m_total: int) -> torch.Tensor:
+                       m_total: int, row_ids: torch.Tensor | None = None,
+                       count: torch.Tensor | None = None,
+                       plan_rows: int | None = None) -> torch.Tensor:
     """The k smallest f32-packed keys per query: the kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors (``row_ids``, ``count``,
+    ``plan_rows`` as ``knn_f32packed_keys_cuda`` takes them)."""
     if query.device.type == "cpu":
-        return knn_f32packed_keys_plain(query, ref, k, m_total)
-    return knn_f32packed_keys_cuda(query, ref, k, m_total)
+        return knn_f32packed_keys_plain(query, ref, k, m_total, row_ids,
+                                        count)
+    return knn_f32packed_keys_cuda(query, ref, k, m_total, row_ids=row_ids,
+                                   count=count, plan_rows=plan_rows)
 
 
 def knn_intpacked_keys(query: torch.Tensor, ref: torch.Tensor, k: int,
@@ -237,15 +278,23 @@ def decode_keys(query: torch.Tensor, ref: torch.Tensor, ikeys: torch.Tensor,
 
 
 def knn_f32packed(query: torch.Tensor, ref: torch.Tensor, k: int,
-                  tr: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
+                  tr: int = 4096, row_ids: torch.Tensor | None = None,
+                  count: torch.Tensor | None = None,
+                  plan_rows: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """f32-packed kNN with exact recomputed distances (the batched
     ``_knn_f32packed_single``): query [B, N, 3], ref [B, M, 3] -> (sq_dists
     [B, N, k] float32, indices [B, N, k] int32), ascending. ``tr`` is the TPU
     wrapper's ref tile: it only sets the padded ref count. Raises beyond 2^15
-    padded refs."""
+    padded refs. With ``row_ids`` [B, n] and ``count`` [B] (module
+    docstring) the rows are the gathered ones; those past a cloud's count
+    decode the start keys and are the caller's to drop."""
     query = query.float().contiguous()
     ref = ref.float().contiguous()
-    keys = knn_f32packed_keys(query, ref, k, padded_refs(ref.shape[1], tr))
+    keys = knn_f32packed_keys(query, ref, k, padded_refs(ref.shape[1], tr),
+                              row_ids, count, plan_rows)
+    if row_ids is not None:
+        query = _gather_rows(query, row_ids)
     return decode_keys(query, ref, keys.view(torch.int32), 15)
 
 

@@ -109,7 +109,9 @@ def _priority_order(pts: torch.Tensor, u: torch.Tensor, target_size: int,
                            if geometry is None else geometry)
     rep_scatter = _representatives(pts, xyz_min, voxel_size, mode)
     rep_mask = torch.zeros(N + 1, dtype=torch.bool, device=pts.device)
-    rep_mask[rep_scatter] = True
+    # a scalar written by index: no host tensor to copy (a CUDA graph
+    # could not capture that copy)
+    rep_mask.index_fill_(0, rep_scatter, True)
     priority = torch.where(rep_mask[:N], u, 1.0 + u)
     return torch.sort(priority, stable=True).indices
 

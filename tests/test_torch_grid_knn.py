@@ -49,7 +49,7 @@ def assert_values_close(got, want):
 
 
 def expect_tier(tier, n_rows, fallback_cap):
-    n_unsafe = P.UNSAFE_COUNTS[-1]
+    n_unsafe = P.unsafe_counts()[-1]
     assert n_unsafe > 0
     last = P._fallback_caps(fallback_cap, n_rows)[-1]
     assert (n_unsafe > last) == (tier == "all_brute")

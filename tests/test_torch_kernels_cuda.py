@@ -981,3 +981,105 @@ def test_new_knn_backends_launch_their_kernels(rng, cuda):
     assert LAUNCH_COUNTS["grid_topk"] == before["grid_topk"] + 1
     assert LAUNCH_COUNTS["knn_topk"] == before["knn_topk"]
     assert (d >= d_b).all() and (d <= d_b * (1 + 2.0 ** -8) + 1e-37).all()
+
+
+@pytest.mark.parametrize("S", CLUSTER_SIZES)
+@pytest.mark.parametrize("counts", [(0, 0), (4100, 4100), (401, 0),
+                                    (128 * 3 + 17, 2500), (1, 129)])
+def test_knn_count_on_device_identical_to_plain(rng, cuda, S, counts):
+    """``knn_topk`` with ``row_ids`` and a per-cloud count on the card: the
+    plain twin's rows, distance bits included, below each count, the start
+    list past it, under every cluster size S; counts of 0, the whole
+    buffer, and counts that end inside a cluster's query block."""
+    q = torch.from_numpy(points(rng, 2, 6000)).to(cuda)
+    r = torch.from_numpy(points(rng, 2, 3000)).to(cuda)
+    ids = torch.from_numpy(np.stack([rng.permutation(6000)[:4100]
+                                     for _ in range(2)]).astype(np.int32))
+    ids = ids.to(cuda).contiguous()
+    count = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    for k in (3, 16):
+        d, i = knn_topk_cuda(q, r, k, plan=S, row_ids=ids, count=count)
+        d_p, i_p = knn_topk_plain(q, r, k, ids, count)
+        assert torch.equal(i, i_p)
+        assert torch.equal(d.view(torch.int32), d_p.view(torch.int32))
+
+
+def test_knn_count_on_device_past_16(rng, cuda):
+    q = torch.from_numpy(points(rng, 2, 3000)).to(cuda)
+    r = torch.from_numpy(points(rng, 2, 2000)).to(cuda)
+    ids = torch.from_numpy(np.stack([rng.permutation(3000)[:1000]
+                                     for _ in range(2)]).astype(np.int32))
+    count = torch.tensor([300, 1000], dtype=torch.int32, device=cuda)
+    d, i = knn_topk_cuda(q, r, 17, row_ids=ids.to(cuda), count=count)
+    d_p, i_p = knn_topk_plain(q, r, 17, ids.to(cuda), count)
+    assert torch.equal(i, i_p) and torch.equal(d, d_p)
+
+
+@pytest.mark.parametrize("S", CLUSTER_SIZES)
+@pytest.mark.parametrize("counts", [(0, 0), (4100, 4100), (401, 0),
+                                    (128 * 3 + 17, 2500), (1, 129)])
+def test_f32packed_count_on_device_identical_to_plain(rng, cuda, S, counts):
+    """The f32-packed kernel with ``row_ids`` and a per-cloud count (the
+    kd-grid's inexact fallback): the plain twin's keys below each count,
+    the start keys past it, under every cluster size S, and in the
+    global-list variant (k = 17, S = 1)."""
+    q = torch.from_numpy(points(rng, 2, 6000)).to(cuda)
+    r = torch.from_numpy(points(rng, 2, 3000)).to(cuda)
+    ids = torch.from_numpy(np.stack([rng.permutation(6000)[:4100]
+                                     for _ in range(2)]).astype(np.int32))
+    ids = ids.to(cuda).contiguous()
+    count = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    for k, plan in ((3, S), (16, S), (17, 1)):
+        before = LAUNCH_COUNTS["knn_f32packed"]
+        keys = knn_f32packed_keys_cuda(q, r, k, 4096, plan=plan, row_ids=ids,
+                                       count=count)
+        assert LAUNCH_COUNTS["knn_f32packed"] == before + 1
+        want = knn_f32packed_keys_plain(q, r, k, 4096, ids, count)
+        assert torch.equal(keys.view(torch.int32), want.view(torch.int32))
+
+
+def test_sampler_captured_matches_eager(cuda, monkeypatch):
+    """A small guided_sample_loop on the grid (a (2, 2, 2) grid, so that
+    2,048 / 512 points engage it) through the capture runner: its first
+    (eager) call, its second (captured, then replayed) and a third
+    (replayed) identical to the eager body on the same draws, with the
+    same launch counts each."""
+    import functools
+    from pointcloud_style_transfer_torch.config import Config
+    from pointcloud_style_transfer_torch.models import (
+        PointCloudDiffusionModel, capture, guided_sample_loop, make_schedule,
+        samplers)
+    grid = dict(grid_shape=(2, 2, 2), tq=64, slot_cap=256)
+    monkeypatch.setattr(grid_knn, "grid_knn_interpolate_layout",
+                        functools.partial(
+                            grid_knn.grid_knn_interpolate_layout, **grid))
+    torch.manual_seed(0)
+    cfg = Config(total_points=2048, global_points=512, feature_dim=32,
+                 time_embed_dim=16, use_amp=False, knn_backend="grid")
+    model = PointCloudDiffusionModel(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    src, cond, x0 = (torch.randn((1, 2048, 3), generator=gen, device=cuda)
+                     for _ in range(3))
+    draws = dict(x_init=x0, step_priorities=torch.rand(
+        (5, 1, 2048), generator=gen, device=cuda),
+        cond_priority=torch.rand((1, 2048), generator=gen, device=cuda),
+        fps_starts=torch.zeros((2, 1), dtype=torch.int64, device=cuda))
+
+    def run():
+        return guided_sample_loop(model, make_schedule(cfg), src, cond, 5,
+                                  **draws)
+    n_cap = len(capture.CAPTURES)
+    counts = []
+    outs = []
+    for _ in range(3):  # eager (the warm-up), captured + replayed, replayed
+        before = dict(LAUNCH_COUNTS)
+        outs.append(run())
+        torch.cuda.synchronize()
+        counts.append({k: v - before[k] for k, v in LAUNCH_COUNTS.items()})
+        assert len(capture.CAPTURES) == n_cap + (len(outs) > 1)
+    # the launches a replay makes are counted as the eager call's
+    assert counts[0]["grid_interp"] == 5 and counts[1] == counts[2] == counts[0]
+    monkeypatch.setattr(samplers, "run_captured",
+                        lambda key, body, inputs, owner: body(inputs))
+    eager = run()
+    assert all(torch.equal(o, eager) for o in outs)
