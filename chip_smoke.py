@@ -72,8 +72,8 @@ Phases, each printing one line per result:
    for the grid and for the brute-force kNN (``knn_backend="pallas"``), and
    a profiler breakdown of one grid cloud. Then the other serving paths at
    the same width, each with its launch counts asserted and its seconds
-   per cloud: ``knn_backend="pallas_f32packed"`` and ``"pallas_pruned"``
-   (eager: the host paces its passes), ``--fast`` (one ``grid_topk``, one
+   per cloud (replays): ``knn_backend="pallas_f32packed"`` and
+   ``"pallas_pruned"``, ``--fast`` (one ``grid_topk``, one
    counted patch), ``--source_dir`` with 3 clouds at ``--batch_size 2``
    (the grid flat-batched: one interpolation launch a step for each batch
    of two), and ``ddim_sample_loop`` for 5 steps.
@@ -103,21 +103,34 @@ Phases, each printing one line per result:
    ``knn_f32packed`` with their count on the device at the main path's
    shapes, identical to their plain twins at counts of 0, 1,825, 2,124
    and the whole buffer, in device time beside the same rows launched on
-   their own (``knn_topk``) or the whole buffer (``knn_f32packed``).
+   their own (``knn_topk``) or the whole buffer (``knn_f32packed``). The
+   B = 1 loop runs on ``"pallas_pruned"`` too (100 pruned passes a
+   replay).
 5. train — ``Config()`` defaults, nothing cut: four synthetic 120,000-point
    scene pairs through ``cli.preprocess`` (3 train, 1 val), then 2 epochs of
    ``cli.train`` (6 mini-steps, 2 optimizer steps, 2 validations, 2
    checkpoints): parameters and EMA move only on the 3rd and 6th mini-step,
    finite loss terms, launches per mini-step (2 kNN for the Chamfer's
    gradient, 2 FPS, 2 ball query, no row minimum), ms per mini-step and per
-   optimizer step, peak memory; a resumed trainer starts at epoch 2 with
-   the same state; a profiled mini-step; one float32 mini-step at 4,096
+   optimizer step, peak memory (the first mini-step eager, the second
+   captured, the rest replayed, each with its launches); a resumed
+   trainer starts at epoch 2 with the same state; a profiled replayed
+   mini-step; one float32 mini-step at 4,096
    points on the card and on the CPU with the same draws, the card
    replaying the CPU step's discrete selections (ReLU gates, max-pool
    argmaxes, Chamfer argmins): loss and gradients at the CPU tests'
    tolerances; the card's step with its own selections: every one that
    differs from the CPU's a near-tie, and few; for three clouds and draws
    from generators of its own.
+   train graph — ``DiffusionTrainer.train_step`` / ``.eval_step`` as
+   captured programs: in float32 at ``Config()`` width three trainers on
+   the same batches (two eager, one captured), 6 mini-steps and 2 eval
+   steps, the eager bodies under ``set_sync_debug_mode("error")``, loss
+   terms, emit pattern, launches and states held at the ``GRAD_RTOL``
+   bars (the eager state loaded into the others in place after the first
+   optimizer step); then at ``Config()`` (bf16) ms of first, captured and
+   replayed mini-steps and eval steps, an optimizer step of replays, the
+   graphs' memory, a profiled eager and replayed mini-step.
 6. eval — ``cli.inference`` from the trained ``best_model`` directory (the
    grid path), ``cli.compare --json`` of its output against the val pair's
    reference (4 row-min launches, the JAX package's JSON keys), and the
@@ -159,9 +172,12 @@ Phases, each printing one line per result:
     within 1e-5, the accumulated gradients at ``GRAD_RTOL``.
 
 Then one JSON line with every kernel's numbers (``launches`` on the main
-path, ``replay_launches`` by ``[graph]`` path, ``cli_test_launches`` in
-the test phase, ``parallel_launches`` by ``[parallel]`` path), the ``nvidia-smi`` name and power-limit line, and the
-final JSON line. Without a card (or without the
+path, ``replay_launches`` by ``[graph]`` path, ``train_replay_launches``
+of a replayed training mini-step, ``cli_test_launches`` in the test
+phase, ``parallel_launches`` by ``[parallel]`` path), the ``nvidia-smi``
+name and power-limit line, and the final JSON line. ``--only graph``,
+``--only train_graph`` or ``--only graph,train_graph`` runs the build and
+those phases alone. Without a card (or without the
 package beside it) it exits non-zero and prints no result.
 """
 
@@ -2035,19 +2051,23 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
         # seconds per cloud compare with earlier readings of this script.
         def time_engine(name: str, eng: DiffusionInference) -> None:
             times = []
+            n_cap = len(capture.CAPTURES)
             for _ in range(3):
                 t0 = time.perf_counter()
                 eng.transfer_style_hierarchical(src, ref, STEPS, GUIDANCE)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
             best = min(times)
+            captured = len(capture.CAPTURES) - n_cap
             print(f"[main] {name}: seconds per cloud {best:.4f} (runs "
-                  f"{', '.join(f'{t:.4f}' for t in times)}), "
-                  f"{N_POINTS / best:.0f} points/s ({card})")
+                  f"{', '.join(f'{t:.4f}' for t in times)}; captures "
+                  f"{captured}, the best a replay), {N_POINTS / best:.0f} "
+                  f"points/s ({card})")
+            return captured
 
         # each engine is new: its first call runs eagerly, and the timed
-        # calls after it capture and replay (the pruned kNN's passes, paced
-        # by the host, keep that path eager)
+        # calls after it capture and replay (every backend, the pruned
+        # kNN's too)
         for name, backend, fast, want in (
                 ("brute (pallas)", "pallas", False,
                  expect_counts(knn_topk=STEPS, fps=2, ball_query=2)),
@@ -2081,7 +2101,8 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
             counts[name] = got
             if backend == "pallas":
                 time_engine("grid (auto)", engine)
-            time_engine(name, eng)
+            if time_engine(name, eng) != 1:
+                fail(f"{name}: its timed calls did not capture once")
         fast_engine = eng
         counts["knn_f32packed"] = counts["f32-packed (pallas_f32packed)"][
             "knn_f32packed"]
@@ -2658,7 +2679,8 @@ def phase_graph(dev: torch.device, card: str) -> dict:
     bf16, the kd-grid): ``guided_sample_loop`` at 120,000 / 30,000 points,
     50 steps, guidance 7.5 at B = 1 and B = 2, ``guided_sample_loop_coarse``
     (``--fast``) at B = 1 and ``ddim_sample_loop`` for 5 steps, each
-    through ``graph_run``; and ``knn_topk`` with its count on the device
+    through ``graph_run``, the B = 1 loop also on ``"pallas_pruned"`` (two
+    pruned passes a step); and ``knn_topk`` with its count on the device
     (``predicated_knn``). Returns the readings for the kernels line."""
     cfg = Config()
     torch.manual_seed(GRAPH_SEED)
@@ -2686,6 +2708,14 @@ def phase_graph(dev: torch.device, card: str) -> dict:
             f"guided_sample_loop B={B}", lambda: guided_sample_loop(
                 model, schedule, src, cond, STEPS, GUIDANCE, **draws),
             GRAPH_LAUNCHES, card)
+        if B == 1:  # the pruned kNN's backend on the same clouds and draws
+            out["guided_pruned"] = graph_run(
+                "guided_sample_loop B=1 pallas_pruned",
+                lambda: guided_sample_loop(
+                    model, schedule, src, cond, STEPS, GUIDANCE,
+                    knn_backend="pallas_pruned", **draws),
+                expect_counts(knn_pruned=2 * STEPS, fps=2, ball_query=2),
+                card)
     src, cond = clouds(1), clouds(1)
     gen = torch.Generator(device=dev).manual_seed(GRAPH_SEED + 3)
     draws = dict(
@@ -2759,12 +2789,14 @@ def phase_train(rng: np.random.Generator, dev: torch.device, card: str,
         p0, e0 = flat(self.params), flat(self.ema_params)
         torch.cuda.synchronize()
         reset_launch_counts()
+        n_cap = len(capture.CAPTURES)
         t0 = time.perf_counter()
         out = orig(self, sim, real, lr, draws)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         steps.append(dict(
-            ms=ms, counts=dict(LAUNCH_COUNTS), emit=out[1],
+            ms=ms, counts=dict(LAUNCH_COUNTS), emit=bool(out[1]),
+            captured=len(capture.CAPTURES) - n_cap,
             terms={k: v.item() for k, v in out[0].items()},
             params=not torch.equal(p0, flat(self.params)),
             ema=not torch.equal(e0, flat(self.ema_params))))
@@ -2796,6 +2828,12 @@ def phase_train(rng: np.random.Generator, dev: torch.device, card: str,
         got = [st[key] for st in steps]
         if got != pattern:
             fail(f"train: {key} per mini-step {got}, expected {pattern}")
+    # the trainer's first mini-step runs eagerly, its second is captured
+    # and replayed, the others replay; each counts the kernels the device
+    # ran
+    captures = [st["captured"] for st in steps]
+    if captures != [0, 1, 0, 0, 0, 0]:
+        fail(f"train: captures per mini-step {captures}")
     for i, st in enumerate(steps):
         if st["counts"] != TRAIN_STEP_LAUNCHES:
             fail(f"train: mini-step {i + 1} launches {st['counts']}, "
@@ -2813,7 +2851,7 @@ def phase_train(rng: np.random.Generator, dev: torch.device, card: str,
     if resumed.start_epoch != 2 or not same:
         fail(f"resume: start epoch {resumed.start_epoch}, same state {same}")
     ms = [st["ms"] for st in steps]
-    warm = ms[1:]
+    warm = ms[2:]  # replays
     print(f"[train] cli.train, Config() defaults ({cfg.total_points} points, "
           f"{cfg.global_points} coarse, feature_dim {cfg.feature_dim}, "
           f"{'bf16' if cfg.use_amp else 'float32'}, B={cfg.batch_size}, "
@@ -2821,23 +2859,27 @@ def phase_train(rng: np.random.Generator, dev: torch.device, card: str,
           f"epochs, 6 mini-steps, 2 optimizer steps, 2 validations, "
           f"checkpoints {ckpts}; {train_s:.2f} s in all; peak memory "
           f"{peak:.2f} GiB ({card})")
-    print(f"[train] per mini-step: launches {TRAIN_STEP_LAUNCHES} each; "
+    print(f"[train] per mini-step: launches {TRAIN_STEP_LAUNCHES} each "
+          f"(mini-step 1 eager, 2 captured and replayed, 3-6 replayed); "
           f"params/EMA moved after mini-steps "
           f"{[i + 1 for i, st in enumerate(steps) if st['params']]}; loss "
           f"terms {[{k: round(v, 5) for k, v in st['terms'].items()} for st in steps]}")
     print(f"[train] ms per mini-step (synchronised): "
-          f"{', '.join(f'{t:.2f}' for t in ms)}; warm mean {np.mean(warm):.2f}"
-          f" ms (non-emitting {np.mean([ms[i] for i in (1, 3, 4)]):.2f}, "
-          f"emitting {np.mean([ms[i] for i in (2, 5)]):.2f}); per optimizer "
-          f"step (mini-steps 4-6) {sum(ms[3:6]):.2f} ms")
+          f"{', '.join(f'{t:.2f}' for t in ms)}; replays (3-6) mean "
+          f"{np.mean(warm):.2f} ms (non-emitting "
+          f"{np.mean([ms[i] for i in (3, 4)]):.2f}, emitting "
+          f"{np.mean([ms[i] for i in (2, 5)]):.2f}); per optimizer step "
+          f"(mini-steps 4-6, replays) {sum(ms[3:6]):.2f} ms")
     print(f"[train] resumed trainer: start epoch {resumed.start_epoch}, "
           "params, EMA and optimizer state identical")
 
-    # one mini-step of the resumed trainer under the profiler
+    # one replayed mini-step of the resumed trainer under the profiler
+    # (its first call runs eagerly, its second captures)
     batch = next(iter(create_dataloaders(cfg)[0]))
     sim = resumed._to_device(batch["sim_full"])
     real = resumed._to_device(batch["real_full"])
-    resumed.train_step(sim, real, 1e-4)
+    for _ in range(2):
+        resumed.train_step(sim, real, 1e-4)
     torch.cuda.synchronize()
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2851,7 +2893,8 @@ def phase_train(rng: np.random.Generator, dev: torch.device, card: str,
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(f"[profile] one training mini-step: wall {wall:.1f} ms (profiled), "
+    print(f"[profile] one replayed training mini-step: wall {wall:.1f} ms "
+          f"(profiled), "
           f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "
           f"{sum(r[2] for r in rows)} kernel launches")
     for key, t, cnt in rows[:12]:
@@ -3503,15 +3546,21 @@ PARALLEL_SEED = 30
 
 def acc_grads_err(a: DiffusionTrainer, b: DiffusionTrainer) -> dict:
     """The largest difference of two trainers' accumulated gradients by
-    part, over the train reference's bar for the part: ``GRAD_RTOL`` of
-    each tensor's largest |g|, and for a pre-BN bias (zero in exact
-    arithmetic) ``PRE_BN_BIAS_RATIO`` of its weight's largest |g|. 1.0 is
-    the bar."""
+    part, over the train reference's bar for the part (``grad_gaps``)."""
     names = a.optimizer.names
-    got = dict(zip(names, a.optimizer.acc_grads.split(a.optimizer.sizes)))
-    want = dict(zip(names, b.optimizer.acc_grads.split(b.optimizer.sizes)))
+    return grad_gaps(
+        dict(zip(names, a.optimizer.acc_grads.split(a.optimizer.sizes))),
+        dict(zip(names, b.optimizer.acc_grads.split(b.optimizer.sizes))))
+
+
+def grad_gaps(got: dict, want: dict) -> dict:
+    """The largest difference of two sets of gradient-like tensors (by
+    parameter name) by part, over the train reference's bar for the part:
+    ``GRAD_RTOL`` of each tensor's largest |g|, and for a pre-BN bias (zero
+    in exact arithmetic) ``PRE_BN_BIAS_RATIO`` of its weight's largest
+    |g|. 1.0 is the bar."""
     worst = {}
-    for name in names:
+    for name in want:
         if pre_bn_bias(name):
             scale = want[name[:-len("bias")] + "weight"].abs().max()
             part, limit = "pre-BN bias", PRE_BN_BIAS_RATIO
@@ -3522,6 +3571,292 @@ def acc_grads_err(a: DiffusionTrainer, b: DiffusionTrainer) -> dict:
         ratio = float((got[name] - want[name]).abs().max() / scale)
         worst[part] = max(worst.get(part, 0.0), ratio / limit)
     return worst
+
+
+TRAIN_GRAPH_SEED = 50
+TRAIN_LR = 1e-4
+# an eval step's launches (no Chamfer: the style encoder's FPS and ball
+# query)
+EVAL_STEP_LAUNCHES = expect_counts(fps=2, ball_query=2)
+
+
+def eager_steps(trainer: DiffusionTrainer) -> DiffusionTrainer:
+    """``trainer`` with its steps run eagerly on the card (the capture
+    runner bypassed): the reference the captured steps are held to."""
+    trainer._graphed = lambda draws: False
+    return trainer
+
+
+def trainer_state(t: DiffusionTrainer) -> dict:
+    """What the steps leave, by parameter name: the parameters, the EMA,
+    the optimizer's accumulator and moments (the second as its square
+    root, which errs like a gradient)."""
+    opt = t.optimizer
+
+    def named(flat):
+        return dict(zip(opt.names, flat.clone().split(opt.sizes)))
+    return {"params": {k: p.detach().clone() for k, p in t.params.items()},
+            "ema": {k: e.clone() for k, e in t.ema_params.items()},
+            "acc_grads": named(opt.acc_grads), "mu": named(opt.mu),
+            "sqrt_nu": named(opt.nu.sqrt())}
+
+
+def state_gaps(got: dict, want: dict, updates: int) -> dict:
+    """Two trainers' states after the same mini-steps, each gap over its
+    bar (1.0 is the bar): the accumulator (when not just reset) and the
+    moments (after an optimizer step) at ``grad_gaps``' bars; parameters
+    within 2.2 lr an optimizer step (Adam's early steps move a weight by
+    about lr * sign(g), and a gradient of rounding noise, a pre-BN bias's,
+    may differ in sign), the EMA within (1 - decay) of that plus 2.5e-7
+    relative."""
+    gaps = {}
+    if any(v.any() for v in want["acc_grads"].values()):
+        gaps.update({f"acc_grads {k}": v for k, v in grad_gaps(
+            got["acc_grads"], want["acc_grads"]).items()})
+    if updates:
+        for key in ("mu", "sqrt_nu"):
+            gaps.update({f"{key} {k}": v for k, v in grad_gaps(
+                got[key], want[key]).items()})
+    bar = max(updates, 1) * 2.2 * TRAIN_LR
+    gaps["params"] = max(float((got["params"][k] - want["params"][k])
+                               .abs().max()) for k in want["params"]) / bar
+    gaps["ema"] = max(float(((got["ema"][k] - want["ema"][k]).abs()
+                             / (1e-3 * bar + 2.5e-7 * want["ema"][k].abs()))
+                            .max()) for k in want["ema"])
+    return gaps
+
+
+def step_call(fn, want: dict, what: str, check: bool = False):
+    """(fn's result, host ms to a device sync), its launches (set to 0 just
+    before, read just after) held to ``want``; with ``check`` the call runs
+    under ``set_sync_debug_mode("error")``."""
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    if check:
+        torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    except RuntimeError as e:
+        if check:
+            fail(f"[train graph] {what}: the eager body synchronised: {e}")
+        raise
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if dict(LAUNCH_COUNTS) != want:
+        fail(f"[train graph] {what}: launches {dict(LAUNCH_COUNTS)} != "
+             f"{want}")
+    return out, ms
+
+
+def phase_train_graph(dev: torch.device, card: str) -> dict:
+    """``DiffusionTrainer.train_step`` and ``.eval_step`` as captured
+    programs (``models.capture``, cache "step"). In float32 at ``Config()``
+    width (the bars are float32's), three trainers from one seed on the
+    same batches: two eager (the capture runner bypassed), the second's
+    first mini-step and first eval step under
+    ``set_sync_debug_mode("error")``, and one through the runner (first
+    call eager, second captured, later replayed), 6 mini-steps and 2 eval
+    steps each: the first mini-step's loss terms identical, every loss term
+    within 1e-5, the emit pattern F, F, T, F, F, T, launches set to 0 just
+    before each call and read just after (``TRAIN_STEP_LAUNCHES`` /
+    ``EVAL_STEP_LAUNCHES`` each), the states after every mini-step within
+    ``state_gaps``' bars of the eager one's, the two eager runs' own gaps
+    printed beside them. Then at ``Config()`` (bf16) an eager and a
+    captured trainer in turns over 9 mini-steps and 5 eval steps: ms of
+    each call (first, captured, replays), per optimizer step, the graphs'
+    memory, and a profiled eager and replayed mini-step (device busy
+    share, the port's kernels). After the first optimizer step the first
+    eager trainer's state is loaded into the other two (``load_state``,
+    in place): a rounding-noise gradient's sign moves its weight by about
+    lr either way, which would part the runs past the bars, and the
+    captured graph must then read the loaded state. Returns the replay's
+    launches."""
+    rng = np.random.default_rng(TRAIN_GRAPH_SEED)
+
+    def batches(n, B):
+        return [tuple(torch.from_numpy(np.stack([normalize_point_cloud(
+            make_cloud(rng, N_POINTS))[0] for _ in range(B)])).to(dev)
+            for _ in range(2)) for _ in range(n)]
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in (
+            "checkpoint_dir", "log_dir", "result_dir")}
+        cfg = Config(**dirs, experiment_name="train_graph", use_amp=False)
+        ref, again, graphed = (DiffusionTrainer(cfg, resume=False,
+                                                device=dev) for _ in range(3))
+        eager_steps(ref)
+        eager_steps(again)
+        data = batches(6, cfg.batch_size)
+        n_cap = len(capture.CAPTURES)
+        terms, emits, steps = [], [], []
+        for i, (sim, real) in enumerate(data):
+            if i == 3:
+                # the first optimizer step's sign noise (a rounding-noise
+                # gradient moves its weight by about +-lr) would part the
+                # runs from here on: the eager run's state is copied into
+                # the others in place, so the second cycle starts alike
+                # and the captured graph must read what was loaded
+                state = ref.state()
+                for t in (again, graphed):
+                    t.load_state(state)
+            row = []
+            for t, name in ((ref, "eager"), (again, "eager again"),
+                            (graphed, "captured")):
+                (ld, emit), _ = step_call(
+                    lambda: t.train_step(sim, real, TRAIN_LR),
+                    TRAIN_STEP_LAUNCHES, f"{name} mini-step {i + 1}",
+                    check=t is again and i == 0)
+                row.append(({k: float(v) for k, v in ld.items()},
+                            bool(emit)))
+            terms.append([r[0] for r in row])
+            emits.append([r[1] for r in row])
+            updates = (i + 1) // 3
+            want = trainer_state(ref)
+            # (captured, eager again) vs eager: loss terms, states
+            steps.append(tuple(
+                (max(abs(row[j][0][k] / row[0][0][k] - 1)
+                     for k in row[0][0]),
+                 state_gaps(trainer_state(t), want, updates))
+                for j, t in ((2, graphed), (1, again))))
+        if len(capture.CAPTURES) != n_cap + 1:
+            fail(f"[train graph] {len(capture.CAPTURES) - n_cap} captures "
+                 "in 6 mini-steps (one expected, at the second)")
+        pattern = [False, False, True, False, False, True]
+        if any(e != [p] * 3 for e, p in zip(emits, pattern)):
+            fail(f"[train graph] emit per mini-step {emits}")
+        if len(set(map(repr, terms[0]))) != 1:
+            fail(f"[train graph] first mini-step's loss terms differ: "
+                 f"{terms[0]}")
+        evals = []
+        for i, (sim, real) in enumerate(data[:2]):
+            row = []
+            for t, name in ((ref, "eager"), (again, "eager again"),
+                            (graphed, "captured")):
+                ld, _ = step_call(lambda: t.eval_step(sim, real),
+                                  EVAL_STEP_LAUNCHES,
+                                  f"{name} eval step {i + 1}",
+                                  check=t is again and i == 0)
+                row.append(float(ld["total_loss"]))
+            evals.append(row)
+        eval_gaps = [max(abs(r[j] / r[0] - 1) for r in evals) for j in (2, 1)]
+        if len(capture.CAPTURES) != n_cap + 2:
+            fail(f"[train graph] {len(capture.CAPTURES) - n_cap} captures "
+                 "after the eval steps (two expected)")
+
+        def fmt(gaps):
+            return ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+        print(f"[train graph] float32, Config() width ({N_POINTS} / "
+              f"{M_POINTS} points, B={cfg.batch_size}, accumulation "
+              f"{cfg.gradient_accumulation_steps}): 6 mini-steps and 2 eval "
+              f"steps, captured (first call eager, second captured, then "
+              f"replays) and a second eager run vs eager on the same draws: "
+              f"first mini-step's loss terms identical {terms[0][0]}; emit "
+              f"{[e[2] for e in emits]}; launches "
+              f"{ {k: v for k, v in TRAIN_STEP_LAUNCHES.items() if v} } a "
+              f"mini-step, { {k: v for k, v in EVAL_STEP_LAUNCHES.items() if v} }"
+              f" an eval step; no sync in the eager bodies "
+              f"(set_sync_debug_mode 'error') ({card})")
+        for i, ((loss_c, gaps_c), (loss_e, gaps_e)) in enumerate(steps):
+            print(f"[train graph] mini-step {i + 1}: loss terms captured "
+                  f"{loss_c:.3g} / eager again {loss_e:.3g} relative; gaps "
+                  f"over their bars (1 is the bar), captured: {fmt(gaps_c)}")
+            print(f"[train graph] mini-step {i + 1}: eager again: "
+                  f"{fmt(gaps_e)}")
+        print(f"[train graph] eval steps: total loss captured "
+              f"{eval_gaps[0]:.3g} / eager again {eval_gaps[1]:.3g} relative "
+              f"{evals}")
+        worst = max(max(g.values()) for (_, g), _ in steps)
+        loss_gap = max(loss for (loss, _), _ in steps)
+        if loss_gap > 1e-5 or worst > 1.0 or eval_gaps[0] > 1e-5:
+            fail(f"[train graph] captured vs eager over its bars: loss "
+                 f"{loss_gap:.3g}, eval {eval_gaps[0]:.3g} (bars 1e-5), "
+                 f"worst gap {worst:.3g}")
+        out["float32"] = {"steps": steps, "eval_gaps": eval_gaps}
+        del ref, again, graphed
+        torch.cuda.empty_cache()
+
+        # timing at Config(): bf16, as cli.train runs
+        cfg = Config(**dirs, experiment_name="train_graph_bf16")
+        eager, graphed = (DiffusionTrainer(cfg, resume=False, device=dev)
+                          for _ in range(2))
+        eager_steps(eager)
+        data = batches(3, cfg.batch_size)
+        ms = {"eager": [], "captured": []}
+        pools = {}
+        for i in range(9):
+            sim, real = data[i % 3]
+            for t, name in ((eager, "eager"), (graphed, "captured")):
+                if t is graphed and i == 1:
+                    torch.cuda.empty_cache()
+                    reserved = torch.cuda.memory_reserved()
+                _, t_ms = step_call(
+                    lambda: t.train_step(sim, real, TRAIN_LR),
+                    TRAIN_STEP_LAUNCHES, f"bf16 {name} mini-step {i + 1}")
+                ms[name].append(t_ms)
+                if t is graphed and i == 1:
+                    pools["train"] = (torch.cuda.memory_reserved()
+                                      - reserved) / 2**30
+        eval_ms = {"eager": [], "captured": []}
+        for i in range(5):
+            sim, real = data[i % 3]
+            for t, name in ((eager, "eager"), (graphed, "captured")):
+                if t is graphed and i == 1:
+                    torch.cuda.empty_cache()
+                    reserved = torch.cuda.memory_reserved()
+                _, t_ms = step_call(lambda: t.eval_step(sim, real),
+                                    EVAL_STEP_LAUNCHES,
+                                    f"bf16 {name} eval step {i + 1}")
+                eval_ms[name].append(t_ms)
+                if t is graphed and i == 1:
+                    pools["eval"] = (torch.cuda.memory_reserved()
+                                     - reserved) / 2**30
+        caps = [c["capture_s"] * 1e3 for c in capture.CAPTURES[-2:]]
+        sim, real = data[0]
+        profiles = {}
+        for t, name in ((eager, "eager"), (graphed, "replayed")):
+            reset_launch_counts()
+            _, launches, n_all, busy, wall = profiled_replay(
+                lambda: t.train_step(sim, real, TRAIN_LR),
+                TRAIN_STEP_LAUNCHES)
+            if launches != TRAIN_STEP_LAUNCHES:
+                fail(f"[train graph] a profiled {name} mini-step ran "
+                     f"{launches}")
+            profiles[name] = (wall, busy, n_all, launches)
+        opt_step = {k: sum(v[6:9]) for k, v in ms.items()}
+        replay = ms["captured"][2:]
+        print(f"[train graph] Config() (bf16, B={cfg.batch_size}), ms per "
+              f"mini-step, eager: {', '.join(f'{t:.2f}' for t in ms['eager'])}"
+              f"; captured: first call (eager) {ms['captured'][0]:.2f}, "
+              f"second {ms['captured'][1]:.2f} (capture + instantiate "
+              f"{caps[0]:.1f}, then a replay), replays "
+              f"{', '.join(f'{t:.2f}' for t in replay)} (mean "
+              f"{np.mean(replay):.2f}, best {min(replay):.2f}); per optimizer "
+              f"step (mini-steps 7-9): eager {opt_step['eager']:.2f}, "
+              f"replayed {opt_step['captured']:.2f} ({card})")
+        print(f"[train graph] Config() eval step ms, eager: "
+              f"{', '.join(f'{t:.2f}' for t in eval_ms['eager'])}; captured: "
+              f"first {eval_ms['captured'][0]:.2f}, second "
+              f"{eval_ms['captured'][1]:.2f} (capture + instantiate "
+              f"{caps[1]:.1f}), replays "
+              f"{', '.join(f'{t:.2f}' for t in eval_ms['captured'][2:])}; "
+              f"graph memory (reserved growth at the capture): train "
+              f"{pools['train']:.3f} GiB, eval {pools['eval']:.3f} GiB "
+              f"(the B = 1 sampler's: 0.40 GiB) ({card})")
+        for name, (wall, busy, n_all, launches) in profiles.items():
+            print(f"[train graph] profiled {name} mini-step: wall "
+                  f"{wall:.2f} ms, device busy {busy:.2f} ms "
+                  f"({100 * busy / wall:.1f}%), {n_all} device kernels and "
+                  f"copies, the port's "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+        out.update(ms=ms, eval_ms=eval_ms, capture_ms=caps, pool_gib=pools,
+                   opt_step_ms=opt_step,
+                   busy_share={k: v[1] / v[0] for k, v in profiles.items()},
+                   launches=profiles["replayed"][3])
+    return out
 
 
 def phase_parallel(dev: torch.device, card: str) -> dict:
@@ -3692,8 +4027,13 @@ def main() -> int:
 
     phase_build()
     card = card_line()
-    if sys.argv[1:] == ["--only", "graph"]:  # the [graph] phase alone
-        print(json.dumps(phase_graph(dev, card), default=str))
+    if sys.argv[1:2] == ["--only"]:  # e.g. --only graph,train_graph
+        phases = {"graph": phase_graph, "train_graph": phase_train_graph}
+        names = sys.argv[2].split(",") if len(sys.argv) == 3 else []
+        if not names or not set(names) <= set(phases):
+            fail(f"--only takes a comma list of {sorted(phases)}")
+        for name in names:
+            print(json.dumps(phases[name](dev, card), default=str))
         return 0
     records = phase_kernels(rng, dev)
     phase_reference(rng, dev)
@@ -3703,6 +4043,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         paths = phase_train(rng, dev, card, work)
         phase_train_reference(dev)
+        train_graph = phase_train_graph(dev, card)
         records["rowmin"]["launches"] = phase_eval(dev, card, work, paths)
         records["rowmin"]["path"] = "cli.compare"
         test_counts = phase_test(np.random.default_rng(20), dev, card, work,
@@ -3726,6 +4067,8 @@ def main() -> int:
         rec["replay_launches"] = {path: got["launches"][name]
                                   for path, got in graph.items()}
         rec["cli_test_launches"] = test_counts[name]
+        # what one replayed training mini-step ran (the profiler's)
+        rec["train_replay_launches"] = train_graph["launches"][name]
         rec["parallel_launches"] = {path: got[name] for path, got in
                                     parallel.items() if name in got}
     print(json.dumps({"kernels": list(records.values())}))

@@ -204,7 +204,7 @@ def _schedule_of(ins: dict) -> DiffusionSchedule:
 
 
 def _run(model: PointCloudDiffusionModel, key: tuple, body, inputs: dict,
-         eager: bool) -> torch.Tensor:
+         eager: bool = False) -> torch.Tensor:
     """``body(inputs)``: eagerly on the CPU or where ``eager`` says the call
     needs the host between steps, else on the card through
     ``models.capture`` under ``key``: eagerly the first time, from a CUDA
@@ -262,11 +262,10 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
     encoder, every step) is one CUDA graph (``models.capture``), captured
     at the second call with the same static arguments (the first runs
     eagerly and is its warm-up) and replayed with the same results as the
-    eager loop. It runs eagerly on the CPU,
+    eager loop, on every ``knn_backend``. It runs eagerly on the CPU,
     and wherever the call needs the host between steps: with
-    ``selections`` (a dict read and written every step), with ``mesh``
-    (collectives), and with the ``"pallas_pruned"`` backend on the
-    hierarchical branch (the host paces its passes)."""
+    ``selections`` (a dict read and written every step) and with ``mesh``
+    (collectives)."""
     cfg = model.config
     device = model.device
     schedule = schedule.to(device)
@@ -307,8 +306,7 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
         return _guided_body(model, ins, num_inference_steps, guidance_scale,
                             use_hierarchical, knn_backend, selections, split,
                             rows)
-    eager = (selections is not None or mesh is not None
-             or (use_hierarchical and knn_backend == "pallas_pruned"))
+    eager = selections is not None or mesh is not None
     key = ("guided", num_inference_steps, float(guidance_scale),
            use_hierarchical, knn_backend)
     return _run(model, key, body, inputs, eager)
@@ -408,8 +406,7 @@ def guided_sample_loop_coarse(model: PointCloudDiffusionModel,
     loop in this order: ``cond_priority`` [B, Nc], ``fps_starts`` [2, B],
     ``src_priority`` [B, N] the source's voxel priorities, ``x_init``
     [B, Mc, 3] the initial noise at coarse resolution. On the card the call
-    after the draws is one CUDA graph, as ``guided_sample_loop``'s, except
-    with the ``"pallas_pruned"`` backend, which runs eagerly."""
+    after the draws is one CUDA graph, as ``guided_sample_loop``'s."""
     cfg = model.config
     device = model.device
     schedule = schedule.to(device)
@@ -440,8 +437,7 @@ def guided_sample_loop_coarse(model: PointCloudDiffusionModel,
                             coarse, knn_backend)
     key = ("coarse", num_inference_steps, float(guidance_scale), coarse,
            knn_backend)
-    return _run(model, key, body, inputs,
-                coarse and knn_backend == "pallas_pruned")
+    return _run(model, key, body, inputs)
 
 
 def _coarse_body(model: PointCloudDiffusionModel, ins: dict, steps: int,
@@ -502,9 +498,7 @@ def ddim_sample_loop(model: PointCloudDiffusionModel,
     rest are drawn from ``generator`` before the loop, in the order the
     steps take them: the initial noise, then per step the condition
     priorities, the FPS starts and the state's priorities. On the card the
-    loop after the draws is one CUDA graph, as ``guided_sample_loop``'s,
-    except with the ``"pallas_pruned"`` backend on the hierarchical branch,
-    which runs eagerly."""
+    loop after the draws is one CUDA graph, as ``guided_sample_loop``'s."""
     cfg = model.config
     device = model.device
     schedule = schedule.to(device)
@@ -551,8 +545,7 @@ def ddim_sample_loop(model: PointCloudDiffusionModel,
     def body(ins: dict) -> torch.Tensor:
         return _ddim_body(model, ins, steps, use_hierarchical, knn_backend)
     key = ("ddim", steps, use_hierarchical, knn_backend)
-    return _run(model, key, body, inputs,
-                use_hierarchical and knn_backend == "pallas_pruned")
+    return _run(model, key, body, inputs)
 
 
 def _ddim_body(model: PointCloudDiffusionModel, ins: dict, steps: int,

@@ -5,7 +5,7 @@ tensors by state-dict name; evaluating "under the EMA weights" is
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -18,11 +18,15 @@ def ema_init(params: Params) -> Params:
 
 
 @torch.no_grad()
-def ema_update(ema_params: Params, params: Params,
-               decay: float = 0.999) -> None:
-    """In place: shadow = decay * shadow + (1 - decay) * param."""
+def ema_update(ema_params: Params, params: Params, decay: float = 0.999,
+               emit: Optional[torch.Tensor] = None) -> None:
+    """In place: shadow = decay * shadow + (1 - decay) * param; with
+    ``emit`` (a 0-d bool tensor) only where it holds, selected on the device
+    as the JAX step's ``jnp.where(did_step, ...)``, so that nothing is read
+    back to the host."""
     for k, e in ema_params.items():
-        e.copy_(decay * e + (1.0 - decay) * params[k].detach())
+        new = decay * e + (1.0 - decay) * params[k].detach()
+        e.copy_(new if emit is None else torch.where(emit, new, e))
 
 
 class _Call(torch.nn.Module):

@@ -28,12 +28,20 @@ The moments and the accumulator are kept as flat float32 buffers over all
 parameters (in the order of the dict given at construction), so one step is a
 handful of kernels whatever the number of tensors. The global norm is one
 sum over that buffer, where optax sums leaf by leaf: the two agree to
-float32 rounding. Counters are Python ints: no step reads the device.
+float32 rounding.
+
+The whole state lives on the parameters' device, in tensors whose addresses
+never change: the counters are 0-d int32 tensors (optax's), ``emit`` is
+computed there, and the new state is selected with ``torch.where(emit, new,
+old)`` and written in place, as optax's ``MultiSteps`` selects it inside the
+JAX package's jitted, donated step. So a step reads nothing back to the
+host, and a CUDA graph of it (``training/trainer.py``) reads and writes the
+state where it stands. ``state_dict`` reads the counters once, as ints.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Union
 
 import torch
 
@@ -42,6 +50,7 @@ Params = Dict[str, torch.Tensor]
 
 class MultiStepsAdamW:
     b1, b2, eps = 0.9, 0.95, 1e-8  # scale_by_adam(0.9, 0.95), optax's eps
+    COUNTERS = ("mini_step", "gradient_step", "count")  # count: Adam's
 
     def __init__(self, params: Params, *, max_norm: float = 1.0,
                  weight_decay: float = 1e-4, every_k: int = 3):
@@ -55,9 +64,18 @@ class MultiStepsAdamW:
         self.mu = torch.zeros(n, device=device)
         self.nu = torch.zeros(n, device=device)
         self.acc_grads = torch.zeros(n, device=device)
-        self.mini_step = 0
-        self.gradient_step = 0
-        self.count = 0  # Adam's step count
+        for name in self.COUNTERS:
+            setattr(self, name, torch.zeros((), dtype=torch.int32,
+                                            device=device))
+        self._decay = {b: torch.tensor(b, dtype=torch.float32, device=device)
+                       for b in (self.b1, self.b2)}
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """Every tensor a step reads or writes in place, by name: the state
+        and the decays of the bias corrections."""
+        return {**{name: getattr(self, name)
+                   for name in ("mu", "nu", "acc_grads", *self.COUNTERS)},
+                **{f"decay{b}": t for b, t in self._decay.items()}}
 
     def _flat(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
         return torch.cat([t.detach().reshape(-1).float() for t in tensors])
@@ -65,18 +83,19 @@ class MultiStepsAdamW:
     def _unflat(self, flat: torch.Tensor) -> List[torch.Tensor]:
         return [v.view(s) for v, s in zip(flat.split(self.sizes), self.shapes)]
 
-    def _bias_correction(self, decay: float, count: int) -> torch.Tensor:
+    def _bias_correction(self, decay: float, count: torch.Tensor
+                         ) -> torch.Tensor:
         """1 - decay**count in float32, as optax computes it."""
-        d = torch.tensor(decay, dtype=torch.float32, device=self.mu.device)
-        return 1 - d ** torch.tensor(float(count), device=self.mu.device)
+        return 1 - self._decay[decay] ** count.float()
 
     @torch.no_grad()
     def step(self, params: Params, grads: Sequence[torch.Tensor],
-             lr: float) -> bool:
+             lr: Union[float, torch.Tensor]) -> torch.Tensor:
         """One mini-step: accumulate ``grads`` (in the order of ``params``),
         run the inner chain, add ``lr * emit * update`` to ``params`` in
-        place. Returns whether this mini-step emitted (a real optimizer
-        step)."""
+        place. ``lr`` is a float or a 0-d float32 tensor (the same product
+        either way). Returns whether this mini-step emitted (a real
+        optimizer step) as a 0-d bool tensor on the device."""
         plist = [params[k] for k in self.names]
         g = self._flat(grads)
         n = self.mini_step
@@ -95,33 +114,34 @@ class MultiStepsAdamW:
         update = -1.0 * update
 
         emit = n == self.every_k - 1
-        update = update * float(emit)
+        update = update * emit
         torch._foreach_add_(plist, self._unflat(update * lr))
-        if emit:
-            self.mu, self.nu, self.count = mu, nu, count
-            self.acc_grads = torch.zeros_like(acc)
-            self.gradient_step += 1
-        else:
-            self.acc_grads = acc
-        self.mini_step = (n + 1) % self.every_k
+        # the state optax keeps: the inner chain's only on emit, then the
+        # accumulator reset and the gradient step advanced
+        self.mu.copy_(torch.where(emit, mu, self.mu))
+        self.nu.copy_(torch.where(emit, nu, self.nu))
+        self.count.copy_(torch.where(emit, count, self.count))
+        self.acc_grads.copy_(torch.where(emit, 0.0, acc))
+        self.gradient_step.add_(emit)
+        self.mini_step.copy_((n + 1) % self.every_k)
         return emit
 
     def state_dict(self) -> dict:
-        """Counters and, by parameter name, ``mu``, ``nu``, ``acc_grads``
-        (optax's ``MultiStepsState`` in the port's names)."""
+        """Counters (ints) and, by parameter name, ``mu``, ``nu``,
+        ``acc_grads`` (optax's ``MultiStepsState`` in the port's names)."""
         def named(flat):
             return {k: v.clone() for k, v in zip(self.names,
                                                  self._unflat(flat))}
-        return {"mini_step": self.mini_step,
-                "gradient_step": self.gradient_step, "count": self.count,
+        return {**{name: int(getattr(self, name)) for name in self.COUNTERS},
                 "mu": named(self.mu), "nu": named(self.nu),
                 "acc_grads": named(self.acc_grads)}
 
+    @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        dev = self.mu.device
+        """Copies into the existing tensors: a captured step goes on
+        reading and writing the loaded state."""
         for key in ("mu", "nu", "acc_grads"):
-            setattr(self, key, self._flat(
-                [state[key][k].to(dev) for k in self.names]))
-        self.mini_step = int(state["mini_step"])
-        self.gradient_step = int(state["gradient_step"])
-        self.count = int(state["count"])
+            getattr(self, key).copy_(self._flat(
+                [state[key][k] for k in self.names]))
+        for name in self.COUNTERS:
+            getattr(self, name).fill_(int(state[name]))

@@ -12,6 +12,19 @@ gradient (``ops.distance.MinSqDist``: the k=1 kNN kernel forward, the
 analytic backward). The loss terms are summed on the device and read once
 per epoch, so a step never waits for the host.
 
+On the card each step runs as one CUDA graph a call (``models.capture``,
+the counterpart of the JAX trainer's ``jax.jit(train_step,
+donate_argnums=(0,))`` and ``jax.jit(eval_step)``): its draws are taken
+first, eagerly, then a key's first call runs the step eagerly (also the
+warm-up a captured backward needs), its second captures it and replays
+it, and later calls replay it. The graph reads and writes the parameters,
+BatchNorm statistics, optimizer state and EMA in place, and ``load_state``
+copies into them, so that a resumed trainer's graph reads the loaded
+state. A ragged last batch has its own key. The steps run eagerly on the
+CPU, with a mesh (NCCL collectives) and with ``draws["selections"]`` (a
+dict read and written during the step). A capture or replay that fails
+raises; nothing falls back to the eager step.
+
 With ``use_augmentation`` the train step augments both clouds
 (``data/augmentation.py``: rotation, jitter, scale) with independent draws
 before the noise is added, as the JAX step does; validation does not.
@@ -36,6 +49,7 @@ TensorBoard scalars, sample dumps and the log file.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -49,6 +63,7 @@ from ..data.augmentation import augment_points
 from ..device import resolve_device
 from ..models import (DiffusionNet, PointCloudDiffusionModel, dtype_of,
                       guided_sample_loop, make_schedule, q_sample)
+from ..models.capture import model_key, run_captured, tensors_key
 from ..models.diffusion import DiffusionSchedule
 from ..models.losses import diffusion_loss
 from ..models.networks import KEEP_PROB
@@ -220,15 +235,46 @@ def slice_draws(draws: Dict[str, Any], start: int, stop: int
     return {k: cut(k, v) for k, v in draws.items()}
 
 
+def flat_draws(draws: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``step_draws``' dict as named tensors, a captured step's inputs: a
+    nested dict's entries as ``<key>.<name>``, a list's as ``<key>.<i>``."""
+    flat = {}
+    for key, v in draws.items():
+        if isinstance(v, dict):
+            flat.update({f"{key}.{n}": t for n, t in v.items()})
+        elif isinstance(v, (list, tuple)):
+            flat.update({f"{key}.{i}": t for i, t in enumerate(v)})
+        else:
+            flat[key] = v
+    return flat
+
+
+def nested_draws(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``flat_draws``."""
+    draws: Dict[str, Any] = {}
+    for name, t in flat.items():
+        key, _, sub = name.partition(".")
+        if not sub:
+            draws[key] = t
+        elif sub.isdigit():
+            draws.setdefault(key, []).append(t)
+        else:
+            draws.setdefault(key, {})[sub] = t
+    return draws
+
+
 def train_step(model: PointCloudDiffusionModel, schedule: DiffusionSchedule,
                optimizer: MultiStepsAdamW, ema_params: Dict[str, torch.Tensor],
-               batch_sim: torch.Tensor, batch_real: torch.Tensor, lr: float,
-               *, draws: Optional[Dict[str, Any]] = None,
+               batch_sim: torch.Tensor, batch_real: torch.Tensor,
+               lr: float | torch.Tensor, *,
+               draws: Optional[Dict[str, Any]] = None,
                generator: Optional[torch.Generator] = None,
-               layout=None) -> Tuple[LossDict, bool]:
+               layout=None) -> Tuple[LossDict, torch.Tensor]:
     """One mini-step: forward in train mode (BatchNorm running stats updated
-    in place), loss, backward, the optimizer (``lr``), and the EMA when the
-    optimizer really stepped. Returns (detached loss terms, emitted).
+    in place), loss, backward, the optimizer (``lr``, a float or a 0-d
+    float32 tensor), and the EMA where the optimizer really stepped. Returns
+    (detached loss terms, emitted: a 0-d bool tensor). Nothing is read back
+    to the host.
 
     With ``layout`` (``parallel.sharded.StepLayout``, one rank of a mesh)
     the batches are this rank's slices and ``draws`` the global batch's;
@@ -254,8 +300,7 @@ def train_step(model: PointCloudDiffusionModel, schedule: DiffusionSchedule,
     if layout is not None:
         grads = layout.mean_grads(grads, optimizer.sizes)
     emit = optimizer.step(params, grads, lr)
-    if emit:
-        ema_update(ema_params, params, cfg.ema_decay)
+    ema_update(ema_params, params, cfg.ema_decay, emit)
     return _terms(loss_dict, layout), emit
 
 
@@ -408,20 +453,85 @@ class DiffusionTrainer:
         return self._writer
 
     # -- steps ---------------------------------------------------------------
-    def train_step(self, sim: torch.Tensor, real: torch.Tensor, lr: float,
+    def train_step(self, sim: torch.Tensor, real: torch.Tensor,
+                   lr: float | torch.Tensor,
                    draws: Optional[Dict[str, Any]] = None
-                   ) -> Tuple[LossDict, bool]:
+                   ) -> Tuple[LossDict, torch.Tensor]:
         """One mini-step on ``_batch``'s input; with a mesh, ``draws`` are
-        the global batch's."""
-        return train_step(self.model, self.schedule, self.optimizer,
-                          self.ema_params, sim, real, lr, draws=draws,
-                          generator=self.generator, layout=self.layout)
+        the global batch's. ``lr`` is a float or a 0-d float32 tensor on
+        the device (``lr_tensor``). Returns (loss terms, emitted: a 0-d bool
+        tensor)."""
+        lr = self.lr_tensor(lr)
+        if not self._graphed(draws):
+            return train_step(self.model, self.schedule, self.optimizer,
+                              self.ema_params, sim, real, lr, draws=draws,
+                              generator=self.generator, layout=self.layout)
+
+        def body(ins: dict) -> Tuple[LossDict, torch.Tensor]:
+            ins = dict(ins)
+            sim, real, lr = ins.pop("sim"), ins.pop("real"), ins.pop("lr")
+            return train_step(self.model, self.schedule, self.optimizer,
+                              self.ema_params, sim, real, lr,
+                              draws=nested_draws(ins))
+        return self._captured("train", body, sim, real, draws, lr=lr)
 
     def eval_step(self, sim: torch.Tensor, real: torch.Tensor,
                   draws: Optional[Dict[str, Any]] = None) -> LossDict:
-        return eval_step(self.model, self.schedule, self.ema_params, sim,
-                         real, draws=draws, generator=self.generator,
-                         layout=self.layout)
+        if not self._graphed(draws):
+            return eval_step(self.model, self.schedule, self.ema_params, sim,
+                             real, draws=draws, generator=self.generator,
+                             layout=self.layout)
+
+        def body(ins: dict) -> LossDict:
+            ins = dict(ins)
+            sim, real = ins.pop("sim"), ins.pop("real")
+            return eval_step(self.model, self.schedule, self.ema_params, sim,
+                             real, draws=nested_draws(ins))
+        return self._captured("eval", body, sim, real, draws)
+
+    def lr_tensor(self, lr: float | torch.Tensor) -> torch.Tensor:
+        """``lr`` as a 0-d float32 tensor on the device (``jnp.float32(lr)``
+        in the JAX trainer), which one captured step takes as an input at
+        every epoch."""
+        if isinstance(lr, torch.Tensor):
+            return lr.to(device=self.device, dtype=torch.float32)
+        return torch.full((), lr, dtype=torch.float32, device=self.device)
+
+    def _graphed(self, draws: Optional[Dict[str, Any]]) -> bool:
+        """Whether a step runs through the capture runner: on the card,
+        without a mesh and without ``draws["selections"]``."""
+        return (self.device.type == "cuda" and self.layout is None
+                and not (draws and "selections" in draws))
+
+    def step_key(self, kind: str) -> tuple:
+        """The key of a step's graph: the model's (its config and every
+        parameter's and buffer's address), and the addresses of the
+        optimizer's state, the EMA and the schedule, which the graph reads
+        or writes in place."""
+        return (kind, model_key(self.model),
+                tensors_key(self.optimizer.tensors()),
+                tensors_key(self.ema_params),
+                tensors_key({f.name: getattr(self.schedule, f.name)
+                             for f in dataclasses.fields(self.schedule)}))
+
+    def _captured(self, kind: str, body, sim: torch.Tensor,
+                  real: torch.Tensor, draws: Optional[Dict[str, Any]],
+                  **inputs: torch.Tensor):
+        """``body`` through ``models.capture`` under ``step_key(kind)``,
+        with the step's draws taken first from ``self.generator`` in
+        ``step_draws``' order (a key of ``draws`` is not drawn)."""
+        train = kind == "train"
+        given = dict(draws or {})
+        given = {**step_draws(self.model, sim.shape[0], sim.shape[1],
+                              real.shape[1], train=train,
+                              cond_drop_prob=None if train else 0.0,
+                              generator=self.generator, device=self.device,
+                              given=given), **given}
+        inputs = {"sim": sim, "real": real, **inputs,
+                  **flat_draws(given)}
+        inputs = {n: t.to(self.device) for n, t in inputs.items()}
+        return run_captured(self.step_key(kind), body, inputs, self,
+                            cache="step")
 
     # -- epoch loops ---------------------------------------------------------
     def train_one_epoch(self, loader, epoch: int) -> float:
@@ -432,10 +542,11 @@ class DiffusionTrainer:
             loader.set_epoch(epoch)
         totals, count = None, 0
         t0 = time.time()
+        lr_t = self.lr_tensor(lr)  # one input of every captured step
         for batch in loader:
             loss_dict, _ = self.train_step(self._batch(batch["sim_full"]),
                                            self._batch(batch["real_full"]),
-                                           lr)
+                                           lr_t)
             # summed on the device; read once per term below
             totals = (dict(loss_dict) if totals is None else
                       {k: totals[k] + v for k, v in loss_dict.items()})

@@ -97,7 +97,7 @@ def test_least_recently_used_keys_go(runner):
     x = {"x": torch.zeros(1)}
     for key in range(capture.CACHE_SIZE + 1):
         capture.run_captured((key,), body, x, owner)
-    assert len(capture._ENTRIES) == capture.CACHE_SIZE
+    assert len(capture._ENTRIES["sampler"]) == capture.CACHE_SIZE
     capture.run_captured((0,), body, x, owner)  # forgotten: eager again
     assert runner == {"eager": capture.CACHE_SIZE + 2, "capture": 0}
     capture.run_captured((0,), body, x, owner)

@@ -1083,3 +1083,104 @@ def test_sampler_captured_matches_eager(cuda, monkeypatch):
                         lambda key, body, inputs, owner: body(inputs))
     eager = run()
     assert all(torch.equal(o, eager) for o in outs)
+
+
+def test_pruned_sampler_captured_matches_eager(cuda, monkeypatch):
+    """``guided_sample_loop`` on ``"pallas_pruned"`` (two pruned passes a
+    step, no host read) through the capture runner: its first (eager),
+    second (captured, then replayed) and third (replayed) calls identical
+    to the eager body on the same draws, with the same launches each."""
+    from pointcloud_style_transfer_torch.config import Config
+    from pointcloud_style_transfer_torch.models import (
+        PointCloudDiffusionModel, capture, guided_sample_loop, make_schedule,
+        samplers)
+    torch.manual_seed(0)
+    cfg = Config(total_points=2048, global_points=512, feature_dim=32,
+                 time_embed_dim=16, use_amp=False,
+                 knn_backend="pallas_pruned")
+    model = PointCloudDiffusionModel(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    src, cond, x0 = (torch.randn((1, 2048, 3), generator=gen, device=cuda)
+                     for _ in range(3))
+    draws = dict(x_init=x0, step_priorities=torch.rand(
+        (5, 1, 2048), generator=gen, device=cuda),
+        cond_priority=torch.rand((1, 2048), generator=gen, device=cuda),
+        fps_starts=torch.zeros((2, 1), dtype=torch.int64, device=cuda))
+
+    def run():
+        return guided_sample_loop(model, make_schedule(cfg), src, cond, 5,
+                                  **draws)
+    n_cap = len(capture.CAPTURES)
+    counts, outs = [], []
+    for _ in range(3):  # eager (the warm-up), captured + replayed, replayed
+        before = dict(LAUNCH_COUNTS)
+        outs.append(run())
+        torch.cuda.synchronize()
+        counts.append({k: v - before[k] for k, v in LAUNCH_COUNTS.items()})
+        assert len(capture.CAPTURES) == n_cap + (len(outs) > 1)
+    assert counts[0]["knn_pruned"] == 10 and counts[0]["grid_interp"] == 0
+    assert counts[1] == counts[2] == counts[0]
+    monkeypatch.setattr(samplers, "run_captured",
+                        lambda key, body, inputs, owner: body(inputs))
+    eager = run()
+    assert all(torch.equal(o, eager) for o in outs)
+
+
+def test_train_step_captured_matches_eager(cuda, tmp_path):
+    """Two trainers from one seed at a small float32 size, one with its
+    steps eager, one through the capture runner (first call eager, second
+    captured, then replays), 6 mini-steps and 2 eval steps on the same
+    batches: one capture a kind, the first mini-step's loss terms
+    identical, every term within 1e-5, the emit pattern F, F, T, F, F, T,
+    the same launches each call, the parameters within 2.2 lr (the
+    backward's float atomics add in another order each run, and a
+    rounding-noise gradient's sign moves its weight by about lr either
+    way) and every state tensor at its address. After the first optimizer
+    step the eager trainer's state is loaded into the captured one, in
+    place: its graph must read it, and the second cycle starts alike."""
+    from pointcloud_style_transfer_torch.config import Config
+    from pointcloud_style_transfer_torch.models import capture
+    from pointcloud_style_transfer_torch.training import DiffusionTrainer
+    cfg = Config(total_points=2048, global_points=512, feature_dim=32,
+                 time_embed_dim=16, use_amp=False, batch_size=2,
+                 checkpoint_dir=str(tmp_path / "c"),
+                 log_dir=str(tmp_path / "l"), result_dir=str(tmp_path / "r"))
+    eager, graphed = (DiffusionTrainer(cfg, resume=False, device=cuda)
+                      for _ in range(2))
+    eager._graphed = lambda draws: False
+    keys = {k: graphed.step_key(k) for k in ("train", "eval")}
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    batches = [(torch.randn((2, 2048, 3), generator=gen, device=cuda),
+                torch.randn((2, 2048, 3), generator=gen, device=cuda) * 0.3)
+               for _ in range(3)]
+    n_cap = len(capture.CAPTURES)
+    emits, lr = [], 1e-3
+    for i in range(6):
+        sim, real = batches[i % 3]
+        if i == 3:  # a common start after the first optimizer step
+            graphed.load_state(eager.state())
+        outs, counts = [], []
+        for t in (eager, graphed):
+            before = dict(LAUNCH_COUNTS)
+            terms, emit = t.train_step(sim, real, lr)
+            torch.cuda.synchronize()
+            counts.append({k: v - before[k] for k, v in LAUNCH_COUNTS.items()})
+            outs.append(({k: float(v) for k, v in terms.items()}, bool(emit)))
+        assert counts[0] == counts[1] and counts[0]["knn_topk"] == 2
+        (te, ee), (tg, eg) = outs
+        assert ee == eg
+        emits.append(eg)
+        if i == 0:
+            assert te == tg
+        for k in te:
+            assert abs(tg[k] / te[k] - 1) <= 1e-5, (i, k)
+        for k, p in graphed.params.items():
+            assert (p - eager.params[k]).abs().max() <= 2.2 * lr, k
+    assert emits == [False, False, True, False, False, True]
+    for i in range(2):
+        sim, real = batches[i]
+        te, tg = eager.eval_step(sim, real), graphed.eval_step(sim, real)
+        assert abs(float(tg["total_loss"]) / float(te["total_loss"]) - 1) \
+            <= 1e-5
+    assert len(capture.CAPTURES) == n_cap + 2
+    assert {k: graphed.step_key(k) for k in keys} == keys

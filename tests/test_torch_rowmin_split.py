@@ -61,8 +61,10 @@ def emulate(q, r, S, Q, dist=pairwise_sq_dist):
             m = torch.full((blocks * per_block,), 1e30)
             for base in range(lo, hi, TILE):
                 d = dist(qp[b], r[b, base:min(base + TILE, hi)])
-                for j in range(d.shape[1]):  # min.NaN, ref by ref
-                    m = torch.minimum(m, d[:, j])
+                # min.NaN ref by ref is the tile's NaN-keeping amin: a
+                # minimum is exact in any order (up to the sign of a zero,
+                # which the clamp and the comparisons do not tell apart)
+                m = torch.minimum(m, d.amin(dim=1))
             best.append(m)
         merged = best[0]
         for m in best[1:]:  # rank 0 reads ranks 1..S-1 in order

@@ -348,7 +348,8 @@ def _trainer_run(rank: int, tmp: str) -> dict:
                                    resumed.best_val_loss],
             "resumed.opt": np.concatenate([
                 _flat([opt.mu, opt.nu, opt.acc_grads]),
-                [opt.mini_step, opt.gradient_step, opt.count]]),
+                [int(c) for c in (opt.mini_step, opt.gradient_step,
+                                  opt.count)]]),
             "resumed.params": _flat(resumed.params.values()),
             "trained.opt": _flat([trainer.optimizer.mu])}
 

@@ -1,7 +1,15 @@
-"""Helpers shared by the port's parity tests against the JAX package."""
+"""Helpers shared by the port's parity tests against the JAX package.
+
+Imported while a pytest-xdist worker collects the tests, it gives torch's
+intra-op threads the worker's share of the cores (``share_cores``): each
+worker would otherwise start one thread a core, and six workers on eight
+cores then spend most of their time waiting on one another's threads (the
+training-step tests ran 3-12x slower so). One process alone keeps torch's
+default."""
 
 import contextlib
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +28,17 @@ from pointcloud_style_transfer_tpu.ops.pallas.distance_topk import \
     pallas_ball_query
 from pointcloud_style_transfer_tpu.ops.pallas.fps import \
     pallas_farthest_point_sample
+
+
+def share_cores() -> None:
+    """Under pytest-xdist, torch's intra-op threads = the cores / the
+    workers (at least 1)."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if workers > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+share_cores()
 
 
 def pin_jax_encoder(monkeypatch):
