@@ -157,28 +157,46 @@ Phases, each printing one line per result:
     on the card: its draws printed, the augmentation card vs CPU within
     1e-6, a finite loss, the step's launches.
 12. parallel — ``parallel/`` on a one-rank NCCL group (NCCL puts no two
-    ranks on one GPU; multi-card runs are unverified): the ring row
-    minimum, kNN (k=3) and evaluation Chamfer at 120,000 x 120,000,
-    identical to the dense calls, with 1 ``rowmin``, 1 ``knn_topk`` and 2
-    ``rowmin`` launches; ``guided_sample_loop_sharded`` and
+    ranks on one GPU): the ring row minimum, kNN (k=3) and evaluation
+    Chamfer at 120,000 x 120,000, identical to the dense calls, with 1
+    ``rowmin``, 1 ``knn_topk`` and 2 ``rowmin`` launches (eager by
+    design: one-shot metric calls); ``guided_sample_loop_sharded`` and
     ``guided_sample_loop_dp`` at 120,000 / 30,000 points, 50 steps,
-    guidance 7.5 on the grid, identical to ``guided_sample_loop`` with the
-    same draws, and the kernels each run launched (the single-device and
-    data-parallel paths share one key of the capture runner, eager once,
-    then captured and replayed; the point-sharded one runs eagerly) the
-    same, seconds per cloud in turns;
-    ``DiffusionTrainer(mesh_shape={"data": 1})`` against the single-device
-    trainer for 3 float32 mini-steps at ``Config()`` width: loss terms
-    within 1e-5, the accumulated gradients at ``GRAD_RTOL``.
+    guidance 7.5 on the grid, through the capture runner in turns (the
+    single-device and data-parallel paths share one key; the point-sharded
+    one has its own, its mesh's: eager, captured, replayed), identical to
+    ``guided_sample_loop`` with the same draws and to its own eager body,
+    the kernels each run launched the same, seconds per cloud;
+    ``DiffusionTrainer(mesh_shape={"data": 1})`` with its steps captured,
+    against the single-device trainer and the meshed trainer run eagerly,
+    3 float32 mini-steps and 3 eval steps at ``Config()`` width: loss
+    terms within 1e-5 of the single-device ones and identical to the eager
+    meshed ones, the accumulated gradients at ``GRAD_RTOL``, a profiled
+    replayed mini-step and eval step running the single-device replay's
+    kernels; bf16 ms per mini-step of both trainers in turns; then
+    ``[parallel graph]``: each collective of the meshed paths alone
+    (``mesh.all_gather``, ``AllGather`` and ``AllReduceSum`` forward and
+    backward, ``dist.all_reduce`` of the flat gradients) through
+    ``run_captured(groups=)``, eager, captured, then 3 replays on new
+    inputs, each identical to the eager body, a replay's device events by
+    name (on one rank NCCL enqueues a device copy or nothing, no kernel),
+    and the ranks' agreement's host microseconds a call.
 
 Then one JSON line with every kernel's numbers (``launches`` on the main
 path, ``replay_launches`` by ``[graph]`` path, ``train_replay_launches``
 of a replayed training mini-step, ``cli_test_launches`` in the test
 phase, ``parallel_launches`` by ``[parallel]`` path), the ``nvidia-smi``
-name and power-limit line, and the final JSON line. ``--only graph``,
-``--only train_graph`` or ``--only graph,train_graph`` runs the build and
-those phases alone. Without a card (or without the
-package beside it) it exits non-zero and prints no result.
+name and power-limit line, and the final JSON line. ``--only`` with a
+comma list of ``graph``, ``train_graph`` and ``parallel`` runs the build
+and those phases alone. ``--ranks n`` (a machine with n cards) runs the
+build, then one process a card on an n-rank NCCL group
+(``parallel_ranks``): ``[parallel graph]`` with an NCCL kernel in every
+replay, the point-sharded sampler at {points: n} and
+``DiffusionTrainer(mesh_shape={"data": n})`` with their collectives
+inside their graphs, each captured call held to its eager body and
+every rank's result the same, beside the single-device paths on one
+card. Without a card (or without the package beside it) it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -1797,7 +1815,8 @@ def cpu_time_embedding():
 
 
 def library_versions() -> str:
-    """torch, CUDA and cuBLAS versions and the float32 matmul settings."""
+    """torch, CUDA, cuBLAS and NCCL versions and the float32 matmul
+    settings."""
     cublas = "not read"
     try:  # the library torch has loaded
         lib = ctypes.CDLL(f"libcublas.so.{str(torch.version.cuda)[:2]}")
@@ -1811,8 +1830,10 @@ def library_versions() -> str:
     except OSError as e:
         cublas = f"not read ({e})"
     prec = getattr(torch.backends.cuda.matmul, "fp32_precision", "n/a")
+    nccl = torch.cuda.nccl.version()
+    nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) else nccl
     return (f"torch {torch.__version__}, CUDA {torch.version.cuda}, cuBLAS "
-            f"{cublas}, float32 matmul precision "
+            f"{cublas}, NCCL {nccl}, float32 matmul precision "
             f"{torch.get_float32_matmul_precision()!r} (cuda.matmul "
             f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
             f"fp32_precision={prec!r}; cudnn allow_tf32="
@@ -2457,7 +2478,8 @@ def eager_samplers():
     (the captured runner replaced by a direct call), for the comparisons
     with the captured loop and the sync check."""
     own = samplers.run_captured
-    samplers.run_captured = lambda key, body, inputs, owner: body(inputs)
+    samplers.run_captured = lambda key, body, inputs, owner, **kw: body(
+        inputs)
     try:
         yield
     finally:
@@ -3859,20 +3881,183 @@ def phase_train_graph(dev: torch.device, card: str) -> dict:
     return out
 
 
+class _Owner:
+    """What the ``[parallel graph]`` graphs read (the runner keeps a weak
+    reference to it)."""
+
+
+def collective_bodies(group, dev: torch.device) -> dict:
+    """Each collective the meshed paths run, alone, as a body for the
+    capture runner and a maker of its inputs (new draws a call), at the
+    shapes of a ``Config()`` run on ``group``'s n ranks: name -> (body,
+    make inputs)."""
+    import torch.distributed as dist
+    from pointcloud_style_transfer_torch.parallel.mesh import (
+        AllGather, AllReduceSum, all_gather)
+    n = dist.get_world_size(group)
+    cfg = Config()
+    n_params = sum(p.numel() for p in DiffusionNet(
+        cfg.feature_dim, cfg.time_embed_dim).parameters())
+    gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED + 1)
+    u, m = (N_POINTS - M_POINTS) // n, M_POINTS // n
+
+    def randn(*shape):
+        return lambda: {"x": torch.randn(shape, generator=gen, device=dev)}
+
+    def with_grad(*shapes):
+        return lambda: {k: torch.randn(s, generator=gen, device=dev)
+                        for k, s in zip(("x", "g"), shapes)}
+
+    def gather_fwd(ins):
+        with torch.no_grad():
+            return AllGather.apply(ins["x"], group, 1)
+
+    def gather_bwd(ins):
+        x = ins["x"].detach().requires_grad_()
+        return torch.autograd.grad(AllGather.apply(x, group, 1), x,
+                                   ins["g"])[0]
+
+    def reduce_fwd(ins):
+        with torch.no_grad():
+            return AllReduceSum.apply(ins["x"], group)
+
+    def reduce_bwd(ins):
+        x = ins["x"].detach().requires_grad_()
+        return torch.autograd.grad(AllReduceSum.apply(x, group), x,
+                                   ins["g"])[0]
+
+    def flat_grads(ins):
+        flat = ins["x"].clone()
+        dist.all_reduce(flat, group=group)
+        return flat
+
+    return {
+        # the sampler's shares of the unknown points' noise, gathered
+        "mesh.all_gather [1, U/n, 3]": (
+            lambda ins: all_gather(ins["x"], group, 1), randn(1, u, 3)),
+        # the point-sharded denoiser's rows, forward and backward
+        "AllGather forward [1, M/n, 3]": (gather_fwd, randn(1, m, 3)),
+        "AllGather backward [1, M/n, 3]": (gather_bwd,
+                                           with_grad((1, m, 3), (1, M_POINTS,
+                                                                 3))),
+        # BatchNorm's sums over the data ranks, forward and backward
+        "AllReduceSum forward [2, 512]": (reduce_fwd, randn(2, 512)),
+        "AllReduceSum backward [2, 512]": (reduce_bwd,
+                                           with_grad((2, 512), (2, 512))),
+        # StepLayout.mean_grads: the flat gradient buffer
+        f"dist.all_reduce [{n_params}]": (flat_grads, randn(n_params))}
+
+
+def replay_events(graph) -> list:
+    """The device events (name, count) of one replay of ``graph`` (a
+    ``CUDAGraph``) under the profiler. A trace that holds none is taken
+    again, at most twice, and noted on stderr: the card's tracer has
+    dropped a replay's copies (an in-place one-rank all-reduce has
+    none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        events = [(e.key, e.count) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+        print(f"replay_events: no device event traced (trace {attempt + 1} "
+              f"of at most 3)", file=sys.stderr)
+    return events
+
+
+def phase_parallel_graph(dev: torch.device, card: str, group) -> dict:
+    """``[parallel graph]``: each collective of the meshed paths alone
+    (``collective_bodies``) through ``run_captured(groups=[group])``: its
+    first call eager, its second captured (one capture) and replayed, then
+    3 replays on new inputs, each identical to the body run eagerly on the
+    same inputs; one replay under the profiler, its device events by name.
+    On one rank NCCL enqueues no kernel (an all-gather is a device copy,
+    an in-place all-reduce nothing); on n > 1 ranks each replay must hold
+    an NCCL kernel. And the ranks' agreement on a call's branch
+    (``capture.agree``): host microseconds a call."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    owner = _Owner()
+    out = {}
+    for name, (body, make) in collective_bodies(group, dev).items():
+        key = ("parallel graph", name)
+        n_cap = len(capture.CAPTURES)
+        gap = 0.0
+        for call in range(5):  # eager, captured + replayed, 3 replays
+            ins = make()
+            got = capture.run_captured(key, body, ins, owner,
+                                       cache="parallel", groups=[group])
+            want = body(ins)
+            if not torch.equal(got, want):
+                # on n > 1 ranks a sum may take another order: noted
+                gap = max(gap, float((got - want).abs().max()
+                                     / want.abs().max()))
+                if n == 1 or gap > 1e-6:
+                    fail(f"[parallel graph] {name}: call {call + 1} differs "
+                         f"from the eager body ({gap:.3g} of its largest "
+                         f"value)")
+            if len(capture.CAPTURES) - n_cap != (call > 0):
+                fail(f"[parallel graph] {name}: "
+                     f"{len(capture.CAPTURES) - n_cap} captures after call "
+                     f"{call + 1}")
+        graph = capture._ENTRIES["parallel"][next(reversed(
+            capture._ENTRIES["parallel"]))].graph.graph
+        events = replay_events(graph)
+        nccl = sum(c for k, c in events if "nccl" in k.lower())
+        if n > 1 and not nccl:
+            fail(f"[parallel graph] {name}: no NCCL kernel in a replay on "
+                 f"{n} ranks: {events}")
+        out[name] = {"replay_events": events, "nccl_kernels": nccl,
+                     "gap": gap}
+        same = ("each identical to the eager body" if not gap else
+                f"within {gap:.3g} of the eager body's largest value")
+        print(f"[parallel graph] {name} on {n} rank(s): eager first call, "
+              f"captured second, 3 replays on new inputs, {same}; a replay's "
+              f"device events {events} ({card})")
+    times = []
+    for _ in range(51):
+        t0 = time.perf_counter()
+        capture.agree([group], capture.REPLAY)
+        times.append(time.perf_counter() - t0)
+    out["agree_us"] = 1e6 * float(np.median(times[1:]))
+    print(f"[parallel graph] the ranks' agreement on a call's branch "
+          f"(capture.agree, one all-reduce of an int and its read-back) on "
+          f"{n} rank(s): median {out['agree_us']:.1f} us over 50 calls "
+          f"(min {1e6 * min(times[1:]):.1f}) ({card})")
+    return out
+
+
+def timed(fn) -> tuple:
+    """(fn's result, host seconds to a device sync)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def phase_parallel(dev: torch.device, card: str) -> dict:
     """``parallel/`` on a one-rank NCCL group on the card (NCCL puts no two
     ranks on one GPU and this machine has one), at full width: the ring row
     minimum, kNN and evaluation Chamfer at 120,000 x 120,000, the
     point-sharded and the data-parallel sampler at 120,000 / 30,000 points
-    and 50 steps, and ``DiffusionTrainer(mesh_shape={"data": 1})`` for 3
-    mini-steps, each against its single-device path on the same inputs and
-    draws, launch counts set to 0 just before each run and read just after.
-    Returns each kernel's launches by path."""
+    and 50 steps, each through the capture runner, and
+    ``DiffusionTrainer(mesh_shape={"data": 1})``'s captured steps, each
+    against its single-device path on the same inputs and draws, launch
+    counts set to 0 just before each run and read just after; then
+    ``[parallel graph]``. Returns each kernel's launches by path."""
     import torch.distributed as dist
     from pointcloud_style_transfer_torch.ops import chamfer_distance_l2
     from pointcloud_style_transfer_torch.parallel import (
         guided_sample_loop_dp, guided_sample_loop_sharded, make_mesh,
         ring_min_sq_dist)
+    from pointcloud_style_transfer_torch.parallel.mesh import axis_group
     from pointcloud_style_transfer_torch.parallel.ring import (
         ring_chamfer_distance_l2, ring_knn)
 
@@ -3880,17 +4065,15 @@ def phase_parallel(dev: torch.device, card: str) -> dict:
     points = make_mesh({"points": 1}, "cuda")
     data = make_mesh({"data": 1}, "cuda")
     print(f"[parallel] one-rank {dist.get_backend()} group, meshes "
-          f"{points} and {data}; multi-card runs are unverified: this "
-          f"machine has {torch.cuda.device_count()} card ({card})")
+          f"{points} and {data}; {library_versions()}; multi-card runs: "
+          f"`chip_smoke.py --ranks n`, this machine has "
+          f"{torch.cuda.device_count()} card ({card})")
     launches = {}
 
     def counted(path: str, fn):
         torch.cuda.synchronize()
         reset_launch_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        s = time.perf_counter() - t0
+        out, s = timed(fn)
         launches[path] = {k: v for k, v in LAUNCH_COUNTS.items() if v}
         return out, s
 
@@ -3918,7 +4101,7 @@ def phase_parallel(dev: torch.device, card: str) -> dict:
         ms, dense_ms = cuda_ms(ring, 5), cuda_ms(dense, 5)
         print(f"[parallel] {path} at {N_POINTS} x {N_POINTS}: identical to "
               f"the dense call; launches {launches[path]}; {ms:.3f} ms "
-              f"(dense {dense_ms:.3f} ms) ({card})")
+              f"(dense {dense_ms:.3f} ms), eager by design ({card})")
 
     cfg = Config()
     torch.manual_seed(PARALLEL_SEED)
@@ -3945,22 +4128,35 @@ def phase_parallel(dev: torch.device, card: str) -> dict:
         ("guided_sample_loop_dp", lambda: guided_sample_loop_dp(
             model, schedule, src, cond, data, STEPS, GUIDANCE,
             draws=[draws])))
-    # the single-device and data-parallel samplers share one key of the
-    # capture runner (a: eager, c: captured and replayed, then replays),
-    # the point-sharded one runs eagerly; each run's launches, counted
-    # where the device runs them, are the single-device sampler's
+    with eager_samplers():  # the point-sharded body run eagerly
+        sharded_eager = guided_sample_loop_sharded(model, schedule, src, cond,
+                                                   points, **run)
+    # each path through the capture runner, in turns (a, b, c, c, b, a,
+    # a, b, c, c, b, a): the single-device and data-parallel samplers
+    # share one key (a: eager, c: captured and replayed, then replays),
+    # the point-sharded one has its own, its mesh's (eager, captured,
+    # replays); each run's launches, counted where the device runs them,
+    # are the single-device sampler's
     single = {k: v for k, v in GRAPH_LAUNCHES.items() if v}
-    outs, firsts, secs = {}, {}, {}
-    for path, fn in paths + paths[::-1]:  # in turns: a, b, c, c, b, a
+    outs, firsts, secs, caps = {}, {}, {}, {}
+    for path, fn in (paths + paths[::-1]) * 2:
+        n_cap = len(capture.CAPTURES)
         outs[path], s = counted(path, fn)
         firsts.setdefault(path, outs[path])
         secs.setdefault(path, []).append(s)
+        caps.setdefault(path, []).append(len(capture.CAPTURES) - n_cap)
         if launches[path] != single:
             fail(f"[parallel] {path} run {len(secs[path])} launches "
                  f"{launches[path]} != {single}")
-    for path, _ in paths:  # run to run: the voxel choice is exact
         if not torch.equal(firsts[path], outs[path]):
-            fail(f"[parallel] two runs of {path} on the same inputs differ")
+            fail(f"[parallel] run {len(secs[path])} of {path} differs from "
+                 f"its first on the same inputs")
+    if caps["guided_sample_loop_sharded"] != [0, 1, 0, 0]:
+        fail(f"[parallel] the point-sharded sampler's captures a call "
+             f"{caps['guided_sample_loop_sharded']} (0, 1, 0, 0 expected)")
+    if not torch.equal(sharded_eager, outs["guided_sample_loop_sharded"]):
+        fail("[parallel] the captured point-sharded sampler differs from its "
+             "eager body")
     for path, _ in paths[1:]:
         if not torch.equal(outs[path], outs["guided_sample_loop"]):
             err = float((outs[path] - outs["guided_sample_loop"]).abs().max())
@@ -3968,53 +4164,413 @@ def phase_parallel(dev: torch.device, card: str) -> dict:
                  f"(max |diff| {err:.3e})")
     for path, _ in paths:
         print(f"[parallel] {path}: {N_POINTS} / {M_POINTS} points, {STEPS} "
-              f"steps, guidance {GUIDANCE}, grid; identical output, "
-              f"and identical in its two runs; "
-              f"launches {launches[path]}; seconds per cloud "
+              f"steps, guidance {GUIDANCE}, grid, through the capture runner "
+              f"(captures a call {caps[path]}); identical output, and "
+              f"identical in its four runs; launches {launches[path]}; "
+              f"seconds per cloud "
               f"{', '.join(f'{t:.4f}' for t in secs[path])} ({card})")
+    s = secs["guided_sample_loop_sharded"]
+    print(f"[parallel] point-sharded sampler on {{'points': 1}}: eager first "
+          f"call {s[0]:.4f} s, captured second {s[1]:.4f} s, replays "
+          f"{s[2]:.4f} / {s[3]:.4f} s a cloud (the single-device replays "
+          f"{', '.join(f'{t:.4f}' for t in secs['guided_sample_loop'][1:])}"
+          f"); identical to its eager body and to guided_sample_loop ({card})")
+    del model, net
+    torch.cuda.empty_cache()
+    phase_parallel_trainer(dev, card, rng, counted, launches)
+    phase_parallel_graph(dev, card, axis_group(points, "points"))
+    capture.release()  # the graphs hold the communicators
+    dist.destroy_process_group()
+    return launches
+
+
+def phase_parallel_trainer(dev: torch.device, card: str, rng, counted,
+                           launches: dict) -> None:
+    """``DiffusionTrainer(mesh_shape={"data": 1})`` with its steps through
+    the capture runner, at ``Config()`` width in float32 (the bars'
+    dtype), against the single-device trainer (captured too) and the
+    meshed trainer run eagerly, on the same batches and seeds: 3
+    mini-steps and 3 eval steps each (eager, captured, replayed); loss
+    terms within 1e-5 of the single-device ones and identical to the eager
+    meshed ones, the accumulated gradients at ``GRAD_RTOL`` of both, the
+    same launches; a replayed mini-step and eval step profiled, their
+    kernels the single-device replay's. Then in bf16, as ``cli.train``
+    runs, ms per mini-step of the meshed and the single-device trainer in
+    turns."""
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in (
+            "checkpoint_dir", "log_dir", "result_dir")}
+        tcfg = Config(**dirs, experiment_name="parallel", use_amp=False)
+        names = ("train_step", "sharded_train_step",
+                 "sharded_train_step eager")
+        trainers = dict(zip(names, (
+            DiffusionTrainer(tcfg.replace(mesh_shape=mesh), resume=False,
+                             device=dev)
+            for mesh in ({}, {"data": 1}, {"data": 1}))))
+        eager_steps(trainers["sharded_train_step eager"])
+        batches = [tuple(np.stack([normalize_point_cloud(make_cloud(
+            rng, N_POINTS))[0] for _ in range(tcfg.batch_size)])
+            for _ in range(2)) for _ in range(3)]
+        worst = {"single": {}, "eager": {}}
+        loss_err, caps, terms_all = 0.0, [], []
+        for i, (sim, real) in enumerate(batches):
+            terms = {}
+            for path, t in trainers.items():
+                n_cap = len(capture.CAPTURES)
+                (ld, _), _ = counted(path, lambda: t.train_step(
+                    t._batch(sim), t._batch(real), 1e-4))
+                terms[path] = {k: float(v) for k, v in ld.items()}
+                if path == "sharded_train_step":
+                    caps.append(len(capture.CAPTURES) - n_cap)
+            if not (launches["sharded_train_step"] == launches["train_step"]
+                    == launches["sharded_train_step eager"]
+                    == {k: v for k, v in TRAIN_STEP_LAUNCHES.items() if v}):
+                fail(f"[parallel] mini-step launches "
+                     f"{ {p: launches[p] for p in names} }")
+            mine = terms["sharded_train_step"]
+            if mine != terms["sharded_train_step eager"]:
+                fail(f"[parallel] captured meshed mini-step {i + 1}'s loss "
+                     f"terms {mine} != eager meshed "
+                     f"{terms['sharded_train_step eager']}")
+            loss_err = max(loss_err, max(
+                abs(mine[k] / terms["train_step"][k] - 1) for k in mine))
+            terms_all.append(mine)
+            if i < 2:  # accumulated, not yet applied
+                for other, name in (("single", "train_step"),
+                                    ("eager", "sharded_train_step eager")):
+                    for part, v in acc_grads_err(
+                            trainers["sharded_train_step"],
+                            trainers[name]).items():
+                        worst[other][part] = max(worst[other].get(part, 0.0),
+                                                 v)
+        if caps != [0, 1, 0]:
+            fail(f"[parallel] the meshed trainer's captures a mini-step "
+                 f"{caps} (0, 1, 0 expected)")
+        evals, eval_caps = [], []
+        for sim, real in batches:
+            row = {}
+            for path, t in trainers.items():
+                n_cap = len(capture.CAPTURES)
+                ld, _ = counted(f"{path} eval", lambda: t.eval_step(
+                    t._batch(sim), t._batch(real)))
+                row[path] = float(ld["total_loss"])
+                if path == "sharded_train_step":
+                    eval_caps.append(len(capture.CAPTURES) - n_cap)
+                if launches[f"{path} eval"] != {
+                        k: v for k, v in EVAL_STEP_LAUNCHES.items() if v}:
+                    fail(f"[parallel] {path} eval launches "
+                         f"{launches[f'{path} eval']}")
+            evals.append(row)
+        eval_err = max(abs(r["sharded_train_step"] / r[p] - 1)
+                       for r in evals for p in ("train_step",
+                                                "sharded_train_step eager"))
+        if eval_caps != [0, 1, 0]:
+            fail(f"[parallel] the meshed trainer's captures an eval step "
+                 f"{eval_caps} (0, 1, 0 expected)")
+        same = torch.equal(flat(trainers["train_step"].params),
+                           flat(trainers["sharded_train_step"].params))
+        gaps = {k: ", ".join(f"{p} {v:.3g}" for p, v in w.items())
+                for k, w in worst.items()}
+        if loss_err > 1e-5 or eval_err > 1e-5 or max(
+                max(w.values()) for w in worst.values()) > 1.0:
+            fail(f"[parallel] captured meshed trainer: loss {loss_err:.3e}, "
+                 f"eval {eval_err:.3e} relative (bar 1e-5), gradients over "
+                 f"their bars by part: {gaps}")
+        sim, real = batches[0]
+        profiles = {}
+        for path in ("train_step", "sharded_train_step"):
+            t = trainers[path]
+            for kind, fn, want in (
+                    ("mini-step", lambda: t.train_step(
+                        t._batch(sim), t._batch(real), 1e-4),
+                     TRAIN_STEP_LAUNCHES),
+                    ("eval step", lambda: t.eval_step(
+                        t._batch(sim), t._batch(real)), EVAL_STEP_LAUNCHES)):
+                reset_launch_counts()
+                _, got, n_all, busy, wall = profiled_replay(fn, want)
+                if got != want:
+                    fail(f"[parallel] a profiled replayed {path} {kind} ran "
+                         f"{got}")
+                profiles[(path, kind)] = (n_all, busy, wall)
+        print(f"[parallel] DiffusionTrainer(mesh_shape={{'data': 1}}), its "
+              f"steps captured (calls: eager, captured, replayed), vs the "
+              f"single-device trainer (captured) and the meshed trainer run "
+              f"eagerly, Config() width, float32, B={tcfg.batch_size}, 3 "
+              f"mini-steps and 3 eval steps: loss terms identical to the "
+              f"eager meshed ones {terms_all}, {loss_err:.3e} relative to the "
+              f"single-device ones (bar 1e-5), eval {eval_err:.3e}; "
+              f"accumulated gradients over their bars by part (1 is the "
+              f"bar), vs single-device: {gaps['single']}; vs eager meshed: "
+              f"{gaps['eager']}; parameters after the optimizer step "
+              f"identical to the single-device trainer's: {same}; launches "
+              f"a mini-step {launches['sharded_train_step']}, an eval step "
+              f"{launches['sharded_train_step eval']} ({card})")
+        for (path, kind), (n_all, busy, wall) in profiles.items():
+            print(f"[parallel] profiled replayed {path} {kind}: the port's "
+                  f"kernels as the single-device replay's; wall {wall:.2f} "
+                  f"ms, device busy {busy:.2f} ms, {n_all} device kernels "
+                  f"and copies ({card})")
+        del trainers
+        torch.cuda.empty_cache()
+
+        bf16 = Config(**dirs, experiment_name="parallel_bf16")
+        pair = {"single-device": DiffusionTrainer(bf16, resume=False,
+                                                  device=dev),
+                "{'data': 1}": DiffusionTrainer(bf16.replace(
+                    mesh_shape={"data": 1}), resume=False, device=dev)}
+        ms = {k: [] for k in pair}
+        data = [tuple(t for t in (pair["single-device"]._batch(s),
+                                  pair["single-device"]._batch(r)))
+                for s, r in batches]
+        for i in range(8):
+            sim, real = data[i % 3]
+            for name, t in pair.items():
+                _, s = timed(lambda: t.train_step(sim, real, 1e-4))
+                ms[name].append(1e3 * s)
+        print(f"[parallel] Config() (bf16, B={bf16.batch_size}) ms per "
+              f"mini-step in turns (first call eager, second captured, then "
+              f"replays): "
+              + "; ".join(f"{k} {', '.join(f'{v:.2f}' for v in ts)} "
+                          f"(replays mean {np.mean(ts[2:]):.2f}, best "
+                          f"{min(ts[2:]):.2f})" for k, ts in ms.items())
+              + f" ({card})")
+        del pair
+        torch.cuda.empty_cache()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_ranks(rank: int, world: int, port: int) -> None:
+    """One of ``--ranks world`` processes, one a card, on an NCCL group of
+    ``world`` ranks (``tcp://localhost:port``): ``[parallel graph]`` (an
+    NCCL kernel in every replay), the point-sharded sampler at
+    {points: world} and ``DiffusionTrainer(mesh_shape={"data": world})``
+    with their collectives inside their graphs, each captured call held to
+    its eager body, every rank's result the same; rank 0 also runs the
+    single-device sampler and trainer beside them. Only rank 0 prints. A
+    departure is noted and the run goes on; a rank that noted one exits
+    non-zero at the end."""
+    import torch.distributed as dist
+    from pointcloud_style_transfer_torch.ops import chamfer_distance_l2
+    from pointcloud_style_transfer_torch.parallel import (
+        guided_sample_loop_sharded, make_mesh)
+    from pointcloud_style_transfer_torch.parallel.mesh import axis_group
+
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    card = card_line()
+    problems = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            problems.append(what)
+            print(f"[parallel ranks] DEPARTURE (rank {rank}): {what}",
+                  file=sys.stderr, flush=True)
+
+    def same_on_every_rank(what: str, x: torch.Tensor) -> None:
+        every = torch.empty((world,) + tuple(x.shape), dtype=x.dtype,
+                            device=dev)
+        dist.all_gather_into_tensor(every, x.contiguous())
+        check(all(torch.equal(every[i], x) for i in range(world)),
+              f"{what} differs between the ranks")
+
+    points = make_mesh({"points": world}, "cuda")
+    print(f"[parallel ranks] {world} ranks, one a card, NCCL; "
+          f"{library_versions()} ({card})")
+    phase_parallel_graph(dev, card, axis_group(points, "points"))
+
+    cfg = Config()
+    torch.manual_seed(PARALLEL_SEED)
+    model = PointCloudDiffusionModel(cfg, dev)
+    schedule = make_schedule(cfg).to(dev)
+    rng = np.random.default_rng(PARALLEL_SEED)
+    src, cond = (torch.from_numpy(normalize_point_cloud(
+        make_cloud(rng, N_POINTS, dup_frac=0.0))[0])[None].to(dev)
+        for _ in range(2))
+    gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED)
+    run = dict(
+        num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+        x_init=torch.randn((1, N_POINTS, 3), generator=gen, device=dev),
+        cond_priority=torch.rand((1, N_POINTS), generator=gen, device=dev),
+        step_priorities=torch.rand((STEPS, 1, N_POINTS), generator=gen,
+                                   device=dev),
+        fps_starts=torch.randint(0, 512, (2, 1), generator=gen, device=dev))
+
+    def sharded():
+        return guided_sample_loop_sharded(model, schedule, src, cond, points,
+                                          **run)
+    with eager_samplers():
+        eager, eager_s = timed(sharded)
+    single = {k: v for k, v in GRAPH_LAUNCHES.items() if v}
+    secs, caps = [], []
+    for call in range(4):  # eager, captured + replayed, replays
+        n_cap = len(capture.CAPTURES)
+        reset_launch_counts()
+        out, s = timed(sharded)
+        secs.append(s)
+        caps.append(len(capture.CAPTURES) - n_cap)
+        got = {k: v for k, v in LAUNCH_COUNTS.items() if v}
+        check(got == single, f"sharded sampler call {call + 1} launched "
+              f"{got} != {single}")
+        check(torch.equal(out, eager), f"sharded sampler call {call + 1} "
+              f"differs from its eager body (max |d| "
+              f"{(out - eager).abs().max().item():.3g})")
+    check(caps == [0, 1, 0, 0], f"sharded sampler captures a call {caps}")
+    same_on_every_rank("the sharded sampler's cloud", out)
+    dist.barrier()
+    if rank == 0:  # the single-device sampler on one card, the others wait
+        single_s = []
+        for _ in range(4):
+            ref, s = timed(lambda: guided_sample_loop(model, schedule, src,
+                                                      cond, **run))
+            single_s.append(s)
+        print(f"[parallel ranks] point-sharded sampler on {{'points': "
+              f"{world}}}, {N_POINTS} / {M_POINTS} points, {STEPS} steps, "
+              f"grid: eager body {eager_s:.4f} s; through the capture runner "
+              f"eager {secs[0]:.4f} s, captured {secs[1]:.4f} s, replays "
+              f"{secs[2]:.4f} / {secs[3]:.4f} s a cloud (captures a call "
+              f"{caps}), launches {single} a rank; the single-device sampler "
+              f"on one card {', '.join(f'{t:.4f}' for t in single_s)} s "
+              f"(eager, captured, replays); sharded vs single-device: max "
+              f"|d| {(out - ref).abs().max().item():.3g}, Chamfer-L2 "
+              f"{float(chamfer_distance_l2(out, ref)[0]):.3g} ({card})")
+    dist.barrier()
+    del model
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         dirs = {k: os.path.join(tmp, k) for k in (
             "checkpoint_dir", "log_dir", "result_dir")}
-        # float32, the bars' dtype: in bf16 the backward's roundings turn
-        # the last-bit differences of its float atomics (index_add_,
-        # scatter_add_) between two runs into differences of 2**-8
-        tcfg = Config(**dirs, experiment_name="parallel", use_amp=False)
-        trainers = [DiffusionTrainer(tcfg.replace(mesh_shape=mesh),
-                                     resume=False, device=dev)
-                    for mesh in ({}, {"data": 1})]
+        tcfg = Config(**dirs, experiment_name="ranks", use_amp=False,
+                      batch_size=world, mesh_shape={"data": world})
+        captured, eager_t = (DiffusionTrainer(tcfg, resume=False, device=dev)
+                             for _ in range(2))
+        eager_steps(eager_t)
         batches = [tuple(np.stack([normalize_point_cloud(make_cloud(
-            rng, N_POINTS))[0] for _ in range(tcfg.batch_size)])
-            for _ in range(2)) for _ in range(3)]
-        worst, loss_err = {}, 0.0
+            rng, N_POINTS))[0] for _ in range(world)]) for _ in range(2))
+            for _ in range(3)]
+        worst, caps, loss_gap, terms_all = {}, [], 0.0, []
         for i, (sim, real) in enumerate(batches):
             terms = []
-            for t, path in zip(trainers, ("train_step", "sharded_train_step")):
-                (ld, _), _ = counted(path, lambda: t.train_step(
-                    t._batch(sim), t._batch(real), 1e-4))
+            for t in (captured, eager_t):
+                n_cap = len(capture.CAPTURES)
+                ld, _ = t.train_step(t._batch(sim), t._batch(real), 1e-4)
                 terms.append({k: float(v) for k, v in ld.items()})
-            if launches["sharded_train_step"] != launches["train_step"]:
-                fail(f"[parallel] sharded mini-step launches "
-                     f"{launches['sharded_train_step']}")
-            loss_err = max(loss_err, max(
-                abs(terms[1][k] / terms[0][k] - 1) for k in terms[0]))
-            if i < 2:  # accumulated, not yet applied
-                for part, r in acc_grads_err(*trainers[::-1]).items():
-                    worst[part] = max(worst.get(part, 0.0), r)
-        same = torch.equal(flat(trainers[0].params), flat(trainers[1].params))
-        gaps = ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
-        if loss_err > 1e-5 or max(worst.values()) > 1.0:
-            fail(f"[parallel] sharded trainer: loss {loss_err:.3e} relative "
-                 f"(bar 1e-5), gradients over their bars by part: {gaps}")
-        print(f"[parallel] DiffusionTrainer(mesh_shape={{'data': 1}}) vs "
-              f"single-device, Config() width, float32, "
-              f"B={tcfg.batch_size}, 3 mini-steps: loss terms "
-              f"{loss_err:.3e} relative (bar 1e-5), accumulated gradients "
-              f"over their bars by part (1 is the bar): {gaps}; parameters "
-              f"after the optimizer step identical: {same}; launches a "
-              f"mini-step {launches['sharded_train_step']} ({card})")
+                if t is captured:
+                    caps.append(len(capture.CAPTURES) - n_cap)
+            loss_gap = max(loss_gap, max(abs(terms[0][k] / terms[1][k] - 1)
+                                         for k in terms[0]))
+            terms_all.append(terms[0])
+            if i < 2:
+                for part, v in acc_grads_err(captured, eager_t).items():
+                    worst[part] = max(worst.get(part, 0.0), v)
+        evals = [[float(t.eval_step(t._batch(sim), t._batch(real))
+                        ["total_loss"]) for t in (captured, eager_t)]
+                 for sim, real in batches]
+        eval_gap = max(abs(a / b - 1) for a, b in evals)
+        check(caps == [0, 1, 0], f"meshed trainer captures a mini-step "
+              f"{caps}")
+        check(loss_gap <= 1e-5 and eval_gap <= 1e-5 and
+              max(worst.values()) <= 1.0, f"meshed trainer captured vs "
+              f"eager: loss {loss_gap:.3g}, eval {eval_gap:.3g} relative, "
+              f"gradient gaps {worst}")
+        same_on_every_rank("the meshed trainer's parameters",
+                           flat(captured.params))
+        sim, real = batches[0]
+        reset_launch_counts()
+        _, got, n_all, busy, wall = profiled_replay(
+            lambda: captured.train_step(captured._batch(sim),
+                                        captured._batch(real), 1e-4),
+            TRAIN_STEP_LAUNCHES)
+        check(got == TRAIN_STEP_LAUNCHES, f"a profiled replayed meshed "
+              f"mini-step ran {got}")
+        entries = capture._ENTRIES["step"]
+        train_graph = next(e.graph.graph for k, e in entries.items()
+                           if k[0][0] == "train" and e.graph is not None)
+        nccl = [(k, c) for k, c in replay_events(train_graph)
+                if "nccl" in k.lower()]
+        del train_graph
+        check(bool(nccl), "no NCCL kernel in a replayed meshed mini-step")
+        print(f"[parallel ranks] DiffusionTrainer(mesh_shape={{'data': "
+              f"{world}}}), Config() width, float32, a global batch of "
+              f"{world}, captured (eager, captured, replayed; captures "
+              f"{caps}) vs eager, 3 mini-steps and 3 eval steps: loss terms "
+              f"{'identical' if loss_gap == 0 else f'{loss_gap:.3g} apart'} "
+              f"{terms_all}; accumulated gradients over their bars by part "
+              f"(1 is the bar): {worst}; eval {eval_gap:.3g} relative; a "
+              f"profiled replayed mini-step: wall {wall:.2f} ms, device busy "
+              f"{busy:.2f} ms, {n_all} device kernels and copies; NCCL "
+              f"kernels in the train graph's replay {nccl} ({card})")
+        del captured, eager_t
+        torch.cuda.empty_cache()
+        bf16 = Config(**dirs, experiment_name="ranks_bf16", batch_size=world,
+                      mesh_shape={"data": world})
+        t = DiffusionTrainer(bf16, resume=False, device=dev)
+        data = [(t._batch(s), t._batch(r)) for s, r in batches]
+        ms = [1e3 * timed(lambda: t.train_step(*data[i % 3], 1e-4))[1]
+              for i in range(8)]
+        dist.barrier()
+        if rank == 0:
+            one = DiffusionTrainer(bf16.replace(batch_size=1, mesh_shape={}),
+                                   resume=False, device=dev)
+            one_data = [(one._batch(s[:1]), one._batch(r[:1]))
+                        for s, r in batches]
+            one_ms = [1e3 * timed(lambda: one.train_step(
+                *one_data[i % 3], 1e-4))[1] for i in range(8)]
+            print(f"[parallel ranks] Config() (bf16) ms per mini-step "
+                  f"(first call eager, second captured, then replays): "
+                  f"{{'data': {world}}} at a global batch of {world} "
+                  f"{', '.join(f'{v:.2f}' for v in ms)} (replays mean "
+                  f"{np.mean(ms[2:]):.2f}); one card at B = 1 "
+                  f"{', '.join(f'{v:.2f}' for v in one_ms)} (replays mean "
+                  f"{np.mean(one_ms[2:]):.2f}) ({card})")
+        dist.barrier()
+    # the graphs hold the communicators: a four-card run that destroyed
+    # the group with its graphs alive hung at its end
+    capture.release()
     dist.destroy_process_group()
-    return launches
+    if problems:
+        fail(f"[parallel ranks] rank {rank}: {len(problems)} departures: "
+             f"{problems}")
+
+
+RANKS_DEADLINE_S = 300  # a four-card run's work takes about one minute
+
+
+def main_ranks(world: int) -> int:
+    """``--ranks world``: ``parallel_ranks`` on ``world`` cards."""
+    if torch.cuda.device_count() < world:
+        fail(f"--ranks {world} needs {world} cards, this machine has "
+             f"{torch.cuda.device_count()}")
+    ctx = torch.multiprocessing.spawn(parallel_ranks, args=(
+        world, free_port()), nprocs=world, join=False)
+    deadline = time.monotonic() + RANKS_DEADLINE_S
+    try:
+        while not ctx.join(timeout=5):  # raises if a rank failed
+            if time.monotonic() > deadline:
+                fail(f"--ranks {world}: still running after "
+                     f"{RANKS_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def main() -> int:
@@ -4026,9 +4582,12 @@ def main() -> int:
     rng = np.random.default_rng(0)
 
     phase_build()
+    if sys.argv[1:2] == ["--ranks"]:  # e.g. --ranks 4, on four cards
+        return main_ranks(int(sys.argv[2]))
     card = card_line()
     if sys.argv[1:2] == ["--only"]:  # e.g. --only graph,train_graph
-        phases = {"graph": phase_graph, "train_graph": phase_train_graph}
+        phases = {"graph": phase_graph, "train_graph": phase_train_graph,
+                  "parallel": phase_parallel}
         names = sys.argv[2].split(",") if len(sys.argv) == 3 else []
         if not names or not set(names) <= set(phases):
             fail(f"--only takes a comma list of {sorted(phases)}")

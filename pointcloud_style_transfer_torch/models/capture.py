@@ -46,6 +46,22 @@ EMA), never evict one another.
 
 A capture or replay that fails raises; nothing falls back to the eager
 loop.
+
+A body that runs collectives (the point-sharded sampler, the meshed train
+and eval steps: NCCL's all-gathers and all-reduces inside the graph, the
+counterparts of the collectives inside JAX's compiled programs) names
+their process groups (``groups``). Every rank of them must then take the
+same branch at the same call: a rank that captures records its
+collectives without running them, so a rank that runs the body or
+replays meanwhile would wait for it forever. A rank's own choice rests on
+its own state (the entry's owner is a weak reference, the keys hold
+addresses, the cache forgets its oldest keys), so the ranks agree on it
+first (``agree``: one small all-reduce a group, outside the graph): a call
+runs eagerly where any rank would, captures where any rank has no graph
+yet, and replays only where every rank has one. After a capture the ranks
+agree that each of them made it before any replays: one rank's failed
+capture raises on every rank. ``release`` drops every graph, which must
+come before the process group is destroyed.
 """
 
 from __future__ import annotations
@@ -53,15 +69,18 @@ from __future__ import annotations
 import collections
 import time
 import weakref
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_leaves, tree_map
 
 from ..ops import grid_knn
 from ..ops.kernels import LAUNCH_COUNTS
 
 CACHE_SIZE = 4  # keys kept a cache (a captured one holds its own pool)
+# a key's branches, in the order its calls move through them
+EAGER, CAPTURE, REPLAY = 0, 1, 2
 
 
 class _Graph(NamedTuple):
@@ -116,51 +135,103 @@ def _capture(body: Callable[[dict], Any], inputs: dict) -> _Graph:
     static = {n: t.clone() for n, t in inputs.items()}
     before = dict(LAUNCH_COUNTS)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        with grid_knn.recording_unsafe() as counts:
-            output = body(static)
-        record = torch.stack(counts) if counts else None
-    torch.cuda.synchronize()
-    launches = {}
-    for name, n in before.items():  # captured, not launched
-        if LAUNCH_COUNTS[name] != n:
-            launches[name] = LAUNCH_COUNTS[name] - n
-            LAUNCH_COUNTS[name] = n
+    try:
+        # thread_local: a CUDA call of another thread (a process group's
+        # watchdog querying its events) does not void the capture
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with grid_knn.recording_unsafe() as counts:
+                output = body(static)
+            record = torch.stack(counts) if counts else None
+        torch.cuda.synchronize()
+    finally:  # captured, not launched
+        launches = {name: LAUNCH_COUNTS[name] - n
+                    for name, n in before.items() if LAUNCH_COUNTS[name] != n}
+        LAUNCH_COUNTS.update(before)
     CAPTURES.append({"capture_s": time.perf_counter() - t0})
     return _Graph(graph, static, output, record, launches)
 
 
+def agree(groups: Sequence, value: int) -> int:
+    """The least ``value`` of the ranks of each process group of ``groups``
+    in turn: over a mesh's axis groups in turn, the least over the mesh.
+    One all-reduce of one int a group, on the card under NCCL (then read
+    back, which waits for the work the stream holds) and on the host under
+    gloo."""
+    for group in groups:
+        device = "cuda" if "nccl" in str(dist.get_backend(group)) else "cpu"
+        t = torch.tensor([value], dtype=torch.int32, device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+        value = int(t.item())
+    return value
+
+
+def _capture_agreed(body: Callable[[dict], Any], inputs: dict,
+                    groups: Sequence) -> _Graph:
+    """``_capture``, held until every rank of ``groups`` has made its own:
+    a capture that failed on any rank raises on every rank."""
+    if not groups:
+        return _capture(body, inputs)
+    try:
+        graph = _capture(body, inputs)
+    except Exception:
+        agree(groups, 0)
+        raise
+    if not agree(groups, 1):
+        raise RuntimeError("the capture failed on another rank of the "
+                           "process group")
+    return graph
+
+
 def run_captured(key: tuple, body: Callable[[dict], Any], inputs: dict,
-                 owner, cache: str = "sampler") -> Any:
+                 owner, cache: str = "sampler", groups: Sequence = ()) -> Any:
     """``body(inputs)``: eagerly at the first call under ``key``, from the
     CUDA graph captured at the second and replayed since. ``inputs`` maps
     names to CUDA tensors, of which the graph keeps static copies;
     ``owner`` is the object whose tensors the graph reads in place (the
     model's net, the trainer): a key whose owner is gone is seen anew, even
     where a new one took its address. ``cache`` names the cache the key
-    is kept in. Returns the eager output or a clone of each of the
-    graph's."""
+    is kept in. ``groups`` are the process groups whose collectives
+    ``body`` runs: their ranks agree on each call's branch and on each
+    capture (``agree``). Returns the eager output or a clone of each of
+    the graph's."""
     key = (key, tuple((n, tuple(t.shape), t.dtype, t.device)
                       for n, t in inputs.items()))
     entries = _ENTRIES.setdefault(cache, collections.OrderedDict())
     entry = entries.pop(key, None)
-    if entry is None or entry.owner() is not owner:
+    if entry is not None and entry.owner() is not owner:
+        entry = None
+    branch = (EAGER if entry is None else CAPTURE if entry.graph is None
+              else REPLAY)
+    if groups:
+        branch = agree(groups, branch)
+    if branch == EAGER:
         entry = None  # a stale graph's pool goes before anything new
         _remember(entries, key, _Entry(weakref.ref(owner), None))
         return _eager(body, inputs)
-    graph = entry.graph
-    if graph is None:
-        graph = _capture(body, inputs)
+    if branch == CAPTURE:
+        entry = None  # as above, where this rank alone had a graph
+        graph = _capture_agreed(body, inputs, groups)
     else:
+        graph = entry.graph
         for name, t in inputs.items():
             graph.inputs[name].copy_(t)
-    _remember(entries, key, _Entry(entry.owner, graph))
+    _remember(entries, key, _Entry(weakref.ref(owner), graph))
     graph.graph.replay()
     for name, n in graph.launches.items():
         LAUNCH_COUNTS[name] += n
     if graph.record is not None:
         grid_knn.UNSAFE_COUNTS.extend(graph.record.clone().unbind(0))
     return tree_map(torch.clone, graph.output)
+
+
+def release() -> None:
+    """Drop every cached graph with its pool. A graph that holds NCCL
+    collectives holds its communicator: release the graphs before
+    ``torch.distributed.destroy_process_group`` (on four ranks a run that
+    destroyed its group with the graphs alive hung at its end)."""
+    _ENTRIES.clear()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 def _remember(entries: collections.OrderedDict, key: tuple,

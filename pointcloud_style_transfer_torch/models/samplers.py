@@ -203,17 +203,27 @@ def _schedule_of(ins: dict) -> DiffusionSchedule:
                                     DiffusionSchedule)})
 
 
+def _graphed(device: torch.device) -> bool:
+    """Whether a sampler call on ``device`` runs through the capture
+    runner: on the card."""
+    return device.type == "cuda"
+
+
 def _run(model: PointCloudDiffusionModel, key: tuple, body, inputs: dict,
-         eager: bool = False) -> torch.Tensor:
+         eager: bool = False, split=None) -> torch.Tensor:
     """``body(inputs)``: eagerly on the CPU or where ``eager`` says the call
     needs the host between steps, else on the card through
     ``models.capture`` under ``key``: eagerly the first time, from a CUDA
     graph captured the second time and replayed since (a failed capture or
-    replay raises)."""
+    replay raises). With ``split`` (``parallel.sharded_sampler.RowSplit``)
+    the key holds the split, and the graph its collectives, on whose
+    branch its group's ranks agree at every call."""
     inputs = {n: t for n, t in inputs.items() if t is not None}
-    if eager or model.device.type != "cuda":
+    if eager or not _graphed(model.device):
         return body(inputs)
-    return run_captured((key, model_key(model)), body, inputs, model.net)
+    return run_captured(
+        (key, None if split is None else split.key(), model_key(model)),
+        body, inputs, model.net, groups=() if split is None else split.groups)
 
 
 @torch.no_grad()
@@ -262,10 +272,11 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
     encoder, every step) is one CUDA graph (``models.capture``), captured
     at the second call with the same static arguments (the first runs
     eagerly and is its warm-up) and replayed with the same results as the
-    eager loop, on every ``knn_backend``. It runs eagerly on the CPU,
-    and wherever the call needs the host between steps: with
-    ``selections`` (a dict read and written every step) and with ``mesh``
-    (collectives)."""
+    eager loop, on every ``knn_backend``. It runs eagerly on the CPU and
+    with ``selections`` (a dict read and written every step). With
+    ``mesh`` the graph holds the all-gathers of the shares (the
+    counterparts of JAX's inside its ``shard_map``), and the axis's ranks
+    agree on every call's branch (``models.capture``)."""
     cfg = model.config
     device = model.device
     schedule = schedule.to(device)
@@ -306,10 +317,9 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
         return _guided_body(model, ins, num_inference_steps, guidance_scale,
                             use_hierarchical, knn_backend, selections, split,
                             rows)
-    eager = selections is not None or mesh is not None
     key = ("guided", num_inference_steps, float(guidance_scale),
            use_hierarchical, knn_backend)
-    return _run(model, key, body, inputs, eager)
+    return _run(model, key, body, inputs, selections is not None, split)
 
 
 def _guided_body(model: PointCloudDiffusionModel, ins: dict, steps: int,

@@ -127,6 +127,16 @@ def axis_group(mesh, axis: str):
         else None
 
 
+def mesh_key(mesh, *groups) -> tuple:
+    """What a CUDA graph of collectives on ``mesh`` bakes in: its axes with
+    their sizes and, for each of ``groups`` (None where there is none),
+    its name, which names its communicator, and its global ranks."""
+    return (tuple(zip(mesh.mesh_dim_names or (), mesh.mesh.shape)),
+            tuple(None if g is None else
+                  (g.group_name, tuple(dist.get_process_group_ranks(g)))
+                  for g in groups))
+
+
 def replicated(mesh):
     """The ``DTensor`` placements of a replicated value (the counterpart of
     ``NamedSharding(mesh, P())``); nothing in the port consumes them."""

@@ -47,7 +47,7 @@ from ..models.networks import BatchNorm
 from ..training.optimizer import MultiStepsAdamW
 from ..training.trainer import eval_step, slice_draws, step_draws, train_step
 from .mesh import (DATA_AXIS, POINTS_AXIS, AllGather, AllReduceSum,
-                   all_gather, axis_group, axis_rank, axis_size)
+                   all_gather, axis_group, axis_rank, axis_size, mesh_key)
 
 
 # the keys of NoisePredictor's ReLU gates in ``draws["selections"]``
@@ -73,6 +73,12 @@ class StepLayout:
                              if self.p > 1 else None)
         self.groups = [g for g, n in ((self.data_group, self.d),
                                       (self.points_group, self.p)) if n > 1]
+        self._mesh_key = mesh_key(mesh, self.data_group, self.points_group)
+
+    def key(self) -> tuple:
+        """What a captured step bakes in of this layout: this rank's place,
+        the mesh and the groups."""
+        return ("layout", self.d, self.i, self.p, self.j, self._mesh_key)
 
     def _gather_points(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.p == 1 else all_gather(x, self.points_group, 1)

@@ -34,7 +34,7 @@ from ..models import guided_sample_loop
 from ..models.diffusion import DiffusionSchedule
 from ..models.model import PointCloudDiffusionModel
 from .mesh import (DATA_AXIS, POINTS_AXIS, all_gather, axis_group,
-                   axis_rank, axis_size, check_backend)
+                   axis_rank, axis_size, check_backend, mesh_key)
 
 # Test-only fault injection: a test sets it to 1 to prove that its
 # sharded-vs-single-device assertions catch a rank taking its neighbour's
@@ -52,6 +52,19 @@ class RowSplit:
         self.n = axis_size(mesh, axis_name)
         self.me = (axis_rank(mesh, axis_name) + _TEST_SHARD_OFFSET) % self.n
         self.axis_name = axis_name
+        self._mesh_key = mesh_key(mesh, self.group)
+
+    @property
+    def groups(self) -> list:
+        """The process groups of its collectives: the axis's, none on one
+        rank."""
+        return [self.group] if self.n > 1 else []
+
+    def key(self) -> tuple:
+        """What a captured loop bakes in of this split: the axis, its size,
+        this rank's share, the test offset, the mesh and the group."""
+        return ("split", self.axis_name, self.n, self.me, _TEST_SHARD_OFFSET,
+                self._mesh_key)
 
     def check(self, rows: int, what: str) -> None:
         if rows % self.n:

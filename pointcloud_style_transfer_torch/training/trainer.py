@@ -20,10 +20,14 @@ warm-up a captured backward needs), its second captures it and replays
 it, and later calls replay it. The graph reads and writes the parameters,
 BatchNorm statistics, optimizer state and EMA in place, and ``load_state``
 copies into them, so that a resumed trainer's graph reads the loaded
-state. A ragged last batch has its own key. The steps run eagerly on the
-CPU, with a mesh (NCCL collectives) and with ``draws["selections"]`` (a
-dict read and written during the step). A capture or replay that fails
-raises; nothing falls back to the eager step.
+state. A ragged last batch has its own key. With a mesh the graph holds
+the step's NCCL collectives (BatchNorm's statistics, the gathered points,
+the gradients and the loss terms: what GSPMD puts inside JAX's jitted
+sharded step), the key holds the rank's place on the mesh, and the mesh's
+ranks agree on every call's branch (``models.capture``). The steps run
+eagerly on the CPU and with ``draws["selections"]`` (a dict read and
+written during the step). A capture or replay that fails raises; nothing
+falls back to the eager step.
 
 With ``use_augmentation`` the train step augments both clouds
 (``data/augmentation.py``: rotation, jitter, scale) with independent draws
@@ -472,7 +476,7 @@ class DiffusionTrainer:
             sim, real, lr = ins.pop("sim"), ins.pop("real"), ins.pop("lr")
             return train_step(self.model, self.schedule, self.optimizer,
                               self.ema_params, sim, real, lr,
-                              draws=nested_draws(ins))
+                              draws=nested_draws(ins), layout=self.layout)
         return self._captured("train", body, sim, real, draws, lr=lr)
 
     def eval_step(self, sim: torch.Tensor, real: torch.Tensor,
@@ -486,7 +490,8 @@ class DiffusionTrainer:
             ins = dict(ins)
             sim, real = ins.pop("sim"), ins.pop("real")
             return eval_step(self.model, self.schedule, self.ema_params, sim,
-                             real, draws=nested_draws(ins))
+                             real, draws=nested_draws(ins),
+                             layout=self.layout)
         return self._captured("eval", body, sim, real, draws)
 
     def lr_tensor(self, lr: float | torch.Tensor) -> torch.Tensor:
@@ -499,31 +504,42 @@ class DiffusionTrainer:
 
     def _graphed(self, draws: Optional[Dict[str, Any]]) -> bool:
         """Whether a step runs through the capture runner: on the card,
-        without a mesh and without ``draws["selections"]``."""
-        return (self.device.type == "cuda" and self.layout is None
+        without ``draws["selections"]``."""
+        return (self.device.type == "cuda"
                 and not (draws and "selections" in draws))
 
     def step_key(self, kind: str) -> tuple:
         """The key of a step's graph: the model's (its config and every
         parameter's and buffer's address), and the addresses of the
         optimizer's state, the EMA and the schedule, which the graph reads
-        or writes in place."""
+        or writes in place; with a mesh, the rank's place on it
+        (``StepLayout.key``)."""
         return (kind, model_key(self.model),
                 tensors_key(self.optimizer.tensors()),
                 tensors_key(self.ema_params),
                 tensors_key({f.name: getattr(self.schedule, f.name)
-                             for f in dataclasses.fields(self.schedule)}))
+                             for f in dataclasses.fields(self.schedule)}),
+                None if self.layout is None else self.layout.key())
 
     def _captured(self, kind: str, body, sim: torch.Tensor,
                   real: torch.Tensor, draws: Optional[Dict[str, Any]],
                   **inputs: torch.Tensor):
         """``body`` through ``models.capture`` under ``step_key(kind)``,
         with the step's draws taken first from ``self.generator`` in
-        ``step_draws``' order (a key of ``draws`` is not drawn)."""
+        ``step_draws``' order (a key of ``draws`` is not drawn): with a
+        mesh the global batch's, for the B * d clouds and, point-sharded,
+        the gathered points, as ``StepLayout.localize`` draws them, which
+        the body then slices; the mesh's ranks agree on each call's
+        branch."""
         train = kind == "train"
+        B, n_sim, n_real = sim.shape[0], sim.shape[1], real.shape[1]
+        groups = ()
+        if self.layout is not None:
+            d, p = self.layout.d, self.layout.p
+            B, n_sim, n_real = B * d, n_sim * p, n_real * p
+            groups = self.layout.groups
         given = dict(draws or {})
-        given = {**step_draws(self.model, sim.shape[0], sim.shape[1],
-                              real.shape[1], train=train,
+        given = {**step_draws(self.model, B, n_sim, n_real, train=train,
                               cond_drop_prob=None if train else 0.0,
                               generator=self.generator, device=self.device,
                               given=given), **given}
@@ -531,7 +547,7 @@ class DiffusionTrainer:
                   **flat_draws(given)}
         inputs = {n: t.to(self.device) for n, t in inputs.items()}
         return run_captured(self.step_key(kind), body, inputs, self,
-                            cache="step")
+                            cache="step", groups=groups)
 
     # -- epoch loops ---------------------------------------------------------
     def train_one_epoch(self, loader, epoch: int) -> float:

@@ -1080,7 +1080,7 @@ def test_sampler_captured_matches_eager(cuda, monkeypatch):
     # the launches a replay makes are counted as the eager call's
     assert counts[0]["grid_interp"] == 5 and counts[1] == counts[2] == counts[0]
     monkeypatch.setattr(samplers, "run_captured",
-                        lambda key, body, inputs, owner: body(inputs))
+                        lambda key, body, inputs, owner, **kw: body(inputs))
     eager = run()
     assert all(torch.equal(o, eager) for o in outs)
 
@@ -1121,7 +1121,7 @@ def test_pruned_sampler_captured_matches_eager(cuda, monkeypatch):
     assert counts[0]["knn_pruned"] == 10 and counts[0]["grid_interp"] == 0
     assert counts[1] == counts[2] == counts[0]
     monkeypatch.setattr(samplers, "run_captured",
-                        lambda key, body, inputs, owner: body(inputs))
+                        lambda key, body, inputs, owner, **kw: body(inputs))
     eager = run()
     assert all(torch.equal(o, eager) for o in outs)
 
@@ -1184,3 +1184,113 @@ def test_train_step_captured_matches_eager(cuda, tmp_path):
             <= 1e-5
     assert len(capture.CAPTURES) == n_cap + 2
     assert {k: graphed.step_key(k) for k in keys} == keys
+
+
+@pytest.fixture
+def points_mesh(cuda):
+    """A {points: 1} mesh on a one-rank NCCL group (started here when no
+    group is), and its group; the group is ended after the test if this
+    fixture started it."""
+    import torch.distributed as dist
+    from pointcloud_style_transfer_torch.parallel import make_mesh
+    from pointcloud_style_transfer_torch.parallel.mesh import axis_group
+    started = not dist.is_initialized()
+    mesh = make_mesh({"points": 1}, "cuda")
+    yield mesh, axis_group(mesh, "points")
+    if started:
+        dist.destroy_process_group()
+
+
+class _Owner:
+    pass
+
+
+def test_collectives_captured_match_eager(cuda, points_mesh):
+    """Each collective of the meshed paths (``mesh.all_gather``,
+    ``AllGather`` and ``AllReduceSum`` forward and backward, an all-reduce
+    of a flat buffer) through ``run_captured(groups=)`` on a one-rank NCCL
+    group: eager first, captured second, then replays on new inputs, each
+    identical to the body run eagerly on the same inputs."""
+    import torch.distributed as dist
+    from pointcloud_style_transfer_torch.models import capture
+    from pointcloud_style_transfer_torch.parallel.mesh import (
+        AllGather, AllReduceSum, all_gather)
+    _, group = points_mesh
+    gen = torch.Generator(device=cuda).manual_seed(4)
+
+    def grad_of(fn):
+        def body(ins):
+            x = ins["x"].detach().requires_grad_()
+            return torch.autograd.grad(fn(x), x, ins["g"])[0]
+        return body
+
+    def flat_sum(ins):
+        flat = ins["x"].clone()
+        dist.all_reduce(flat, group=group)
+        return flat
+    bodies = {
+        "all_gather": (lambda ins: all_gather(ins["x"], group, 1), None),
+        "AllGather": (lambda ins: AllGather.apply(ins["x"], group, 1), None),
+        "AllGather grad": (grad_of(lambda x: AllGather.apply(x, group, 1)),
+                           (1, 300, 3)),
+        "AllReduceSum": (lambda ins: AllReduceSum.apply(ins["x"], group),
+                         None),
+        "AllReduceSum grad": (grad_of(lambda x: AllReduceSum.apply(x,
+                                                                    group)),
+                              (1, 300, 3)),
+        "all_reduce": (flat_sum, None)}
+    owner = _Owner()
+    for name, (body, g_shape) in bodies.items():
+        n_cap = len(capture.CAPTURES)
+        for call in range(4):
+            ins = {"x": torch.randn((1, 300, 3), generator=gen, device=cuda)}
+            if g_shape:
+                ins["g"] = torch.randn(g_shape, generator=gen, device=cuda)
+            got = capture.run_captured(("collective", name), body, ins, owner,
+                                       cache="parallel", groups=[group])
+            assert torch.equal(got, body(ins)), (name, call)
+            assert len(capture.CAPTURES) == n_cap + (call > 0), (name, call)
+
+
+def test_sharded_sampler_captured_matches_eager(cuda, points_mesh,
+                                                monkeypatch):
+    """``guided_sample_loop(mesh=)`` on {points: 1} through the capture
+    runner at a small size: its first call eager, its second captured and
+    replayed, its third replayed, each identical to its eager body and to
+    ``guided_sample_loop`` without a mesh (a key of its own)."""
+    import functools
+    from pointcloud_style_transfer_torch.config import Config
+    from pointcloud_style_transfer_torch.models import (
+        PointCloudDiffusionModel, capture, guided_sample_loop, make_schedule,
+        samplers)
+    mesh, _ = points_mesh
+    grid = dict(grid_shape=(2, 2, 2), tq=64, slot_cap=256)
+    monkeypatch.setattr(grid_knn, "grid_knn_interpolate_layout",
+                        functools.partial(
+                            grid_knn.grid_knn_interpolate_layout, **grid))
+    torch.manual_seed(0)
+    cfg = Config(total_points=2048, global_points=512, feature_dim=32,
+                 time_embed_dim=16, use_amp=False, knn_backend="grid")
+    model = PointCloudDiffusionModel(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    src, cond, x0 = (torch.randn((1, 2048, 3), generator=gen, device=cuda)
+                     for _ in range(3))
+    draws = dict(x_init=x0, step_priorities=torch.rand(
+        (5, 1, 2048), generator=gen, device=cuda),
+        cond_priority=torch.rand((1, 2048), generator=gen, device=cuda),
+        fps_starts=torch.zeros((2, 1), dtype=torch.int64, device=cuda))
+
+    def run(**kw):
+        return guided_sample_loop(model, make_schedule(cfg), src, cond, 5,
+                                  **draws, **kw)
+    single = run()
+    n_cap = len(capture.CAPTURES)
+    outs = []
+    for _ in range(3):  # eager (the warm-up), captured + replayed, replayed
+        outs.append(run(mesh=mesh))
+        assert len(capture.CAPTURES) == n_cap + (len(outs) > 1)
+    monkeypatch.setattr(samplers, "run_captured",
+                        lambda key, body, inputs, owner, **kw: body(inputs))
+    eager = run(mesh=mesh)
+    assert all(torch.equal(o, eager) for o in outs)
+    assert torch.equal(eager, single)

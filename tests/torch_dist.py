@@ -20,6 +20,7 @@ the parent. Inputs go to the ranks as files in ``tmp`` (``inputs.npz``,
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import functools
 import json
@@ -455,3 +456,383 @@ def dp_sampler_ranks(rank: int, world: int, tmp: str) -> dict:
     except ValueError as e:
         out["dp.ragged_raises"] = ["not divisible" in str(e)]
     return out
+
+
+# -- the multi-rank paths through the capture runner
+#    (tests/test_torch_mesh_graph.py) -----------------------------------
+
+class FakeGraph:
+    """A stand-in for a CUDA graph on the CPU: a replay runs the body on
+    the static inputs and copies its outputs (a tensor or a tree) into the
+    static ones, and logs ``"replay"``."""
+
+    def __init__(self, body, static, output, log):
+        self.body, self.static, self.output, self.log = (body, static,
+                                                         output, log)
+
+    def replay(self):
+        from torch.utils._pytree import tree_flatten
+        self.log.append("replay")
+        new = self.body(self.static)
+        for o, n in zip(tree_flatten(self.output)[0],
+                        tree_flatten(new)[0]):
+            o.copy_(n)
+
+
+class Owner:
+    """An object a graph reads (the runner holds a weak reference)."""
+
+
+class RunnerLog(list):
+    """The branches a stand-in runner took, in order (``"eager"``,
+    ``"capture"``, ``"replay"``); ``state`` holds the tensors a body
+    writes in place, which a stand-in capture puts back as a CUDA capture
+    leaves them; ``fail`` makes the next capture raise."""
+
+    def __init__(self):
+        super().__init__()
+        self.state, self.fail = [], False
+
+
+@contextlib.contextmanager
+def fake_runner():
+    """``models.capture`` with CPU stand-ins for its eager run and its
+    capture (the body run once, the state put back), empty caches, and the
+    samplers routed through it on the CPU. Yields the ``RunnerLog``."""
+    from pointcloud_style_transfer_torch.models import capture, samplers
+    from torch.utils._pytree import tree_map
+
+    log = RunnerLog()
+
+    def eager(body, inputs):
+        log.append("eager")
+        return body(inputs)
+
+    def fake_capture(body, inputs):
+        if log.fail:
+            raise RuntimeError("the stand-in capture failed")
+        log.append("capture")
+        static = {n: t.clone() for n, t in inputs.items()}
+        saved = [t.detach().clone() for t in log.state]
+        output = tree_map(lambda t: t.detach().clone(), body(static))
+        with torch.no_grad():
+            for t, s in zip(log.state, saved):
+                t.copy_(s)
+        return capture._Graph(FakeGraph(body, static, output, log), static,
+                              output, None, {})
+    own = (capture._eager, capture._capture, capture._ENTRIES,
+           samplers._graphed)
+    capture._eager, capture._capture, capture._ENTRIES = (eager, fake_capture,
+                                                          {})
+    samplers._graphed = lambda device: True
+    try:
+        yield log
+    finally:
+        (capture._eager, capture._capture, capture._ENTRIES,
+         samplers._graphed) = own
+
+
+def routed(trainer):
+    """``trainer`` with its steps through the capture runner on the CPU
+    (``DiffusionTrainer._graphed``'s rule without its device check)."""
+    trainer._graphed = lambda draws: not (draws and "selections" in draws)
+    return trainer
+
+
+def trainer_state(t) -> list:
+    """Every tensor a step writes in place."""
+    return [*t.params.values(), *t.model.net.buffers(),
+            *t.optimizer.tensors().values(), *t.ema_params.values()]
+
+
+def _sampler_draws(x) -> dict:
+    return dict(x_init=x["x_init"], cond_priority=x["cond_priority"],
+                step_priorities=x["step_priorities"],
+                fps_starts=x["fps_starts"])
+
+
+def mesh_graph_ranks(rank: int, world: int, tmp: str) -> dict:
+    """The meshed sampler and the meshed trainer's steps routed through
+    the capture runner (CPU stand-ins) against their eager runs, the
+    runner's keys on several meshes, the meshed bodies under
+    ``NoSyncGuard``, and at world 2 the ranks' agreement on branches and
+    on a failed capture."""
+    from pointcloud_style_transfer_torch.ops import grid_knn
+
+    grid_knn.grid_knn_interpolate_layout = functools.partial(
+        grid_knn.grid_knn_interpolate_layout, **SAMPLER_GRID)
+    out = {}
+    out.update(_routed_sampler(world, tmp))
+    out.update(_routed_steps(world, tmp))
+    out.update(_keys_apart(world, tmp))
+    out.update(_guarded_bodies(world, tmp))
+    if world == 2:
+        out.update(_agreement(rank))
+        out.update(_failed_capture(rank))
+    return out
+
+
+def _routed_sampler(world: int, tmp: str) -> dict:
+    """``guided_sample_loop(mesh=)`` on {points: world}, brute and grid:
+    the eager call, then three calls through the runner."""
+    from pointcloud_style_transfer_torch.models import guided_sample_loop
+    from pointcloud_style_transfer_torch.parallel import make_mesh
+
+    x = _inputs(tmp)
+    mesh = make_mesh({"points": world}, "cpu")
+    out = {}
+    for name, kw in (("brute", {}), ("grid", {"knn_backend": "grid"})):
+        model, schedule = _sampler_model(tmp, **kw)
+
+        def run():
+            return guided_sample_loop(model, schedule, x["src"], x["cond"],
+                                      SAMPLER_STEPS, 7.5, mesh=mesh,
+                                      **_sampler_draws(x))
+        out[f"sampler.{name}.eager"] = run()
+        with fake_runner() as log:
+            out[f"sampler.{name}.routed"] = torch.stack([run()
+                                                         for _ in range(3)])
+        out[f"sampler.{name}.branches"] = list(log)
+    return out
+
+
+def mesh_trainer(tmp: str, name: str, shape: dict, shard_points: bool):
+    """A ``DiffusionTrainer`` over ``shape`` at ``STEP_CFG`` (accumulation
+    2), its layout point-sharded with ``shard_points``."""
+    from pointcloud_style_transfer_torch.config import Config
+    from pointcloud_style_transfer_torch.parallel.sharded import StepLayout
+    from pointcloud_style_transfer_torch.training import DiffusionTrainer
+
+    runs = os.path.join(tmp, f"{name}_rank{dist.get_rank()}")
+    cfg = Config(**{**STEP_CFG, "gradient_accumulation_steps": 2},
+                 experiment_name=name, mesh_shape=shape,
+                 checkpoint_dir=os.path.join(runs, "ckpt"),
+                 log_dir=os.path.join(runs, "logs"),
+                 result_dir=os.path.join(runs, "results"))
+    t = DiffusionTrainer(cfg, resume=False, device="cpu")
+    if shard_points:
+        t.layout = StepLayout(t.mesh, shard_points=True)
+    return t
+
+
+def _routed_steps(world: int, tmp: str) -> dict:
+    """On ``STEP_MESHES[world]``: an eager and a routed trainer, 4
+    mini-steps and 3 eval steps each; the first 2 mini-steps and the first
+    eval step with the global batch's draws given, the others drawn from
+    each trainer's own generator (by the routed one in ``_captured``, by
+    the eager one in ``StepLayout.localize``)."""
+    from pointcloud_style_transfer_torch.parallel import shard_batch
+    from pointcloud_style_transfer_torch.training.trainer import step_draws
+
+    x = _inputs(tmp)
+    shape, shard_points = STEP_MESHES[world]
+    B, N = x["sim"].shape[:2]
+    out = {}
+    for mode in ("eager", "routed"):
+        t = mesh_trainer(tmp, mode, shape, shard_points)
+        sim, real = (shard_batch(x[k], t.mesh, shard_points)
+                     for k in ("sim", "real"))
+        seeded = t.generator.get_state()
+
+        def draws(train, seed, given):
+            return step_draws(t.model, B, N, N, train=train,
+                              generator=torch.Generator().manual_seed(seed)
+                              ) if given else None
+        run = fake_runner() if mode == "routed" else \
+            contextlib.nullcontext(RunnerLog())
+        with run as log:
+            if mode == "routed":
+                routed(t)
+                log.state = trainer_state(t)
+            terms, emits, evals = [], [], []
+            for i in range(4):
+                ld, emit = t.train_step(sim, real, STEP_LR,
+                                        draws=draws(True, 100 + i, i < 2))
+                terms.append(torch.stack([ld[k] for k in sorted(ld)]))
+                emits.append(bool(emit))
+            for i in range(3):
+                ld = t.eval_step(sim, real, draws=draws(False, 200, i < 1))
+                evals.append(torch.stack([ld[k] for k in sorted(ld)]))
+        prefix = f"steps.{mode}"
+        out.update({f"{prefix}.terms": torch.stack(terms),
+                    f"{prefix}.emits": emits,
+                    f"{prefix}.evals": torch.stack(evals),
+                    f"{prefix}.state": _flat(trainer_state(t)),
+                    f"{prefix}.generator": t.generator.get_state(),
+                    f"{prefix}.seeded": seeded,
+                    f"{prefix}.branches": list(log) or ["none"]})
+    return out
+
+
+def _keys_apart(world: int, tmp: str) -> dict:
+    """The runner's keys on two meshes, with the test offset, and of two
+    step layouts: the sampler through the runner on {points: world} twice
+    (eager, captured), then on the other mesh and with
+    ``_TEST_SHARD_OFFSET = 1`` (each a new key: eager), then on the first
+    again (a replay); every rank's split and layout keys."""
+    from pointcloud_style_transfer_torch.models import guided_sample_loop
+    from pointcloud_style_transfer_torch.parallel import (make_mesh,
+                                                          sharded_sampler)
+    from pointcloud_style_transfer_torch.parallel.sharded import StepLayout
+
+    x = _inputs(tmp)
+    model, schedule = _sampler_model(tmp)
+    other = {"data": 2, "points": 2} if world == 4 else {"data": 1,
+                                                          "points": 2}
+    meshes = [make_mesh({"points": world}, "cpu"), make_mesh(other, "cpu")]
+
+    def run(mesh):
+        return guided_sample_loop(model, schedule, x["src"], x["cond"],
+                                  SAMPLER_STEPS, 7.5, mesh=mesh,
+                                  **_sampler_draws(x))
+    with fake_runner() as log:
+        calls = []
+        for mesh, offset in ((0, 0), (0, 0), (1, 0), (0, 1), (0, 0)):
+            sharded_sampler._TEST_SHARD_OFFSET = offset
+            try:
+                run(meshes[mesh])
+            finally:
+                sharded_sampler._TEST_SHARD_OFFSET = 0
+            calls.append("+".join(log))
+            log.clear()
+    keys = [repr(sharded_sampler.RowSplit(m, "points", "cpu").key())
+            for m in meshes]
+    sharded_sampler._TEST_SHARD_OFFSET = 1
+    try:
+        keys.append(repr(sharded_sampler.RowSplit(meshes[0], "points",
+                                                  "cpu").key()))
+    finally:
+        sharded_sampler._TEST_SHARD_OFFSET = 0
+    step_mesh = make_mesh(other, "cpu")
+    keys += [repr(StepLayout(step_mesh, sp).key()) for sp in (False, True)]
+    keys.append(repr(StepLayout(make_mesh({"data": world}, "cpu")).key()))
+    every = [None] * world
+    dist.all_gather_object(every, keys)
+    return {"keys.calls": calls, "keys.mine": keys,
+            "keys.every": [k for rank_keys in every for k in rank_keys]}
+
+
+def _guarded_bodies(world: int, tmp: str) -> dict:
+    """The meshed sampler body and the meshed train and eval step bodies
+    under ``NoSyncGuard``, every input, draw and piece of state followed:
+    what reads back to the host raises."""
+    import pytest
+    from pointcloud_style_transfer_torch.config import Config
+    from pointcloud_style_transfer_torch.models import (
+        PointCloudDiffusionModel, guided_sample_loop, make_schedule)
+    from pointcloud_style_transfer_torch.parallel import (make_mesh,
+                                                          shard_batch)
+    from pointcloud_style_transfer_torch.parallel.sharded import StepLayout
+    from pointcloud_style_transfer_torch.training import (ema_init,
+                                                          make_optimizer)
+    from pointcloud_style_transfer_torch.training.trainer import (
+        eval_step, step_draws, train_step)
+    from torch_nosync import NoSyncGuard, _mark, plain_kernels
+
+    x = _inputs(tmp)
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        guard = NoSyncGuard()
+        plain_kernels(mp, guard)
+        for name, kw in (("brute", {}), ("grid", {"knn_backend": "grid"})):
+            model, schedule = _sampler_model(tmp, **kw)
+            draws = _sampler_draws(x)
+            _mark([x["src"], x["cond"], draws])
+            mesh = make_mesh({"points": world}, "cpu")
+            with guard:
+                got = guided_sample_loop(model, schedule, x["src"],
+                                         x["cond"], SAMPLER_STEPS, 7.5,
+                                         mesh=mesh, **draws)
+            out[f"guard.sampler.{name}"] = got
+
+        shape, shard_points = STEP_MESHES[world]
+        mesh = make_mesh(shape, "cpu")
+        layout = StepLayout(mesh, shard_points)
+        cfg = Config(**{**STEP_CFG, "gradient_accumulation_steps": 2})
+        torch.manual_seed(0)
+        model = PointCloudDiffusionModel(cfg, device="cpu")
+        schedule = make_schedule(cfg)
+        params = dict(model.net.named_parameters())
+        opt, ema = make_optimizer(cfg, params), ema_init(params)
+        sim, real = (shard_batch(x[k], mesh, shard_points)
+                     for k in ("sim", "real"))
+        B, N = x["sim"].shape[:2]
+        gen = torch.Generator().manual_seed(5)
+        lr = torch.tensor(STEP_LR)
+        _mark([params, dict(model.net.named_buffers()), opt.tensors(), ema,
+               sim, real, lr])
+        emits = []
+        for _ in range(2):
+            draws = step_draws(model, B, N, N, train=True, generator=gen)
+            _mark(draws)
+            with guard:
+                terms, emit = train_step(model, schedule, opt, ema, sim,
+                                         real, lr, draws=draws,
+                                         layout=layout)
+            emits.append(bool(emit))
+        draws = step_draws(model, B, N, N, train=False, generator=gen)
+        _mark(draws)
+        with guard:
+            e_terms = eval_step(model, schedule, ema, sim, real, draws=draws,
+                                layout=layout)
+        out["guard.step.terms"] = torch.stack([terms[k] for k in
+                                               sorted(terms)])
+        out["guard.step.evals"] = torch.stack([e_terms[k] for k in
+                                               sorted(e_terms)])
+        out["guard.step.emits"] = emits
+    return out
+
+
+def _agreement(rank: int) -> dict:
+    """Runner states that disagree between the ranks: rank 1's entry
+    dropped after the first call (``drop``), or its owner replaced at the
+    second (``owner``); each through 4 calls on the world group, and the
+    drop again with the agreement patched out (``unagreed``)."""
+    from pointcloud_style_transfer_torch.models import capture
+
+    def body(ins):
+        return ins["x"] * 2
+
+    x = {"x": torch.arange(3.0)}
+    group = [dist.group.WORLD]
+    out = {}
+    for case in ("drop", "owner", "unagreed"):
+        owners = [Owner(), Owner()]
+        own_agree = capture.agree
+        if case == "unagreed":
+            capture.agree = lambda groups, value: value
+        try:
+            with fake_runner() as log:
+                for call in range(4):
+                    owner = owners[1 if case == "owner" and rank == 1
+                                   and call > 0 else 0]
+                    y = capture.run_captured((case,), body, x, owner,
+                                             groups=group)
+                    if not torch.equal(y, x["x"] * 2):
+                        raise AssertionError(f"{case}: call {call} gave {y}")
+                    if case != "owner" and rank == 1 and call == 0:
+                        capture._ENTRIES["sampler"].clear()
+        finally:
+            capture.agree = own_agree
+        out[f"agree.{case}"] = list(log)
+    return out
+
+
+def _failed_capture(rank: int) -> dict:
+    """Rank 1's stand-in capture fails at the second call: both ranks
+    raise; the third call runs eagerly on both."""
+    from pointcloud_style_transfer_torch.models import capture
+
+    x = {"x": torch.arange(3.0)}
+    owner = Owner()
+    errors = []
+    with fake_runner() as log:
+        for call in range(3):
+            log.fail = rank == 1 and call == 1
+            try:
+                capture.run_captured(("fail",), lambda ins: ins["x"] + 1, x,
+                                     owner, groups=[dist.group.WORLD])
+                errors.append("none")
+            except RuntimeError as e:
+                errors.append(str(e))
+    return {"fail.errors": errors, "fail.branches": list(log)}
