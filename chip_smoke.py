@@ -180,7 +180,10 @@ Phases, each printing one line per result:
     ``run_captured(groups=)``, eager, captured, then 3 replays on new
     inputs, each identical to the eager body, a replay's device events by
     name (on one rank NCCL enqueues a device copy or nothing, no kernel),
-    and the ranks' agreement's host microseconds a call.
+    and the ranks' agreement's host microseconds a call; and the
+    one-rank selections replay (``ranks_selections``: the one card's
+    recorded choices replayed through the {points: 1} sampler, float32
+    held to Chamfer-L2 1e-3, bf16 printed).
 
 Then one JSON line with every kernel's numbers (``launches`` on the main
 path, ``replay_launches`` by ``[graph]`` path, ``train_replay_launches``
@@ -190,13 +193,22 @@ name and power-limit line, and the final JSON line. ``--only`` with a
 comma list of ``graph``, ``train_graph`` and ``parallel`` runs the build
 and those phases alone. ``--ranks n`` (a machine with n cards) runs the
 build, then one process a card on an n-rank NCCL group
-(``parallel_ranks``): ``[parallel graph]`` with an NCCL kernel in every
-replay, the point-sharded sampler at {points: n} and
-``DiffusionTrainer(mesh_shape={"data": n})`` with their collectives
-inside their graphs, each captured call held to its eager body and
-every rank's result the same, beside the single-device paths on one
-card. Without a card (or without the package beside it) it exits
-non-zero and prints no result.
+(``parallel_ranks``), every path held to its one-card counterpart on
+card 0 with the same inputs and draws and every rank's result the same:
+``[parallel graph]`` with an NCCL kernel in every replay; the
+point-sharded sampler at {points: n} with its collectives inside its
+graph, held to its eager body, and replaying the one card's recorded
+choices (``ranks_selections``); ``guided_sample_loop_dp`` on {data: n}
+(``ranks_dp``); the ring kNN, row minimum and Chamfers on {points: n}
+and, at n = 4, on {data: 2, points: 2} (``ranks_ring``); at n = 4 the
+point-sharded train and eval steps on {data: 2, points: 2}
+(``ranks_point_sharded_step``; other n print a ``REFUSED`` line naming
+the shape); ``DiffusionTrainer(mesh_shape={"data": n})`` captured vs
+eager; each rank releases its graphs before it destroys its group. Then
+``cli.test`` as one process and under ``torch.distributed.run
+--nproc_per_node n`` (``ranks_cli_test``). All of it after the build
+within ``RANKS_DEADLINE_S``. Without a card (or without the package
+beside it) it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -214,6 +226,8 @@ import time
 
 import numpy as np
 import torch
+
+T_START = time.perf_counter()
 
 from pointcloud_style_transfer_torch.cli.compare import main as compare_main
 from pointcloud_style_transfer_torch.cli.inference import (DiffusionInference,
@@ -2497,7 +2511,7 @@ def port_kernel(key: str):
     return None
 
 
-def profiled_replay(fn, want: dict):
+def profiled_replay(fn, want: dict, groups=()):
     """One replay ``fn`` of a captured sampler under the profiler: (its
     result, the port's kernels the device ran by ``LAUNCH_COUNTS`` name,
     every device kernel and copy it ran, device busy ms, wall ms). A replay
@@ -2506,7 +2520,9 @@ def profiled_replay(fn, want: dict):
     twice: the card's tracer has dropped kernel records (``device_ms``; one
     ``knn_topk`` of a 50-step replay once). Each retake is noted on stderr;
     the caller holds the last trace to ``want``. Used for captured paths
-    only: an eager path's launches are its ``LAUNCH_COUNTS``."""
+    only: an eager path's launches are its ``LAUNCH_COUNTS``. A replay
+    that runs collectives on ``groups`` is retaken on every rank of them
+    or on none (``capture.agree``), so that no rank runs one alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(3):
@@ -2526,7 +2542,7 @@ def profiled_replay(fn, want: dict):
             name = port_kernel(e.key)
             if name:
                 launches[name] += e.count
-        if launches == want:
+        if capture.agree(groups, int(launches == want)):
             break
         print(f"profiled_replay: traced {launches}, expected {want} (trace "
               f"{attempt + 1} of at most 3)", file=sys.stderr)
@@ -3948,12 +3964,13 @@ def collective_bodies(group, dev: torch.device) -> dict:
         f"dist.all_reduce [{n_params}]": (flat_grads, randn(n_params))}
 
 
-def replay_events(graph) -> list:
+def replay_events(graph, groups=()) -> list:
     """The device events (name, count) of one replay of ``graph`` (a
     ``CUDAGraph``) under the profiler. A trace that holds none is taken
     again, at most twice, and noted on stderr: the card's tracer has
     dropped a replay's copies (an in-place one-rank all-reduce has
-    none)."""
+    none). A graph of collectives on ``groups`` is retaken on every rank
+    of them or on none (``capture.agree``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(3):
@@ -3964,7 +3981,7 @@ def replay_events(graph) -> list:
             torch.cuda.synchronize()
         events = [(e.key, e.count) for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA]
-        if events:
+        if capture.agree(groups, int(bool(events))):
             break
         print(f"replay_events: no device event traced (trace {attempt + 1} "
               f"of at most 3)", file=sys.stderr)
@@ -4008,7 +4025,7 @@ def phase_parallel_graph(dev: torch.device, card: str, group) -> dict:
                      f"{call + 1}")
         graph = capture._ENTRIES["parallel"][next(reversed(
             capture._ENTRIES["parallel"]))].graph.graph
-        events = replay_events(graph)
+        events = replay_events(graph, [group] if n > 1 else ())
         nccl = sum(c for k, c in events if "nccl" in k.lower())
         if n > 1 and not nccl:
             fail(f"[parallel graph] {name}: no NCCL kernel in a replay on "
@@ -4112,13 +4129,8 @@ def phase_parallel(dev: torch.device, card: str) -> dict:
     src, cond = (torch.from_numpy(normalize_point_cloud(
         make_cloud(rng, N_POINTS, dup_frac=0.0))[0])[None].to(dev)
         for _ in range(2))
-    gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED)
-    draws = dict(
-        x_init=torch.randn((1, N_POINTS, 3), generator=gen, device=dev),
-        cond_priority=torch.rand((1, N_POINTS), generator=gen, device=dev),
-        step_priorities=torch.rand((STEPS, 1, N_POINTS), generator=gen,
-                                   device=dev),
-        fps_starts=torch.randint(0, 512, (2, 1), generator=gen, device=dev))
+    draws = sampler_draws(torch.Generator(device=dev).manual_seed(
+        PARALLEL_SEED), dev)
     run = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE, **draws)
     paths = (
         ("guided_sample_loop", lambda: guided_sample_loop(
@@ -4175,6 +4187,11 @@ def phase_parallel(dev: torch.device, card: str) -> dict:
           f"{s[2]:.4f} / {s[3]:.4f} s a cloud (the single-device replays "
           f"{', '.join(f'{t:.4f}' for t in secs['guided_sample_loop'][1:])}"
           f"); identical to its eager body and to guided_sample_loop ({card})")
+    one_rank = Ranks(0, 1, dev, card, "[parallel]")
+    launches["selections replay"] = ranks_selections(
+        one_rank, schedule, src, cond, run, points)
+    if one_rank.problems:
+        fail(f"[parallel] {one_rank.problems}")
     del model, net
     torch.cuda.empty_cache()
     phase_parallel_trainer(dev, card, rng, counted, launches)
@@ -4345,16 +4362,452 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def sampler_draws(gen: torch.Generator, dev: torch.device) -> dict:
+    """One 120,000-point cloud's sampler draws at ``STEPS`` steps, from
+    ``gen`` in the sampler's own order."""
+    return dict(
+        x_init=torch.randn((1, N_POINTS, 3), generator=gen, device=dev),
+        cond_priority=torch.rand((1, N_POINTS), generator=gen, device=dev),
+        step_priorities=torch.rand((STEPS, 1, N_POINTS), generator=gen,
+                                   device=dev),
+        fps_starts=torch.randint(0, 512, (2, 1), generator=gen, device=dev))
+
+
+def normalized_clouds(rng: np.random.Generator, n: int) -> torch.Tensor:
+    """[n, N_POINTS, 3] normalised scenes without duplicate points, on the
+    CPU."""
+    return torch.from_numpy(np.stack([normalize_point_cloud(make_cloud(
+        rng, N_POINTS, dup_frac=0.0))[0] for _ in range(n)]))
+
+
+def broadcast_tensors(tensors, dev: torch.device, src: int = 0) -> dict:
+    """``tensors`` (a dict of tensors on rank ``src``, None on the others)
+    on every rank, on ``dev``: the names, shapes and dtypes as one object,
+    then each tensor by a collective of its own. (A CUDA tensor pickled
+    through ``broadcast_object_list`` would unpickle onto the sender's
+    card.)"""
+    import torch.distributed as dist
+    meta = [None if tensors is None else
+            [(k, tuple(v.shape), v.dtype) for k, v in tensors.items()]]
+    dist.broadcast_object_list(meta, src=src)
+    out = {}
+    for name, shape, dtype in meta[0]:
+        t = (torch.empty(shape, dtype=dtype, device=dev) if tensors is None
+             else tensors[name].to(dev).contiguous())
+        dist.broadcast(t, src=src)
+        out[name] = t
+    return out
+
+
+class Ranks:
+    """One rank of a group on the cards: its place, its card, how its lines
+    start, and the departures it noted (a rank that noted one exits
+    non-zero at the end, after every check has run)."""
+
+    def __init__(self, rank: int, world: int, dev: torch.device, card: str,
+                 tag: str = "[parallel ranks]"):
+        self.rank, self.world, self.dev, self.card = rank, world, dev, card
+        self.tag, self.problems = tag, []
+
+    def check(self, ok: bool, what: str) -> bool:
+        if not ok:
+            self.problems.append(what)
+            print(f"{self.tag} DEPARTURE (rank {self.rank}): {what}",
+                  file=sys.stderr, flush=True)
+        return ok
+
+    def same(self, what: str, x: torch.Tensor) -> bool:
+        """Whether ``x`` is the same, bit for bit, on every rank."""
+        import torch.distributed as dist
+        x = x.reshape(-1)
+        every = x.new_empty(self.world * x.numel())
+        dist.all_gather_into_tensor(every, x.contiguous())
+        return self.check(all(torch.equal(e, x) for e in every.chunk(
+            self.world)), f"{what} differs between the ranks")
+
+    def counts(self) -> dict:
+        return {k: v for k, v in LAUNCH_COUNTS.items() if v}
+
+
+# Chamfer-L2 of a float32 replay of the one-card run's choices from its
+# cloud: the [reference] bar
+SELECTIONS_BAR = 1e-3
+
+
+def ranks_selections(r: Ranks, schedule, src: torch.Tensor,
+                     cond: torch.Tensor, run: dict, points) -> dict:
+    """The point-sharded sampler held to one card through the one card's
+    choices, with a float32 and a bf16 model (``Config()`` otherwise):
+    rank 0 runs ``guided_sample_loop`` with ``selections={}`` (each step's
+    voxel order and upsample neighbours recorded), then replays the record
+    on its one card, and broadcasts the record and both clouds; every rank
+    replays the record through ``guided_sample_loop(mesh=points,
+    selections=)`` with the same draws. In float32 the replay lies within
+    ``SELECTIONS_BAR`` Chamfer-L2 of the recorded cloud; in bf16 the
+    readings are printed and not held: a replay interpolates with the
+    recorded neighbours in plain arithmetic where the recording run's
+    kernel computed its own weights, and bf16's rounding of the denoiser's
+    output carries those last-bit differences from step to step. Every
+    cloud and reading is the same on every rank. Returns the float32
+    replay's launches."""
+    import torch.distributed as dist
+    from pointcloud_style_transfer_torch.ops import chamfer_distance_l2
+    from pointcloud_style_transfer_torch.parallel.mesh import axis_size
+    n = axis_size(points, "points")
+    launches = {}
+    for dtype, use_amp in (("float32", False), ("bf16", True)):
+        torch.manual_seed(PARALLEL_SEED)
+        model = PointCloudDiffusionModel(Config(use_amp=use_amp), r.dev)
+        recorded, one_s, rec_counts = None, 0.0, {}
+        clouds = {k: torch.empty_like(src) for k in ("recorded", "replayed")}
+        if r.rank == 0:
+            recorded = {}
+            reset_launch_counts()
+            clouds["recorded"], one_s = timed(lambda: guided_sample_loop(
+                model, schedule, src, cond, selections=recorded, **run))
+            rec_counts = r.counts()
+            clouds["replayed"] = guided_sample_loop(
+                model, schedule, src, cond, selections=dict(recorded), **run)
+        recorded = broadcast_tensors(recorded, r.dev)
+        for cloud in clouds.values():
+            dist.broadcast(cloud, src=0)
+        reset_launch_counts()
+        got, s = timed(lambda: guided_sample_loop(
+            model, schedule, src, cond, mesh=points,
+            selections=dict(recorded), **run))
+        counts = r.counts()
+        launches = launches or counts
+        cd = {k: float(chamfer_distance_l2(got, c)[0])
+              for k, c in clouds.items()}
+        r.same(f"the {dtype} replayed cloud", got)
+        r.same(f"the {dtype} replay's Chamfer-L2 readings", torch.tensor(
+            list(cd.values()), dtype=torch.float64, device=r.dev))
+        want = {k: v for k, v in expect_counts(fps=2, ball_query=2).items()
+                if v}
+        r.check(counts == want, f"the {dtype} selections replay launched "
+                f"{counts} != {want}")
+        if dtype == "float32":
+            r.check(cd["recorded"] <= SELECTIONS_BAR, f"the float32 "
+                    f"selections replay lies at Chamfer-L2 "
+                    f"{cd['recorded']:.3g} from the recorded cloud (bar "
+                    f"{SELECTIONS_BAR})")
+        mib = sum(t.numel() * t.element_size()
+                  for t in recorded.values()) / 2**20
+        held = (f"bar {SELECTIONS_BAR}" if dtype == "float32" else
+                "not held: bf16 rounding carries the replay's last-bit "
+                "interpolation differences")
+        print(f"{r.tag} selections replay, {dtype}, on {{'points': {n}}}, "
+              f"{N_POINTS} / {M_POINTS} points, {STEPS} steps, grid: the "
+              f"one-card run recording its choices {one_s:.4f} s (eager, "
+              f"launches {rec_counts}), {len(recorded)} records "
+              f"({mib:.1f} MiB) broadcast; each rank's replay {s:.4f} s "
+              f"(eager, launches {counts}); Chamfer-L2 from the recorded "
+              f"cloud {cd['recorded']:.6g} ({held}; max |d| "
+              f"{float((got - clouds['recorded']).abs().max()):.3g}), from "
+              f"the one-card replay {cd['replayed']:.6g} (max |d| "
+              f"{float((got - clouds['replayed']).abs().max()):.3g}); "
+              f"clouds and readings the same on every rank ({r.card})")
+        del model, recorded
+    return launches
+
+
+RING_RTOL = 1e-6  # the ring Chamfers against the one-card Chamfers
+
+
+def ranks_ring(r: Ranks, mesh, name: str) -> None:
+    """``ring_knn`` (k = 3), ``ring_min_sq_dist`` and both ring Chamfers
+    on ``mesh``'s points axis at 120,000 x 120,000, each rank holding its
+    shards, against the one-card calls on card 0 on the whole clouds
+    (``knn(..., backend="pallas")``, ``min_sq_dist``, ``chamfer_distance``
+    and ``_l2``), broadcast: the kNN and the minima identical on each
+    rank's rows, the Chamfers within ``RING_RTOL`` relative and the same on
+    every rank; launches a rank: one ``knn_topk`` or ``rowmin`` a hop (two
+    for a Chamfer)."""
+    from pointcloud_style_transfer_torch.ops import chamfer_distance_l2
+    from pointcloud_style_transfer_torch.parallel.mesh import (
+        POINTS_AXIS, axis_size, local_slice)
+    from pointcloud_style_transfer_torch.parallel.ring import (
+        ring_chamfer_distance, ring_chamfer_distance_l2, ring_knn,
+        ring_min_sq_dist)
+
+    n = axis_size(mesh, POINTS_AXIS)
+    q, ref = normalized_clouds(np.random.default_rng(PARALLEL_SEED + 4),
+                               2).to(r.dev).split(1)
+
+    def loc(t):
+        return local_slice(t, 1, mesh, POINTS_AXIS)
+    calls = {"ring_knn": (lambda: ring_knn(loc(q), loc(ref), 3, mesh),
+                          {"knn_topk": n}),
+             "ring_min_sq_dist": (lambda: ring_min_sq_dist(loc(q), loc(ref),
+                                                           mesh),
+                                  {"rowmin": n}),
+             "ring_chamfer_distance": (lambda: ring_chamfer_distance(
+                 loc(q), loc(ref), mesh), {"rowmin": 2 * n}),
+             "ring_chamfer_distance_l2": (lambda: ring_chamfer_distance_l2(
+                 loc(q), loc(ref), mesh), {"rowmin": 2 * n})}
+    got, launches, ms = {}, {}, {}
+    for call, (fn, want) in calls.items():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got[call] = fn()
+        torch.cuda.synchronize()
+        launches[call] = r.counts()
+        r.check(launches[call] == want, f"{call} on {name} launched "
+                f"{launches[call]} != {want}")
+        ms[call] = cuda_ms(fn, 5)
+    dense, dense_ms = None, {}
+    if r.rank == 0:  # the one-card calls on card 0
+        with torch.no_grad():
+            d, i = knn(q, ref, 3, backend="pallas")
+            d4 = knn(q, ref, 4, backend="pallas")[0]
+            dense = {"knn_d": d, "knn_i": i, "min": min_sq_dist(q, ref),
+                     "chamfer": chamfer_distance(q, ref),
+                     "chamfer_l2": chamfer_distance_l2(q, ref),
+                     "ties": (d4.diff(dim=-1) == 0).any(-1).sum()[None]}
+            dense_ms = {
+                "ring_knn": cuda_ms(lambda: knn(q, ref, 3, backend="pallas"),
+                                    5),
+                "ring_min_sq_dist": cuda_ms(lambda: min_sq_dist(q, ref), 5),
+                "ring_chamfer_distance": cuda_ms(
+                    lambda: chamfer_distance(q, ref), 5),
+                "ring_chamfer_distance_l2": cuda_ms(
+                    lambda: chamfer_distance_l2(q, ref), 5)}
+    dense = broadcast_tensors(dense, r.dev)
+    (kd, ki), low = got["ring_knn"], got["ring_min_sq_dist"]
+    for what, mine, want in (("ring_knn's distances", kd, dense["knn_d"]),
+                             ("ring_knn's indices", ki, dense["knn_i"]),
+                             ("ring_min_sq_dist", low, dense["min"])):
+        want = loc(want)
+        r.check(torch.equal(mine, want), f"{what} on {name} differ from the "
+                f"one-card call on {int((mine != want).sum())} of "
+                f"{want.numel()} entries")
+    gaps = {}
+    for call, key in (("ring_chamfer_distance", "chamfer"),
+                      ("ring_chamfer_distance_l2", "chamfer_l2")):
+        r.same(f"{call} on {name}", got[call])
+        gaps[call] = float((got[call] / dense[key] - 1).abs().max())
+        r.check(gaps[call] <= RING_RTOL, f"{call} on {name}: "
+                f"{gaps[call]:.3g} relative from the one-card call (bar "
+                f"{RING_RTOL})")
+    print(f"{r.tag} ring on {name} ({n} ranks a ring), {N_POINTS} x "
+          f"{N_POINTS}, each rank holding {N_POINTS // n} rows of each "
+          f"cloud: ring_knn (k=3) distances and indices and "
+          f"ring_min_sq_dist identical to the one-card calls on every "
+          f"rank's rows ({int(dense['ties'][0])} of {N_POINTS} query rows "
+          f"with a tie among their 4 nearest); ring Chamfer relative gaps "
+          + ", ".join(f"{c} {v:.3g}" for c, v in gaps.items())
+          + f" (bar {RING_RTOL}), the same on every rank; launches a rank "
+          f"{launches}; ms a call (rank 0) "
+          + ", ".join(f"{c} {v:.3f}" for c, v in ms.items())
+          + "; one card on the whole clouds "
+          + ", ".join(f"{c} {v:.3f}" for c, v in dense_ms.items())
+          + f" ({r.card})")
+
+
+def ranks_dp(r: Ranks, model, schedule, data) -> None:
+    """``guided_sample_loop_dp`` on ``data``'s axis, one 120,000-point cloud
+    a rank with explicit ``draws[g]``: the gathered [n, N, 3] result the
+    same on every rank, and cloud g identical (``torch.equal``) to
+    ``guided_sample_loop`` of cloud g with ``draws[g]`` on card 0."""
+    import torch.distributed as dist
+    from pointcloud_style_transfer_torch.parallel import guided_sample_loop_dp
+    from pointcloud_style_transfer_torch.parallel.mesh import (DATA_AXIS,
+                                                               axis_size)
+
+    n = axis_size(data, DATA_AXIS)
+    rng = np.random.default_rng(PARALLEL_SEED + 5)
+    srcs, conds = (normalized_clouds(rng, n).to(r.dev) for _ in range(2))
+    gen = torch.Generator(device=r.dev).manual_seed(PARALLEL_SEED + 5)
+    draws = [sampler_draws(gen, r.dev) for _ in range(n)]
+    reset_launch_counts()
+    out, s = timed(lambda: guided_sample_loop_dp(
+        model, schedule, srcs, conds, data, STEPS, GUIDANCE, draws=draws))
+    launches = r.counts()
+    single = {k: v for k, v in GRAPH_LAUNCHES.items() if v}
+    r.check(launches == single, f"guided_sample_loop_dp launched {launches} "
+            f"!= {single}")
+    r.check(out.shape == (n, N_POINTS, 3) and bool(out.isfinite().all()),
+            f"guided_sample_loop_dp returned {tuple(out.shape)}, finite "
+            f"{bool(out.isfinite().all())}")
+    r.same("the data-parallel clouds", out)
+    gaps, single_s = [], []
+    if r.rank == 0:
+        for g in range(n):
+            one, t = timed(lambda: guided_sample_loop(
+                model, schedule, srcs[g:g + 1], conds[g:g + 1],
+                num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+                **draws[g]))
+            single_s.append(t)
+            gaps.append(float((out[g:g + 1] - one).abs().max()))
+            r.check(torch.equal(out[g:g + 1], one), f"data-parallel cloud "
+                    f"{g} differs from one card's guided_sample_loop of it "
+                    f"(max |d| {gaps[-1]:.3g})")
+        print(f"{r.tag} guided_sample_loop_dp on {{'data': {n}}}, {n} clouds "
+              f"of {N_POINTS} / {M_POINTS} points (one a rank), {STEPS} "
+              f"steps, grid, draws[g] given: {s:.4f} s for the batch (each "
+              f"rank's first call of the key eager but rank 0's, launches "
+              f"{launches} a rank), the gathered [{n}, {N_POINTS}, 3] the "
+              f"same on every rank; cloud by cloud against "
+              f"guided_sample_loop on card 0 ("
+              + ", ".join(f"{t:.4f}" for t in single_s)
+              + f" s): max |d| {gaps} ({r.card})")
+    dist.barrier()
+
+
+STEP_MESH = {"data": 2, "points": 2}  # the JAX dry run's shape family
+STEP_SEED, STEP_LR = 60, 1e-3
+# tests/test_torch_sharded_step.py's bars: the loss and eval terms
+# relative, the gradients JAX's (atol, rtol), BatchNorm's running stats and
+# the EMA (atol = rtol)
+STEP_LOSS_RTOL, STEP_GRAD_ATOL, STEP_GRAD_RTOL, STEP_STATE_TOL = (
+    1e-5, 1e-4, 1e-3, 1e-5)
+
+
+def share_of_bar(got: torch.Tensor, want: torch.Tensor, atol: float,
+                 rtol: float) -> float:
+    """The largest |got - want| over atol + rtol |want|: 1.0 is the bar."""
+    return float(((got.double() - want.double()).abs()
+                  / (atol + rtol * want.double().abs())).max())
+
+
+def ranks_point_sharded_step(r: Ranks, mesh) -> None:
+    """``make_sharded_train_step`` / ``make_sharded_eval_step(...,
+    shard_points=True)`` on ``STEP_MESH`` at ``Config()`` width in float32,
+    a global batch of 2, against the single-device steps on card 0 on the
+    global batch with the same draws, the single-device step's discrete
+    selections (``draws["selections"]``: ReLU gates, max-pool argmaxes,
+    Chamfer argmins) broadcast and replayed, sliced per rank, as
+    ``tests/test_torch_sharded_step.py`` holds them: loss and eval terms
+    within ``STEP_LOSS_RTOL``, gradients within JAX's bars, BatchNorm's
+    running stats and the EMA within ``STEP_STATE_TOL``, the parameters
+    identical on every rank."""
+    from pointcloud_style_transfer_torch.parallel import (
+        make_sharded_eval_step, make_sharded_train_step, shard_batch)
+    from pointcloud_style_transfer_torch.training import (ema_init,
+                                                          eval_step,
+                                                          make_optimizer,
+                                                          train_step)
+    from pointcloud_style_transfer_torch.training.trainer import step_draws
+
+    cfg = Config(use_amp=False, gradient_accumulation_steps=1)
+    B = 2
+    rng = np.random.default_rng(STEP_SEED)
+    sim, real = (torch.from_numpy(np.stack([normalize_point_cloud(
+        make_cloud(rng, N_POINTS))[0] for _ in range(B)])).to(r.dev)
+        for _ in range(2))
+    schedule = make_schedule(cfg).to(r.dev)
+
+    def fresh():
+        torch.manual_seed(STEP_SEED)
+        model = PointCloudDiffusionModel(cfg, r.dev)
+        params = dict(model.net.named_parameters())
+        opt, ema = make_optimizer(cfg, params), ema_init(params)
+        grads, step = [], opt.step
+
+        def recorded(p, g, lr):
+            grads.append(torch.cat([x.reshape(-1) for x in g]))
+            return step(p, g, lr)
+        opt.step = recorded
+        return model, opt, ema, grads
+
+    def draws(model, train: bool, seed: int) -> dict:
+        return step_draws(model, B, N_POINTS, N_POINTS, train=train,
+                          generator=torch.Generator(device=r.dev)
+                          .manual_seed(seed))
+
+    def state(model, terms, grads, ema, e_terms) -> dict:
+        return {"loss": torch.stack([terms[k] for k in sorted(terms)]),
+                "grads": grads[-1],
+                "stats": flat(dict(model.net.named_buffers())),
+                "ema": flat(ema), "params": flat(dict(
+                    model.net.named_parameters())),
+                "eval": torch.stack([e_terms[k] for k in sorted(e_terms)])}
+
+    single, selections, single_s = None, None, 0.0
+    if r.rank == 0:
+        model, opt, ema, grads = fresh()
+        selections = {}
+        t0 = time.perf_counter()
+        terms, _ = train_step(model, schedule, opt, ema, sim, real, STEP_LR,
+                              draws={**draws(model, True, 7),
+                                     "selections": selections})
+        e_terms = eval_step(model, schedule, ema, sim, real,
+                            draws=draws(model, False, 8))
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        single = state(model, terms, grads, ema, e_terms)
+        del model, opt, ema, grads
+    selections = broadcast_tensors(selections, r.dev)
+    single = broadcast_tensors(single, r.dev)
+    model, opt, ema, grads = fresh()
+    step = make_sharded_train_step(model, schedule, opt, cfg, mesh,
+                                   shard_points=True)
+    evaluate = make_sharded_eval_step(model, schedule, cfg, mesh,
+                                      shard_points=True)
+    sim_l, real_l = (shard_batch(x, mesh, shard_points=True)
+                     for x in (sim, real))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    terms, _ = step(ema, sim_l, real_l, STEP_LR,
+                    draws={**draws(model, True, 7), "selections": selections})
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = r.counts()
+    e_terms = evaluate(ema, sim_l, real_l, draws=draws(model, False, 8))
+    mine = state(model, terms, grads, ema, e_terms)
+    names = sorted(terms)
+    loss_gap = float((mine["loss"] / single["loss"] - 1).abs().max())
+    eval_gap = float((mine["eval"] / single["eval"] - 1).abs().max())
+    grad_share = {}
+    for part, g, w in zip(opt.names, mine["grads"].split(opt.sizes),
+                          single["grads"].split(opt.sizes)):
+        part = part.split(".")[0]
+        grad_share[part] = max(grad_share.get(part, 0.0), share_of_bar(
+            g, w, STEP_GRAD_ATOL, STEP_GRAD_RTOL))
+    state_share = {k: share_of_bar(mine[k], single[k], STEP_STATE_TOL,
+                                   STEP_STATE_TOL) for k in ("stats", "ema")}
+    r.check(loss_gap <= STEP_LOSS_RTOL, f"point-sharded loss terms "
+            f"{loss_gap:.3g} relative from the single-device step (bar "
+            f"{STEP_LOSS_RTOL})")
+    r.check(eval_gap <= STEP_LOSS_RTOL, f"point-sharded eval terms "
+            f"{eval_gap:.3g} relative (bar {STEP_LOSS_RTOL})")
+    r.check(max(grad_share.values()) <= 1.0, f"point-sharded gradients "
+            f"over JAX's bars: {grad_share} of them")
+    r.check(max(state_share.values()) <= 1.0, f"point-sharded BatchNorm "
+            f"stats / EMA over their bars: {state_share} of them")
+    r.same("the point-sharded step's parameters", mine["params"])
+    r.same("the point-sharded step's loss terms", mine["loss"])
+    print(f"{r.tag} point-sharded train and eval steps on {STEP_MESH} "
+          f"(make_sharded_train_step / make_sharded_eval_step, "
+          f"shard_points=True), Config() width, float32, a global batch of "
+          f"{B} (each rank [1, {N_POINTS // 2}, 3]), against the "
+          f"single-device steps on card 0 ({single_s:.3f} s eager, "
+          f"recording {len(selections)} selections; broadcast, replayed "
+          f"sliced per rank; a rank's train step {step_s:.3f} s): loss terms "
+          f"{dict(zip(names, mine['loss'].tolist()))}, {loss_gap:.3g} "
+          f"relative (bar {STEP_LOSS_RTOL}); gradients as shares of JAX's "
+          f"bars (atol {STEP_GRAD_ATOL}, rtol {STEP_GRAD_RTOL}; 1 is the "
+          f"bar) by module {grad_share}; BatchNorm running stats and EMA "
+          f"{state_share} of the {STEP_STATE_TOL} bars; "
+          f"eval terms {eval_gap:.3g} relative; parameters identical on "
+          f"every rank; launches a rank {launches} ({r.card})")
+
+
 def parallel_ranks(rank: int, world: int, port: int) -> None:
     """One of ``--ranks world`` processes, one a card, on an NCCL group of
-    ``world`` ranks (``tcp://localhost:port``): ``[parallel graph]`` (an
-    NCCL kernel in every replay), the point-sharded sampler at
-    {points: world} and ``DiffusionTrainer(mesh_shape={"data": world})``
-    with their collectives inside their graphs, each captured call held to
-    its eager body, every rank's result the same; rank 0 also runs the
-    single-device sampler and trainer beside them. Only rank 0 prints. A
-    departure is noted and the run goes on; a rank that noted one exits
-    non-zero at the end."""
+    ``world`` ranks (``tcp://localhost:port``), each path checked against
+    its single-card counterpart on card 0 with the same inputs and draws:
+    ``[parallel graph]`` (an NCCL kernel in every replay); the
+    point-sharded sampler at {points: world} with its collectives inside
+    its graph, held to its eager body, and replaying the one-card run's
+    choices (``ranks_selections``); ``guided_sample_loop_dp`` on {data:
+    world}; the ring on {points: world} and, from 4 ranks, on
+    ``STEP_MESH``; the point-sharded train and eval steps on
+    ``STEP_MESH`` (refused, with a line naming it, below 4 ranks);
+    ``DiffusionTrainer(mesh_shape={"data": world})`` captured vs eager.
+    Only rank 0 prints its lines; a departure is noted on stderr and the
+    run goes on; a rank that noted one exits non-zero at the end."""
     import torch.distributed as dist
     from pointcloud_style_transfer_torch.ops import chamfer_distance_l2
     from pointcloud_style_transfer_torch.parallel import (
@@ -4369,25 +4822,20 @@ def parallel_ranks(rank: int, world: int, port: int) -> None:
     dev = torch.device("cuda", rank)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
-    card = card_line()
-    problems = []
-
-    def check(ok: bool, what: str) -> None:
-        if not ok:
-            problems.append(what)
-            print(f"[parallel ranks] DEPARTURE (rank {rank}): {what}",
-                  file=sys.stderr, flush=True)
-
-    def same_on_every_rank(what: str, x: torch.Tensor) -> None:
-        every = torch.empty((world,) + tuple(x.shape), dtype=x.dtype,
-                            device=dev)
-        dist.all_gather_into_tensor(every, x.contiguous())
-        check(all(torch.equal(every[i], x) for i in range(world)),
-              f"{what} differs between the ranks")
-
+    r = Ranks(rank, world, dev, card_line())
+    card, check = r.card, r.check
+    n_step = int(np.prod(list(STEP_MESH.values())))
+    # every mesh, made by every rank in the same order
     points = make_mesh({"points": world}, "cuda")
+    data = make_mesh({"data": world}, "cuda")
+    two_d = make_mesh(STEP_MESH, "cuda") if world == n_step else None
     print(f"[parallel ranks] {world} ranks, one a card, NCCL; "
           f"{library_versions()} ({card})")
+    if two_d is None:
+        print(f"[parallel ranks] REFUSED {STEP_MESH}: the ring on it and the "
+              f"point-sharded train and eval steps run on {n_step} ranks, "
+              f"--ranks {world} has {world}; not run, and no other shape in "
+              f"its place")
     phase_parallel_graph(dev, card, axis_group(points, "points"))
 
     cfg = Config()
@@ -4399,13 +4847,8 @@ def parallel_ranks(rank: int, world: int, port: int) -> None:
         make_cloud(rng, N_POINTS, dup_frac=0.0))[0])[None].to(dev)
         for _ in range(2))
     gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED)
-    run = dict(
-        num_inference_steps=STEPS, guidance_scale=GUIDANCE,
-        x_init=torch.randn((1, N_POINTS, 3), generator=gen, device=dev),
-        cond_priority=torch.rand((1, N_POINTS), generator=gen, device=dev),
-        step_priorities=torch.rand((STEPS, 1, N_POINTS), generator=gen,
-                                   device=dev),
-        fps_starts=torch.randint(0, 512, (2, 1), generator=gen, device=dev))
+    run = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+               **sampler_draws(gen, dev))
 
     def sharded():
         return guided_sample_loop_sharded(model, schedule, src, cond, points,
@@ -4420,14 +4863,14 @@ def parallel_ranks(rank: int, world: int, port: int) -> None:
         out, s = timed(sharded)
         secs.append(s)
         caps.append(len(capture.CAPTURES) - n_cap)
-        got = {k: v for k, v in LAUNCH_COUNTS.items() if v}
+        got = r.counts()
         check(got == single, f"sharded sampler call {call + 1} launched "
               f"{got} != {single}")
         check(torch.equal(out, eager), f"sharded sampler call {call + 1} "
               f"differs from its eager body (max |d| "
               f"{(out - eager).abs().max().item():.3g})")
     check(caps == [0, 1, 0, 0], f"sharded sampler captures a call {caps}")
-    same_on_every_rank("the sharded sampler's cloud", out)
+    r.same("the sharded sampler's cloud", out)
     dist.barrier()
     if rank == 0:  # the single-device sampler on one card, the others wait
         single_s = []
@@ -4442,11 +4885,21 @@ def parallel_ranks(rank: int, world: int, port: int) -> None:
               f"{secs[2]:.4f} / {secs[3]:.4f} s a cloud (captures a call "
               f"{caps}), launches {single} a rank; the single-device sampler "
               f"on one card {', '.join(f'{t:.4f}' for t in single_s)} s "
-              f"(eager, captured, replays); sharded vs single-device: max "
-              f"|d| {(out - ref).abs().max().item():.3g}, Chamfer-L2 "
-              f"{float(chamfer_distance_l2(out, ref)[0]):.3g} ({card})")
+              f"(eager, captured, replays); sharded vs single-device, its own "
+              f"choices: max |d| {(out - ref).abs().max().item():.3g}, "
+              f"Chamfer-L2 {float(chamfer_distance_l2(out, ref)[0]):.3g} "
+              f"(no bar: a chaotic loop; held through the choices below) "
+              f"({card})")
     dist.barrier()
+    ranks_selections(r, schedule, src, cond, run, points)
+    ranks_dp(r, model, schedule, data)
     del model
+    torch.cuda.empty_cache()
+
+    ranks_ring(r, points, f"{{'points': {world}}}")
+    if two_d is not None:
+        ranks_ring(r, two_d, str(STEP_MESH))
+        ranks_point_sharded_step(r, two_d)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -4485,23 +4938,24 @@ def parallel_ranks(rank: int, world: int, port: int) -> None:
               max(worst.values()) <= 1.0, f"meshed trainer captured vs "
               f"eager: loss {loss_gap:.3g}, eval {eval_gap:.3g} relative, "
               f"gradient gaps {worst}")
-        same_on_every_rank("the meshed trainer's parameters",
-                           flat(captured.params))
+        r.same("the meshed trainer's parameters", flat(captured.params))
         sim, real = batches[0]
+        every = [dist.group.WORLD] if world > 1 else []
         reset_launch_counts()
         _, got, n_all, busy, wall = profiled_replay(
             lambda: captured.train_step(captured._batch(sim),
                                         captured._batch(real), 1e-4),
-            TRAIN_STEP_LAUNCHES)
+            TRAIN_STEP_LAUNCHES, every)
         check(got == TRAIN_STEP_LAUNCHES, f"a profiled replayed meshed "
               f"mini-step ran {got}")
-        entries = capture._ENTRIES["step"]
-        train_graph = next(e.graph.graph for k, e in entries.items()
+        train_graph = next(e.graph.graph for k, e in
+                           capture._ENTRIES["step"].items()
                            if k[0][0] == "train" and e.graph is not None)
-        nccl = [(k, c) for k, c in replay_events(train_graph)
+        nccl = [(k, c) for k, c in replay_events(train_graph, every)
                 if "nccl" in k.lower()]
         del train_graph
-        check(bool(nccl), "no NCCL kernel in a replayed meshed mini-step")
+        check(bool(nccl) or world == 1, "no NCCL kernel in a replayed "
+              "meshed mini-step")
         print(f"[parallel ranks] DiffusionTrainer(mesh_shape={{'data': "
               f"{world}}}), Config() width, float32, a global batch of "
               f"{world}, captured (eager, captured, replayed; captures "
@@ -4517,15 +4971,15 @@ def parallel_ranks(rank: int, world: int, port: int) -> None:
         bf16 = Config(**dirs, experiment_name="ranks_bf16", batch_size=world,
                       mesh_shape={"data": world})
         t = DiffusionTrainer(bf16, resume=False, device=dev)
-        data = [(t._batch(s), t._batch(r)) for s, r in batches]
-        ms = [1e3 * timed(lambda: t.train_step(*data[i % 3], 1e-4))[1]
+        data_b = [(t._batch(s), t._batch(r_)) for s, r_ in batches]
+        ms = [1e3 * timed(lambda: t.train_step(*data_b[i % 3], 1e-4))[1]
               for i in range(8)]
         dist.barrier()
         if rank == 0:
             one = DiffusionTrainer(bf16.replace(batch_size=1, mesh_shape={}),
                                    resume=False, device=dev)
-            one_data = [(one._batch(s[:1]), one._batch(r[:1]))
-                        for s, r in batches]
+            one_data = [(one._batch(s[:1]), one._batch(r_[:1]))
+                        for s, r_ in batches]
             one_ms = [1e3 * timed(lambda: one.train_step(
                 *one_data[i % 3], 1e-4))[1] for i in range(8)]
             print(f"[parallel ranks] Config() (bf16) ms per mini-step "
@@ -4535,27 +4989,143 @@ def parallel_ranks(rank: int, world: int, port: int) -> None:
                   f"{np.mean(ms[2:]):.2f}); one card at B = 1 "
                   f"{', '.join(f'{v:.2f}' for v in one_ms)} (replays mean "
                   f"{np.mean(one_ms[2:]):.2f}) ({card})")
+            del one
+        del t
         dist.barrier()
     # the graphs hold the communicators: a four-card run that destroyed
     # the group with its graphs alive hung at its end
+    t0 = time.perf_counter()
+    print(f"[parallel ranks] rank {rank}: checks done {t0 - T_START:.1f} s "
+          f"after it started; teardown", file=sys.stderr, flush=True)
     capture.release()
+    t1 = time.perf_counter()
     dist.destroy_process_group()
-    if problems:
-        fail(f"[parallel ranks] rank {rank}: {len(problems)} departures: "
-             f"{problems}")
+    print(f"[parallel ranks] rank {rank}: graphs released in "
+          f"{t1 - t0:.3f} s, the process group destroyed in "
+          f"{time.perf_counter() - t1:.3f} s", file=sys.stderr, flush=True)
+    if r.problems:
+        fail(f"[parallel ranks] rank {rank}: {len(r.problems)} departures: "
+             f"{r.problems}")
 
 
-RANKS_DEADLINE_S = 300  # a four-card run's work takes about one minute
+# the whole --ranks run after the build: the ranks, their teardown and the
+# two cli.test runs; on four NVIDIA H100 80GB HBM3 (700 W) that took
+# 71.9 s (86.0 s with the build and the start-up), so 240 s is 3.3 times it
+RANKS_DEADLINE_S = 240
+RANKS_TEST_RTOL = 1e-5  # cli.test's ring metrics on n ranks against one
+
+
+def run_bounded(cmd: list, timeout: float, env: dict) -> tuple:
+    """``cmd`` in a session of its own: (its exit code, its output, its
+    seconds). Past ``timeout`` every process of the session is killed (a
+    launcher's workers too) and the run fails."""
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=max(1.0, timeout))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        fail(f"{' '.join(cmd[:6])} ...: still running after {timeout:.0f} s;"
+             f" its output ends:\n{out[-4000:]}")
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def build_snapshot() -> dict:
+    """Every file under the kernels' build directory with its mtime."""
+    return {str(p): p.stat().st_mtime_ns
+            for p in sorted(_common.BUILD_ROOT.rglob("*")) if p.is_file()}
+
+
+def ranks_cli_test(world: int, card: str, deadline: float) -> None:
+    """``cli.test`` from a fresh-init ``Config()`` checkpoint on two
+    synthetic 120,000-point pairs at ``--batch_size 2``, 50 steps, every
+    metric: once as one process on card 0, once under ``python -m
+    torch.distributed.run --nproc_per_node world`` (rank 0 samples as the
+    one process does and broadcasts the clouds; the ring computes the
+    Chamfer and content terms). The metrics rank 0 computes alone are
+    identical, the ring's within ``RANKS_TEST_RTOL`` relative; neither run
+    builds a kernel (the build directory is unchanged)."""
+    from pointcloud_style_transfer_torch.cli.test import METRIC_KEYS
+    ring_keys = [k for k in METRIC_KEYS
+                 if k.startswith(("chamfer", "content"))]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config()
+        torch.manual_seed(PARALLEL_SEED + 6)
+        net = DiffusionNet(cfg.feature_dim, cfg.time_embed_dim)
+        ckpt = save_checkpoint(os.path.join(tmp, "model.pt"), cfg,
+                               *split_state_dict(net))
+        split = os.path.join(tmp, "split")
+        pre = PointCloudPreprocessor(total_points=N_POINTS,
+                                     global_points=M_POINTS, seed=42)
+        rng = np.random.default_rng(PARALLEL_SEED + 6)
+        for i in range(TEST_PAIRS):
+            pre.save_hierarchical_data(*lidar_scene_pair(rng, N_POINTS),
+                                       split, f"test_{i:04d}")
+        args = ["-m", "pointcloud_style_transfer_torch.cli.test",
+                "--checkpoint", ckpt, "--test_data", split, "--batch_size",
+                str(TEST_BATCH), "--compute_all_metrics", "--seed", "0"]
+        env = {**os.environ, "PCST_TORCH_KERNEL_CACHE": str(_common.BUILD_ROOT)}
+        before = build_snapshot()
+        results, secs = [], []
+        for name, launcher in (
+                ("one process", []),
+                (f"torch.distributed.run --nproc_per_node {world}",
+                 ["-m", "torch.distributed.run", "--standalone",
+                  f"--nproc_per_node={world}"])):
+            out_dir = os.path.join(tmp, f"out{len(results)}")
+            rc, out, s = run_bounded(
+                [sys.executable, *launcher, *args, "--output_dir", out_dir],
+                deadline - time.monotonic(), env)
+            if rc != 0:
+                fail(f"[parallel ranks] cli.test as {name}: rc {rc}; its "
+                     f"output ends:\n{out[-4000:]}")
+            (stamp,) = os.listdir(out_dir)
+            with open(os.path.join(out_dir, stamp, "test_results.json")) as f:
+                results.append(json.load(f)["average_metrics"])
+            secs.append(s)
+        rebuilt = build_snapshot() != before
+    one, many = results
+    if list(one) != list(METRIC_KEYS) or list(many) != list(METRIC_KEYS) \
+            or not all(np.isfinite(v) for v in [*one.values(),
+                                                *many.values()]):
+        fail(f"[parallel ranks] cli.test metrics: one process {one}, "
+             f"{world} ranks {many}")
+    differ = [k for k in METRIC_KEYS if k not in ring_keys
+              and many[k] != one[k]]
+    gaps = {k: abs(many[k] / one[k] - 1) for k in ring_keys}
+    print(f"[parallel ranks] cli.test at --batch_size {TEST_BATCH}, "
+          f"{TEST_PAIRS} pairs of {N_POINTS} points, {STEPS} steps, every "
+          f"metric, --seed 0: one process on card 0 {secs[0]:.1f} s, under "
+          f"torch.distributed.run --nproc_per_node {world} {secs[1]:.1f} s "
+          f"(each with its start-up); rank 0's own metrics "
+          f"{'identical' if not differ else f'differ in {differ}'} "
+          f"({sum(k not in ring_keys for k in METRIC_KEYS)} of them); the "
+          f"ring's relative gaps "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+          + f" (bar {RANKS_TEST_RTOL}); kernels "
+          f"{'REBUILT' if rebuilt else 'loaded from the build, none rebuilt'}"
+          f"; metrics {many} ({card})")
+    if differ or max(gaps.values()) > RANKS_TEST_RTOL or rebuilt:
+        fail(f"[parallel ranks] cli.test on {world} ranks against one "
+             f"process: rank 0's metrics differ in {differ} (one {one}, "
+             f"{world} ranks {many}), ring gaps {gaps}, rebuilt {rebuilt}")
 
 
 def main_ranks(world: int) -> int:
-    """``--ranks world``: ``parallel_ranks`` on ``world`` cards."""
+    """``--ranks world``: ``parallel_ranks`` on ``world`` cards, then
+    ``ranks_cli_test``, all within ``RANKS_DEADLINE_S``."""
     if torch.cuda.device_count() < world:
         fail(f"--ranks {world} needs {world} cards, this machine has "
              f"{torch.cuda.device_count()}")
+    card = card_line()
+    t0 = time.monotonic()
+    deadline = t0 + RANKS_DEADLINE_S
     ctx = torch.multiprocessing.spawn(parallel_ranks, args=(
         world, free_port()), nprocs=world, join=False)
-    deadline = time.monotonic() + RANKS_DEADLINE_S
     try:
         while not ctx.join(timeout=5):  # raises if a rank failed
             if time.monotonic() > deadline:
@@ -4566,7 +5136,16 @@ def main_ranks(world: int) -> int:
             if p.is_alive():
                 p.terminate()
             p.join(10)
-    print(card_line())
+    joined = time.monotonic() - t0
+    print(f"[parallel ranks] the {world} ranks ended by themselves (graphs "
+          f"released, process group destroyed) and were joined "
+          f"{joined:.1f} s after they started")
+    ranks_cli_test(world, card, deadline)
+    print(f"[parallel ranks] --ranks {world}: {time.monotonic() - t0:.1f} s "
+          f"after the build (deadline {RANKS_DEADLINE_S} s), "
+          f"{time.perf_counter() - T_START:.1f} s since the script started "
+          f"({card})")
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -67,6 +67,7 @@ come before the process group is destroyed.
 from __future__ import annotations
 
 import collections
+import gc
 import time
 import weakref
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
@@ -228,8 +229,13 @@ def release() -> None:
     """Drop every cached graph with its pool. A graph that holds NCCL
     collectives holds its communicator: release the graphs before
     ``torch.distributed.destroy_process_group`` (on four ranks a run that
-    destroyed its group with the graphs alive hung at its end)."""
+    destroyed its group with the graphs alive hung at its end). Each
+    cache is emptied in place, so that a caller still holding one holds
+    no graph."""
+    for entries in _ENTRIES.values():
+        entries.clear()
     _ENTRIES.clear()
+    gc.collect()
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
 

@@ -36,6 +36,7 @@ The CUDA graphs with NCCL collectives inside are held on the card
 """
 
 import json
+import weakref
 
 import numpy as np
 import pytest
@@ -283,3 +284,21 @@ def test_release_drops_every_graph(stand_ins):
     assert capture._ENTRIES == {}
     capture.run_captured(("k",), lambda ins: ins["x"], x, owner)
     assert stand_ins[-1] == "eager"
+
+
+def test_release_empties_a_cache_a_caller_holds(stand_ins):
+    """A caller that still holds a cache (``chip_smoke.py --ranks`` held
+    the trainer's, to find its train graph) holds no graph after
+    ``release``: on four cards a graph alive at
+    ``destroy_process_group`` holds its NCCL communicator, and that run
+    hung at its end."""
+    owner = torch_dist.Owner()
+    x = {"x": torch.arange(2.0)}
+    for _ in range(2):
+        capture.run_captured(("k",), lambda ins: ins["x"], x, owner,
+                             cache="step")
+    held = capture._ENTRIES["step"]
+    graph = weakref.ref(next(iter(held.values())).graph.graph)
+    assert graph() is not None
+    capture.release()
+    assert len(held) == 0 and graph() is None

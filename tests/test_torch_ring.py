@@ -19,8 +19,9 @@ group a world, every case of that world run inside it).
 * ``make_mesh``: the default shape, a 2-D shape, a shape too large
   (``ValueError``), a mesh over the first ranks only; CUDA tensors on a
   gloo group raise;
-* ``cli.test`` on 2 ranks (the ring Chamfer) against 1 rank: every metric
-  within 1e-6 relative, files written by rank 0 only.
+* ``cli.test`` on 2 and on 4 ranks (the ring Chamfer) against 1 rank on
+  the same seed: every metric within 1e-6 relative, files written by rank
+  0 only.
 """
 
 import json
@@ -103,8 +104,8 @@ def groups(tmp_path_factory):
             np.savez(tmp / "inputs.npz", **x)
             if world == 2:
                 args = cli_test_setup(tmp)
-                with open(tmp / "tester_args.json", "w") as f:
-                    json.dump(args, f)
+            with open(tmp / "tester_args.json", "w") as f:
+                json.dump(args, f)
             started.append(torch_dist.start_group(torch_dist.ring_ranks,
                                                   world, tmp))
         threads = torch.get_num_threads()
@@ -252,20 +253,42 @@ def test_make_mesh_first_ranks(groups):
         [0, 1, -1, -1]
 
 
-def test_tester_ring_matches_one_rank(groups):
-    tmp, ranks = groups[2]
-    assert [int(r["tester.rc"][0]) for r in ranks] == [0, 0]
+def results_of(directory):
+    (run,) = os.listdir(directory)
+    with open(os.path.join(directory, run, "test_results.json")) as f:
+        return json.load(f)["average_metrics"]
 
-    def results(directory):
-        (run,) = os.listdir(directory)
-        with open(os.path.join(directory, run, "test_results.json")) as f:
-            return json.load(f)["average_metrics"]
-    want = results(tmp / "single")
-    got = results(tmp / "tester_rank0")
+
+def check_tester(groups, world):
+    """The ``Tester`` on ``world`` ranks against the 1-rank run on the
+    same seed: rank 0's metrics within ``TESTER_RTOL``."""
+    tmp, ranks = groups[world]
+    assert [int(r["tester.rc"][0]) for r in ranks] == [0] * world
+    want = results_of(groups[2][0] / "single")
+    got = results_of(tmp / "tester_rank0")
     assert list(got) == list(port_test.METRIC_KEYS) == list(want)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=TESTER_RTOL,
                                    err_msg=k)
+
+
+def test_tester_ring_matches_one_rank(groups):
+    check_tester(groups, 2)
+
+
+def test_tester_four_ranks_match_one_rank(groups):
+    """{points: 4}: the ring over four ranks (a hop each, three
+    exchanges), the clouds and metrics broadcast to three ranks."""
+    check_tester(groups, 4)
+
+
+def test_tester_four_ranks_write_on_rank0_only(groups):
+    tmp, _ = groups[4]
+    files = [json.loads((tmp / f"tester_files{r}.json").read_text())
+             for r in range(4)]
+    assert files[1:] == [[]] * 3
+    assert {"test_config.json", "test_results.json"} <= {
+        os.path.basename(f) for f in files[0]}
 
 
 def test_tester_writes_on_rank0_only(groups):

@@ -124,7 +124,7 @@ def ring_ranks(rank: int, world: int, tmp: str) -> dict:
     """Every ring case of one world: per mesh, this rank's ring minima,
     kNN (random and lattice points), both Chamfers of its shards, and the
     metrics' Chamfer with the mesh (divisible and not); the mesh checks at
-    world 4 and the ``Tester`` at world 2."""
+    world 4; the ``Tester`` at both."""
     from pointcloud_style_transfer_torch.evaluation.metrics import \
         chamfer_distance
     from pointcloud_style_transfer_torch.parallel import make_mesh
@@ -159,8 +159,7 @@ def ring_ranks(rank: int, world: int, tmp: str) -> dict:
                                                     x["tgt"], mesh=mesh)
     if world == 4:
         out.update(_mesh_checks())
-    else:
-        out.update(_tester_run(rank, tmp))
+    out.update(_tester_run(rank, tmp))
     return out
 
 
@@ -416,6 +415,38 @@ def sharded_sampler_ranks(rank: int, world: int, tmp: str) -> dict:
         if rank == 0:
             out[f"{name}.single"] = guided_sample_loop(
                 model, schedule, src, cond, **run)
+    return out
+
+
+def small_sampler_grid() -> None:
+    """The grid's interpolation and its recording kNN at ``SAMPLER_GRID``,
+    which 64 coarse points engage."""
+    from pointcloud_style_transfer_torch.ops import distance, grid_knn
+
+    grid_knn.grid_knn_interpolate_layout = functools.partial(
+        grid_knn.grid_knn_interpolate_layout, **SAMPLER_GRID)
+    distance.grid_knn = functools.partial(grid_knn.grid_knn, **SAMPLER_GRID)
+
+
+def selections_ranks(rank: int, world: int, tmp: str) -> dict:
+    """``guided_sample_loop(mesh={points: world}, selections=...)`` on the
+    kd-grid, replaying the one-process run's recorded choices
+    (``selections.pt``) and, as a negative control, those choices with
+    each step's neighbours shifted by one query row
+    (``selections_shifted.pt``), with the same draws."""
+    from pointcloud_style_transfer_torch.models import guided_sample_loop
+    from pointcloud_style_transfer_torch.parallel import make_mesh
+
+    small_sampler_grid()
+    x = _inputs(tmp)
+    mesh = make_mesh({"points": world}, "cpu")
+    model, schedule = _sampler_model(tmp)
+    out = {}
+    for name in ("selections", "selections_shifted"):
+        recorded = torch.load(os.path.join(tmp, f"{name}.pt"))
+        out[name] = guided_sample_loop(
+            model, schedule, x["src"], x["cond"], SAMPLER_STEPS, 7.5,
+            mesh=mesh, selections=dict(recorded), **_sampler_draws(x))
     return out
 
 
