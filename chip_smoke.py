@@ -156,7 +156,21 @@ Phases, each printing one line per result:
 11. train augmentation — one ``Config(use_augmentation=True)`` mini-step
     on the card: its draws printed, the augmentation card vs CPU within
     1e-6, a finite loss, the step's launches.
-12. parallel — ``parallel/`` on a one-rank NCCL group (NCCL puts no two
+12. proof — the repo's end-to-end training proof, the port's scripts
+    ``examples/e2e_training_proof_torch.py``, ``loss_spike_analysis_torch.py``
+    and ``fast_mode_fidelity_torch.py`` at the JAX proof's settings: 64
+    synthetic LiDAR pairs of 4,096 points (1,024 coarse) through
+    ``cli.preprocess`` (51 / 7 / 6), 60 epochs of ``Config()`` widths at
+    batch 2 (1,500 mini-steps, 500 optimizer steps, 13 validations and
+    checkpoints), a transfer sample from the EMA weights, ``cli.test`` on
+    ``best_model`` plain and with ``--fast``, the loss terms at 21
+    timesteps, and the fast sampler against the full one on 3 val pairs:
+    seconds, ms per replayed mini-step, the graphs captured by part, peak
+    memory by part, each epoch's learning rate beside the rate one of its
+    updates applied, every artifact as a line; held to the JAX package's
+    committed artifacts (``docs/artifacts/e2e_training/``) by the bars of
+    ``proof_bars``, within ``PROOF_BUDGET_S``.
+13. parallel — ``parallel/`` on a one-rank NCCL group (NCCL puts no two
     ranks on one GPU): the ring row minimum, kNN (k=3) and evaluation
     Chamfer at 120,000 x 120,000, identical to the dense calls, with 1
     ``rowmin``, 1 ``knn_topk`` and 2 ``rowmin`` launches (eager by
@@ -188,10 +202,15 @@ Phases, each printing one line per result:
 Then one JSON line with every kernel's numbers (``launches`` on the main
 path, ``replay_launches`` by ``[graph]`` path, ``train_replay_launches``
 of a replayed training mini-step, ``cli_test_launches`` in the test
-phase, ``parallel_launches`` by ``[parallel]`` path), the ``nvidia-smi``
-name and power-limit line, and the final JSON line. ``--only`` with a
-comma list of ``graph``, ``train_graph`` and ``parallel`` runs the build
-and those phases alone. ``--ranks n`` (a machine with n cards) runs the
+phase, ``parallel_launches`` by ``[parallel]`` path, ``proof_launches`` of
+the proof phase), the ``nvidia-smi`` name and power-limit line, and the
+final JSON line. ``--only`` with a comma list of ``graph``,
+``train_graph``, ``parallel``, ``proof`` and ``proof_full`` runs the build
+and those phases alone; ``proof_full`` is the proof at ``Config()``'s
+120,000 / 30,000 points, where the kd-grid engages (``grid_interp``, its
+counted ``knn_topk`` patch, ``--fast``'s ``grid_topk``), held to bars 1-3
+against its own curve and to the spike rows' finiteness; it is in no
+default run. ``--ranks n`` (a machine with n cards) runs the
 build, then one process a card on an n-rank NCCL group
 (``parallel_ranks``), every path held to its one-card counterpart on
 card 0 with the same inputs and draws and every rank's result the same:
@@ -215,6 +234,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import importlib.util
 import io
 import json
 import os
@@ -228,6 +248,7 @@ import numpy as np
 import torch
 
 T_START = time.perf_counter()
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 from pointcloud_style_transfer_torch.cli.compare import main as compare_main
 from pointcloud_style_transfer_torch.cli.inference import (DiffusionInference,
@@ -3579,6 +3600,206 @@ def phase_train_augmentation(rng: np.random.Generator, dev: torch.device,
           + f"; the augmentation card vs CPU {aug_err:.3g} ({card})")
 
 
+# The training proof (examples/*_torch.py) at the JAX proof's settings and
+# its bars, held to the JAX package's committed artifacts
+PROOF_BUDGET_S = 120  # phase_proof at 4,096 points, after the build
+JAX_PROOF = os.path.join(ROOT, "docs", "artifacts", "e2e_training")
+JAX_PROOF_TESTS = ("test_20260817_144938", "test_20260818_134608",
+                   "test_20260819_234928")
+PROOF_BANDED = ("chamfer_sim_to_real", "chamfer_real_to_sim",
+                "content_preservation", "emd_sim_to_real", "emd_real_to_sim")
+LR_RTOL = 1e-3  # the rate an update applied against lr_for_epoch
+SPIKE_BA_RTOL = 1e-3  # b/a against JAX's column (XLA's cumprod, 1.7e-6)
+# graphs a proof run captures, by part: the train step, the eval step at
+# B = 2 and at the ragged B = 1 (7 val pairs); cli.test's second direction
+# (B = 4) in each run; fidelity's second call of each sampler (B = 1)
+PROOF_CAPTURES = {"data": 0, "train": 3, "samples": 0, "test": 1,
+                  "test_fast": 1, "spike": 0, "fidelity": 2}
+
+
+def example(name: str):
+    """The module of ``examples/<name>.py``."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def jax_proof() -> dict:
+    """The JAX proof's committed figures the bars are drawn from."""
+    def load(*parts):
+        with open(os.path.join(JAX_PROOF, *parts)) as f:
+            return json.load(f)
+    curve = load("loss_curve.json")
+    tests = [load(d, "test_results.json")["average_metrics"]
+             for d in JAX_PROOF_TESTS]
+    return {"train_l1_last5": float(np.mean(curve["train_l1"][-5:])),
+            "val_last": curve["val"][-1],
+            "metric_keys": list(tests[-1]),
+            "bands": {k: (0.5 * min(t[k] for t in tests),
+                          1.5 * max(t[k] for t in tests))
+                      for k in PROOF_BANDED},
+            "spike": load("spike_analysis.json")["rows"]}
+
+
+def proof_bars(res: dict, full: bool) -> list:
+    """(bar, met, reading) in the order of the proof's bars; at 120,000
+    points bars 1-3 against the run's own curve and bar 6's finiteness."""
+    h, ref = res["history"], jax_proof()
+    finite = lambda xs: bool(np.all(np.isfinite(xs)))  # noqa: E731
+    l1_last5 = float(np.mean(h["train_l1"][-5:]))
+    bars = [("1 finite", finite(h["train"] + h["train_l1"]
+                                + h["train_chamfer"] + h["val"])
+             and len(h["val"]) == 13 and sum(res["val_dropped"]) == 0,
+             f"{len(h['train'])} epochs of train / train_l1 / train_chamfer "
+             f"and {len(h['val'])} val readings finite, val batches dropped "
+             f"{res['val_dropped']}"),
+            ("2 train L1 own", l1_last5 <= 0.45 * h["train_l1"][0],
+             f"mean of the last 5 epochs {l1_last5:.4f} <= 0.45 x epoch 0's "
+             f"{h['train_l1'][0]:.4f}"),
+            ("3 val own", h["val"][-1] <= 0.75 * max(h["val"]),
+             f"val at epoch {h['val_epochs'][-1]} {h['val'][-1]:.4f} <= 0.75 "
+             f"x the largest {max(h['val']):.4f}")]
+    rows = res["spike"]["rows"]
+    if full:
+        return bars + [("6 spike finite", len(rows) == 21 and finite(
+            [r[k] for r in rows for k in ("l1", "chamfer",
+                                          "amplification_b_over_a")]),
+            f"{len(rows)} rows finite")]
+    lo, hi = 0.70 * ref["train_l1_last5"], 1.40 * ref["train_l1_last5"]
+    bars.append(("2 train L1 vs JAX", lo <= l1_last5 <= hi,
+                 f"{l1_last5:.4f} in [{lo:.4f}, {hi:.4f}] (0.70-1.40 x JAX's "
+                 f"{ref['train_l1_last5']:.4f})"))
+    lo, hi = 0.5 * ref["val_last"], 2.0 * ref["val_last"]
+    bars.append(("3 val vs JAX", lo <= h["val"][-1] <= hi,
+                 f"{h['val'][-1]:.4f} in [{lo:.4f}, {hi:.4f}] (0.5-2.0 x "
+                 f"JAX's {ref['val_last']:.4f})"))
+    for name in ("test", "test_fast"):
+        got = res["tests"][name]["average_metrics"]
+        bars.append((f"4 {name} keys", list(got) == ref["metric_keys"]
+                     and finite(list(got.values())),
+                     f"{len(got)} finite metrics under JAX's keys"))
+        for k, (lo, hi) in ref["bands"].items():
+            bars.append((f"4 {name} {k}", lo <= got[k] <= hi,
+                         f"{got[k]:.4f} in [{lo:.4f}, {hi:.4f}]"))
+    m = res["fidelity"]["mean"]
+    scale = min(m["cd_parity_source"], m["cd_parity_style"])
+    bars.append(("5 fidelity", m["cd_fast_parity"] <= 0.1 * scale,
+                 f"mean CD(fast, parity) {m['cd_fast_parity']:.5f} <= 0.1 x "
+                 f"{scale:.4f} (ratio {m['cd_fast_parity'] / scale:.4f}; "
+                 f"JAX 0.0053 / 0.60)"))
+    by_t = {r["t"]: r for r in rows}
+    ba_err = max(abs(r["amplification_b_over_a"] - w["amplification_b_over_a"])
+                 / w["amplification_b_over_a"]
+                 for r, w in zip(rows, ref["spike"])) if len(rows) == len(
+                     ref["spike"]) else float("inf")
+    bars += [("6 spike rows", [r["t"] for r in rows]
+              == [w["t"] for w in ref["spike"]], f"{len(rows)} rows"),
+             ("6 spike L1", all(0.05 <= r["l1"] <= 2.0 for r in rows),
+              f"L1 {min(r['l1'] for r in rows):.4f}-"
+              f"{max(r['l1'] for r in rows):.4f} in [0.05, 2.0]"),
+             ("6 spike Chamfer", by_t[999]["chamfer"]
+              >= 100 * by_t[500]["chamfer"],
+              f"t=999 {by_t[999]['chamfer']:.4g} >= 100 x t=500 "
+              f"{by_t[500]['chamfer']:.4g}"),
+             ("6 spike b/a", ba_err <= SPIKE_BA_RTOL,
+              f"b/a within {ba_err:.3g} of JAX's column (rtol "
+              f"{SPIKE_BA_RTOL})")]
+    return bars
+
+
+def phase_proof(dev: torch.device, card: str, full: bool = False) -> dict:
+    """``examples/e2e_training_proof_torch.py`` at the JAX proof's settings
+    (64 synthetic LiDAR pairs, 4,096 points, 1,024 coarse; with ``full``
+    ``Config()``'s 120,000 / 30,000), then ``loss_spike_analysis_torch.py``
+    and ``fast_mode_fidelity_torch.py`` on its ``best_model``: the launch
+    counts set to 0 just before and read just after; the seconds, ms per
+    replayed mini-step, captures, peak memory and learning-rate trace
+    printed; each artifact printed as a line; then the bars, the run
+    failing at the first missed. Returns the readings and launches."""
+    tag = "[proof_full]" if full else "[proof]"
+    capture.release()  # the earlier phases' graphs
+    proof, spike_mod, fid_mod = (example(f"{n}_torch") for n in (
+        "e2e_training_proof", "loss_spike_analysis", "fast_mode_fidelity"))
+    size = ["--points", str(N_POINTS), "--global_points", str(M_POINTS)] \
+        if full else []
+    with tempfile.TemporaryDirectory() as work:
+        wd, out = os.path.join(work, "proof"), os.path.join(work, "out")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = proof.main(["--workdir", wd, "--outdir", out,
+                          "--device", dev.type, *size])
+        for name, run, argv in (
+                ("spike", spike_mod.main,
+                 ["--checkpoint", res["best_model"], "--data",
+                  os.path.join(res["processed"], "val")]),
+                ("fidelity", fid_mod.main, ["--workdir", wd])):
+            before = len(capture.CAPTURES)
+            ts = time.perf_counter()
+            res[name] = run([*argv, "--outdir", out, "--device", dev.type])
+            res["peak_mib"][name] = proof.peak_mib(dev)
+            res["seconds"][name] = time.perf_counter() - ts
+            res["captures"][name] = len(capture.CAPTURES) - before
+        seconds = time.perf_counter() - t0
+        counts = dict(LAUNCH_COUNTS)
+        artifacts = proof.artifact_lines(out, npy=not full)
+    h = res["history"]
+    per_epoch = res["mini_steps"] // len(h["train"])
+    step_ms = 1e3 * float(np.median(res["epoch_seconds"][1:])) / per_epoch
+    in_step_ms = 1e3 * float(np.median(res["step_seconds"][1:])) / per_epoch
+    print(f"{tag} e2e_training_proof_torch + loss_spike_analysis_torch + "
+          f"fast_mode_fidelity_torch, {size[1] if full else 4096} points / "
+          f"{size[3] if full else 1024} coarse, 64 pairs, "
+          f"{len(h['train'])} epochs at batch 2, {res['mini_steps']} "
+          f"mini-steps: {seconds:.1f} s in all; by part "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in res["seconds"].items())
+          + f"; {step_ms:.2f} ms per replayed mini-step (the median epoch "
+          f"after the first, host clock with loading, / {per_epoch}), of "
+          f"which {in_step_ms:.2f} ms inside train_step (draws, key, input "
+          f"copies, the replay's launch) and the rest the loader's and the "
+          f"batches' copies; epoch 0 {res['epoch_seconds'][0]:.2f} s (eager "
+          f"and captured steps) ({card})")
+    print(f"{tag} captures by part {res['captures']}, "
+          f"{sum(res['captures'].values())} in all; peak memory MiB "
+          + json.dumps({k: v and round(v, 1)
+                        for k, v in res["peak_mib"].items()})
+          + " (capture.release() after training)")
+    print(f"{tag} learning rate by epoch (lr_for_epoch, the rate one update "
+          "applied, recovered from the parameters and moments, the update's "
+          "rms): " + json.dumps([[r["epoch"], r["lr_for_epoch"],
+                                  r["applied"], r["update_rms"]]
+                                 for r in res["lr"]]))
+    print(f"{tag} curve: train_l1 {h['train_l1'][0]:.4f} -> mean of the last "
+          f"5 {np.mean(h['train_l1'][-5:]):.4f}; train total "
+          f"{min(h['train']):.4g}-{max(h['train']):.4g}; val "
+          + json.dumps(dict(zip(h["val_epochs"],
+                                [round(v, 4) for v in h["val"]])))
+          + f"; val batches dropped {res['val_dropped']}")
+    print(f"{tag} launches {counts}")
+    for line in artifacts:
+        print(line.replace("[proof]", tag, 1))
+    lr_bad = [r for r in res["lr"]
+              if abs(r["applied"] / r["lr_for_epoch"] - 1) > LR_RTOL]
+    if len(res["lr"]) != len(h["train"]) or lr_bad:
+        fail(f"{tag} the rate applied differs from lr_for_epoch beyond "
+             f"{LR_RTOL}: {lr_bad}")
+    if res["captures"] != PROOF_CAPTURES:
+        fail(f"{tag} captures {res['captures']} != {PROOF_CAPTURES}")
+    used = ("knn_topk", "fps", "ball_query", "rowmin") + (
+        ("grid_interp", "grid_topk") if full else ())
+    if any(counts[name] == 0 for name in used):
+        fail(f"{tag} a kernel of the path never launched: {counts}")
+    for bar, met, reading in proof_bars(res, full):
+        print(f"{tag} bar {bar}: {reading}: {'met' if met else 'MISSED'}")
+        if not met:
+            fail(f"{tag} bar {bar} missed: {reading}")
+    if not full and seconds > PROOF_BUDGET_S:
+        fail(f"{tag} {seconds:.1f} s, over the {PROOF_BUDGET_S} s budget")
+    return {"seconds": seconds, "step_ms": step_ms, "in_step_ms": in_step_ms,
+            "captures": res["captures"], "launches": counts}
+
+
 PARALLEL_SEED = 30
 
 
@@ -5166,7 +5387,9 @@ def main() -> int:
     card = card_line()
     if sys.argv[1:2] == ["--only"]:  # e.g. --only graph,train_graph
         phases = {"graph": phase_graph, "train_graph": phase_train_graph,
-                  "parallel": phase_parallel}
+                  "parallel": phase_parallel, "proof": phase_proof,
+                  "proof_full": lambda dev, card: phase_proof(dev, card,
+                                                              full=True)}
         names = sys.argv[2].split(",") if len(sys.argv) == 3 else []
         if not names or not set(names) <= set(phases):
             fail(f"--only takes a comma list of {sorted(phases)}")
@@ -5190,6 +5413,7 @@ def main() -> int:
         phase_progress(card, work)
         phase_benchmark(card, work)
         phase_train_augmentation(np.random.default_rng(21), dev, card, paths)
+        proof = phase_proof(dev, card)
     parallel = phase_parallel(dev, card)
     records["grid_topk"].update(launches=counts["grid_topk"],
                                 path="cli.inference --fast")
@@ -5209,6 +5433,8 @@ def main() -> int:
         rec["train_replay_launches"] = train_graph["launches"][name]
         rec["parallel_launches"] = {path: got[name] for path, got in
                                     parallel.items() if name in got}
+        # what the training proof's run launched (its own counts)
+        rec["proof_launches"] = proof["launches"][name]
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of it (and the GPU smoke
-script) loads neither JAX nor the JAX package, and no source file of it
-imports them."""
+script, and the port's example scripts) loads neither JAX nor the JAX
+package, and no source file of it imports them."""
 
 import pkgutil
 import re
@@ -14,6 +14,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(pointcloud_style_transfer_torch.__file__).parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
              "pointcloud_style_transfer_tpu")
+EXAMPLES = ("e2e_training_proof_torch", "loss_spike_analysis_torch",
+            "fast_mode_fidelity_torch")
 
 
 def port_modules():
@@ -28,7 +30,8 @@ def test_import_loads_no_jax():
         assert f"pointcloud_style_transfer_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "sys.path.insert(0, 'examples')\n"
+        f"for m in {mods!r} + ['chip_smoke'] + {list(EXAMPLES)!r}:\n"
         "    importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -42,7 +45,8 @@ def test_import_loads_no_jax():
 def test_sources_import_no_jax():
     pattern = re.compile(
         r"^\s*(?:import|from)\s+(" + "|".join(FORBIDDEN) + r")\b", re.M)
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "examples" / f"{name}.py" for name in EXAMPLES]
     assert len(files) > 15
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
