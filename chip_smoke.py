@@ -170,7 +170,24 @@ Phases, each printing one line per result:
     updates applied, every artifact as a line; held to the JAX package's
     committed artifacts (``docs/artifacts/e2e_training/``) by the bars of
     ``proof_bars``, within ``PROOF_BUDGET_S``.
-13. parallel — ``parallel/`` on a one-rank NCCL group (NCCL puts no two
+13. tools — the repo's profiling, probe and demo scripts on the port
+    (``examples/*_torch.py``, ``TOOLS``) at ``Config()`` width, each
+    through its ``main`` at its defaults, its lines printed again under
+    ``[tools]``: the sampler step's in-context attribution (nine variants,
+    10 steps, each its own CUDA graph replayed 5 times; the ``full`` body
+    identical to ``samplers._guided_body`` on the card; each variant's
+    launches against what it stubs; a replayed full step's kernels by
+    name), its B = 1, 2, 4 twin, the grid call's and the style encoder's
+    stages, the voxel downsample and the train step at B = 1, 2, 4 (a
+    replayed mini-step's kernels by name), points/s of the 50-step
+    sampler at B = 1, 2, 4, 8 flat-batched and cloud by cloud, the unsafe
+    rows at each of 50 steps, and the demo (8 synthetic pairs of 130,000
+    points, 5 epochs, a transfer, ``cli.test`` both ways); every kernel of
+    their paths launched, within ``TOOLS_BUDGET_S``. The kernels phase's
+    ``[grid breakdown]`` is ``examples/profile_interp_stages_torch.py``'s
+    ``stages`` on that phase's clouds and grid (``GRID_SHAPE``, ``GRID_TQ``,
+    ``SLOT_CAP``).
+14. parallel — ``parallel/`` on a one-rank NCCL group (NCCL puts no two
     ranks on one GPU): the ring row minimum, kNN (k=3) and evaluation
     Chamfer at 120,000 x 120,000, identical to the dense calls, with 1
     ``rowmin``, 1 ``knn_topk`` and 2 ``rowmin`` launches (eager by
@@ -203,9 +220,10 @@ Then one JSON line with every kernel's numbers (``launches`` on the main
 path, ``replay_launches`` by ``[graph]`` path, ``train_replay_launches``
 of a replayed training mini-step, ``cli_test_launches`` in the test
 phase, ``parallel_launches`` by ``[parallel]`` path, ``proof_launches`` of
-the proof phase), the ``nvidia-smi`` name and power-limit line, and the
-final JSON line. ``--only`` with a comma list of ``graph``,
-``train_graph``, ``parallel``, ``proof`` and ``proof_full`` runs the build
+the proof phase, ``tools_launches`` of the tools phase), the
+``nvidia-smi`` name and power-limit line, and the final JSON line.
+``--only`` with a comma list of ``graph``, ``train_graph``, ``parallel``,
+``proof``, ``proof_full`` and ``tools`` runs the build
 and those phases alone; ``proof_full`` is the proof at ``Config()``'s
 120,000 / 30,000 points, where the kd-grid engages (``grid_interp``, its
 counted ``knn_topk`` patch, ``--fast``'s ``grid_topk``), held to bars 1-3
@@ -1272,7 +1290,13 @@ def phase_grid_kernels(rng: np.random.Generator, query: torch.Tensor,
           f"{layout_ms:.4f} ms (layout, tables, kernel, margins, patch); "
           f"knn_topk on a 2500-query patch {patch_ms:.4f} ms")
 
-    grid_breakdown(query[0], ref[0], vals)
+    # one call's stages (examples/profile_interp_stages_torch.py) on this
+    # script's grid, whatever PCST_PROF_* the shell sets
+    stages_tool = example("profile_interp_stages_torch")
+    knobs = dict(stages_tool.common.grid_knobs({}), grid_shape=GRID_SHAPE,
+                 tq=GRID_TQ, slot_cap=SLOT_CAP)
+    stages_tool.stages(query[0], ref[0], vals, knobs=knobs,
+                       tag="[grid breakdown]")
 
     # knn(backend="grid"): its own path, counts read around it
     reset_launch_counts()
@@ -1582,62 +1606,6 @@ def phase_grid_inexact(query: torch.Tensor, ref: torch.Tensor) -> None:
           f"{int((d != d_e).any(-1).sum())} rows with a farther set (each "
           f"within 2^-8 relative), {int((i != i_e).any(-1).sum())} rows with "
           "other ids")
-
-
-def grid_breakdown(q: torch.Tensor, r: torch.Tensor,
-                   vals: torch.Tensor) -> None:
-    """Where one grid interpolation call's time goes: each phase run on its
-    own between two synchronisations (host clock, best of 5), then one
-    whole call under the profiler; beside it the brute-force interpolation
-    of every query, which is what ``knn_backend="pallas"`` pays."""
-    def best(fn, reps=5):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return out, min(times) * 1e3
-
-    nq = q.shape[0]
-    ms = {}
-    struct, ms["build"] = best(lambda: grid_knn._build_struct(
-        r, GRID_SHAPE, skip_z_sort=True))
-    vals_pad, ms["values"] = best(lambda: grid_knn._sorted_values(struct,
-                                                                  vals))
-    sl, ms["layout+tables"] = best(lambda: grid_knn._layout_slots(
-        struct, q, GRID_SHAPE, GRID_TQ, SLOT_CAP))
-    (v, d), ms["kernel"] = best(lambda: grid_interp_cuda(
-        sl.q_pad, struct.refs_pad, vals_pad, sl.st, sl.en, 3,
-        n_real=sl.n_real))
-    safe, ms["margins"] = best(lambda: grid_knn._safe_rows(struct, sl, d, 3,
-                                                           GRID_SHAPE))
-    unsafe = ~safe.reshape(-1) & (sl.orig_pad < nq)
-    _, ms["ladder"] = best(lambda: grid_knn._apply_fallback(
-        (v,), unsafe, sl.q_pad, nq, 4096,
-        lambda rows, row_ids, count: (grid_knn._brute_interp(
-            rows, r, vals, 3, 1e-8, row_ids, count,
-            grid_knn._patch_plan_rows(4096)),)))
-    _, brute_ms = best(lambda: grid_knn._brute_interp(q, r, vals, 3, 1e-8))
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        grid_knn.grid_knn_interpolate_layout(q, r, vals)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in dev) / 1e3
-    print(f"[grid breakdown] one call at {nq}x{r.shape[0]}, each phase alone "
-          f"(host clock, synchronised, best of 5): "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
-          + f"; sum {sum(ms.values()):.4f} ms ({int(unsafe.sum())} unsafe "
-          f"rows). Whole call profiled: {sum(e.count for e in dev)} device "
-          f"kernels, device busy {busy:.4f} ms of {wall:.4f} ms wall. Brute "
-          f"interpolation of all {nq} rows: {brute_ms:.4f} ms")
 
 
 def chamfer_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3800,6 +3768,89 @@ def phase_proof(dev: torch.device, card: str, full: bool = False) -> dict:
             "captures": res["captures"], "launches": counts}
 
 
+# The repo's profiling, probe and demo scripts on the port
+# (examples/*_torch.py) at Config() width
+TOOLS_BUDGET_S = 180  # phase_tools, after the build
+TOOLS = ("profile_sampler_step_torch", "profile_sampler_step_batched_torch",
+         "profile_interp_stages_torch", "profile_style_encoder_torch",
+         "profile_voxel_batch_torch", "profile_train_batch_scaling_torch",
+         "profile_batched_sampler_torch", "probe_sampler_unsafe_torch",
+         "demo_synthetic_torch")
+
+
+def tool_run(name: str, argv: list) -> tuple[dict, float]:
+    """``examples/<name>.py``'s ``main(argv)`` on the card, its standard
+    output printed again line by line under ``[tools] <name>:``: (its
+    result, its seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = example(name).main([*argv, "--device", "cuda"])
+    finally:
+        for line in buf.getvalue().splitlines():
+            if line.strip():
+                print(f"[tools] {name}: {line}")
+    seconds = time.perf_counter() - t0
+    print(f"[tools] {name}: {seconds:.1f} s")
+    return res, seconds
+
+
+def phase_tools(dev: torch.device, card: str) -> dict:
+    """The nine scripts of ``TOOLS`` in turn through their ``main``, each
+    at its defaults (``Config()``: 120,000 / 30,000 points, bf16, the
+    grid), the demo in a directory of its own: the launch counts set to 0
+    just before and read just after; the sampler step's ``full`` body
+    held identical to ``samplers._guided_body`` on the card and each
+    variant's launches to what it stubs (the script's own checks, read
+    again here); every kernel of the scripts' paths launched; within
+    ``TOOLS_BUDGET_S``. Returns the readings and launches."""
+    capture.release()  # the earlier phases' graphs
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res, by_script = {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        for name in TOOLS:
+            argv = ["--workdir", os.path.join(work, "demo")] \
+                if name == "demo_synthetic_torch" else []
+            res[name], by_script[name] = tool_run(name, argv)
+    seconds = time.perf_counter() - t0
+    counts = dict(LAUNCH_COUNTS)
+    step_tool = example("profile_sampler_step_torch")
+    step = res["profile_sampler_step_torch"]
+    if step["full_equals_guided_body"] is not True:
+        fail("[tools] the sampler step's full body differs from "
+             "_guided_body")
+    for variant, r in step["variants"].items():
+        if r["launches_per_step"] != step_tool.LAUNCHES[variant]:
+            fail(f"[tools] {variant} launched {r['launches_per_step']} a "
+                 f"step != {step_tool.LAUNCHES[variant]}")
+    if not res["demo_synthetic_torch"]["finite"]:
+        fail("[tools] the demo's transferred cloud or metrics not finite")
+    used = ("grid_interp", "knn_topk", "fps", "ball_query", "rowmin")
+    if any(counts[name] == 0 for name in used):
+        fail(f"[tools] a kernel of the scripts' paths never launched: "
+             f"{counts}")
+    full = step["variants"]["full"]["ms_per_step"]
+    print(f"[tools] sampler step at Config(): full {full:.4f} ms a step; "
+          "marginals (None: unresolved) " + json.dumps({
+              v: round(m["ms"], 4) if m["resolved"] else None
+              for v, m in ((v, r["marginal"]) for v, r in
+                           step["variants"].items()) if m is not None})
+          + f"; replayed full step busy "
+          f"{100 * step['profile']['busy_share']:.1f}%; points/s by B "
+          + json.dumps({mode: {B: round(r["points_per_s"]) for B, r in
+                               by_b.items()} for mode, by_b in
+                        res["profile_batched_sampler_torch"]["by_mode"]
+                        .items()})
+          + f"; unsafe rows a step {res['probe_sampler_unsafe_torch']['unsafe']}")
+    print(f"[tools] {len(TOOLS)} scripts in {seconds:.1f} s (budget "
+          f"{TOOLS_BUDGET_S} s); launches {counts} ({card})")
+    if seconds > TOOLS_BUDGET_S:
+        fail(f"[tools] {seconds:.1f} s, over the {TOOLS_BUDGET_S} s budget")
+    return {"seconds": seconds, "launches": counts, "by_script": by_script}
+
+
 PARALLEL_SEED = 30
 
 
@@ -5388,6 +5439,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--only"]:  # e.g. --only graph,train_graph
         phases = {"graph": phase_graph, "train_graph": phase_train_graph,
                   "parallel": phase_parallel, "proof": phase_proof,
+                  "tools": phase_tools,
                   "proof_full": lambda dev, card: phase_proof(dev, card,
                                                               full=True)}
         names = sys.argv[2].split(",") if len(sys.argv) == 3 else []
@@ -5414,6 +5466,7 @@ def main() -> int:
         phase_benchmark(card, work)
         phase_train_augmentation(np.random.default_rng(21), dev, card, paths)
         proof = phase_proof(dev, card)
+    tools = phase_tools(dev, card)
     parallel = phase_parallel(dev, card)
     records["grid_topk"].update(launches=counts["grid_topk"],
                                 path="cli.inference --fast")
@@ -5435,6 +5488,8 @@ def main() -> int:
                                     parallel.items() if name in got}
         # what the training proof's run launched (its own counts)
         rec["proof_launches"] = proof["launches"][name]
+        # what the profiling, probe and demo scripts launched
+        rec["tools_launches"] = tools["launches"][name]
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

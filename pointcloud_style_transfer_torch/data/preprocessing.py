@@ -135,6 +135,20 @@ class PointCloudPreprocessor:
         self.global_points = global_points
         self.rng = np.random.default_rng(seed)
 
+    # the reference's method names for the module's functions
+    def normalize_point_cloud(self, points, target_range: float = 1.8):
+        return normalize_point_cloud(points, target_range)
+
+    def denormalize_point_cloud(self, points, norm_params):
+        return denormalize_point_cloud(points, norm_params)
+
+    def consistent_downsample(self, points, target_size):
+        """``voxel_grid_downsample`` with the preprocessor's generator."""
+        return voxel_grid_downsample(points, target_size, self.rng)
+
+    def consistent_upsample(self, coarse, original, indices):
+        return consistent_upsample(coarse, original, indices)
+
     def _resample_to_total(self, points: np.ndarray) -> np.ndarray:
         """Force exactly total_points: voxel-down when larger, random repeat-up
         when smaller (reference: data/preprocessing.py:144-159)."""

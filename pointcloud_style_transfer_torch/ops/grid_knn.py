@@ -703,23 +703,19 @@ def _grid_interp_single(query, ref, values, k, grid_shape, tq, slot_cap,
     ``layout`` (v [NP, C], qid [NP]) in the padded layout order."""
     Nq = query.shape[0]
     query, ref, values = query.float(), ref.float(), values.float()
-    # whole-column slots (decided by _query_pass from the same sizes) never
-    # read the z order, so the build skips that sort
-    struct = _build_struct(ref, grid_shape, skip_z_sort=_full_z_ok(
-        ref.shape[0], grid_shape, slot_cap))
-    args = (struct, query, k, grid_shape, tq, slot_cap, z_halo, xy_halo,
-            values, eps)
+    out = _grid_knn_core(query, ref, k, grid_shape, tq, slot_cap, z_halo,
+                         values, eps, xy_halo, layout_out=layout)
 
     def brute(rows, row_ids, count):
         return (_brute_interp(rows, ref, values, k, eps, row_ids, count,
                               _patch_plan_rows(fallback_cap)),)
     if layout:
-        v_out, safe, qid, q_pad = _query_pass(*args, layout_out=True)
+        v_out, safe, qid, q_pad = out
         # padding positions never count as unsafe
         (v_out,) = _apply_fallback((v_out,), ~safe & (qid < Nq), q_pad, Nq,
                                    fallback_cap, brute)
         return v_out, qid.int()
-    v_out, unsafe = _query_pass(*args)
+    v_out, unsafe = out
     (v_out,) = _apply_fallback((v_out,), unsafe, query, Nq, fallback_cap,
                                brute)
     return v_out
@@ -954,15 +950,30 @@ def grid_knn_interpolate_layout(query: torch.Tensor, ref: torch.Tensor,
                                True)
 
 
+def _grid_knn_core(query: torch.Tensor, ref: torch.Tensor, k: int,
+                   grid_shape, tq: int, slot_cap: int, z_halo: int = 2,
+                   values: Optional[torch.Tensor] = None, eps: float = 1e-8,
+                   xy_halo=1, layout_out: bool = False):
+    """One cloud's structure build and one query pass, with no fallback:
+    ``_query_pass``'s (d [Nq, k], ref ids [Nq, k], unsafe [Nq]), or with
+    ``values`` [M, C] (v [Nq, C], unsafe), in query order (``layout_out``:
+    its layout-order outputs). The rows flagged unsafe keep the grid's own
+    answer, which may not be exact."""
+    # whole-column slots (decided by _query_pass from the same sizes) never
+    # read the z order, so the build skips that sort
+    struct = _build_struct(ref.float(), grid_shape, skip_z_sort=_full_z_ok(
+        ref.shape[0], grid_shape, slot_cap))
+    return _query_pass(struct, query.float(), k, grid_shape, tq, slot_cap,
+                       z_halo, xy_halo, values, eps, layout_out=layout_out)
+
+
 def _grid_knn_single(query, ref, k, grid_shape, tq, slot_cap, fallback_cap,
                      z_halo, xy_halo, exact=True):
     """One cloud's grid kNN: ([Nq, k] float32, [Nq, k] int32). ``exact``
     only selects the brute-force kernel of the fallback."""
     query, ref = query.float(), ref.float()
-    struct = _build_struct(ref, grid_shape, skip_z_sort=_full_z_ok(
-        ref.shape[0], grid_shape, slot_cap))
-    d_out, i_out, unsafe = _query_pass(struct, query, k, grid_shape, tq,
-                                       slot_cap, z_halo, xy_halo)
+    d_out, i_out, unsafe = _grid_knn_core(query, ref, k, grid_shape, tq,
+                                          slot_cap, z_halo, xy_halo=xy_halo)
     return _apply_fallback(
         (d_out, i_out), unsafe, query, query.shape[0], fallback_cap,
         lambda rows, row_ids, count: _brute(

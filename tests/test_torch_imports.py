@@ -14,8 +14,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(pointcloud_style_transfer_torch.__file__).parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
              "pointcloud_style_transfer_tpu")
-EXAMPLES = ("e2e_training_proof_torch", "loss_spike_analysis_torch",
-            "fast_mode_fidelity_torch")
+# the port's example scripts (and the module they share)
+EXAMPLES = tuple(sorted(p.stem for p in (ROOT / "examples").glob("*_torch.py")))
 
 
 def port_modules():
@@ -25,6 +25,7 @@ def port_modules():
 
 def test_import_loads_no_jax():
     mods = port_modules()
+    assert len(EXAMPLES) >= 13 and "profile_sampler_step_torch" in EXAMPLES
     for name in ("cli.inference", "ops.interpolate", "ops.pruned_knn",
                  "ops.kernels.knn_packed", "ops.kernels.knn_pruned"):
         assert f"pointcloud_style_transfer_torch.{name}" in mods
