@@ -182,9 +182,17 @@ Phases, each printing one line per result:
     replayed mini-step's kernels by name), points/s of the 50-step
     sampler at B = 1, 2, 4, 8 flat-batched and cloud by cloud, the unsafe
     rows at each of 50 steps, and the demo (8 synthetic pairs of 130,000
-    points, 5 epochs, a transfer, ``cli.test`` both ways); every kernel of
-    their paths launched, within ``TOOLS_BUDGET_S``. The kernels phase's
-    ``[grid breakdown]`` is ``examples/profile_interp_stages_torch.py``'s
+    points, 5 epochs, a transfer, ``cli.test`` both ways); the grid's
+    full-size exactness check (``verify_grid_torch``: the grid kNN's
+    distances identical to the brute kernel's, its interpolation, layout
+    order and B = 4 flat batch at scales 0.5-3.0 against the brute oracle
+    and the one-cloud path; every gate OK or the run fails), the four kNN
+    backends at 90,112 x 30,000 with fresh refs (``KNN_BACKENDS``; one that
+    raises fails the run), the 27 primitives, the grid kNN's stages, the
+    flat-batched interpolation against cloud by cloud at B = 1 and 4, and
+    the margin term that binds each unsafe row at each of 50 steps; every
+    kernel of their paths launched, within ``TOOLS_BUDGET_S``. The kernels
+    phase's ``[grid breakdown]`` is ``examples/profile_interp_stages_torch.py``'s
     ``stages`` on that phase's clouds and grid (``GRID_SHAPE``, ``GRID_TQ``,
     ``SLOT_CAP``).
 14. parallel — ``parallel/`` on a one-rank NCCL group (NCCL puts no two
@@ -214,7 +222,11 @@ Phases, each printing one line per result:
     and the ranks' agreement's host microseconds a call; and the
     one-rank selections replay (``ranks_selections``: the one card's
     recorded choices replayed through the {points: 1} sampler, float32
-    held to Chamfer-L2 1e-3, bf16 printed).
+    held to Chamfer-L2 1e-3, bf16 printed); and
+    ``examples/verify_sharded_torch.py`` on {points: 1} (the sharded
+    assembly against ``_upsample_unknown`` within 1e-4, the 10-step
+    trajectory within 3x the sampler's own chaos floor, the default
+    backend the grid).
 
 Then one JSON line with every kernel's numbers (``launches`` on the main
 path, ``replay_launches`` by ``[graph]`` path, ``train_replay_launches``
@@ -236,7 +248,9 @@ card 0 with the same inputs and draws and every rank's result the same:
 point-sharded sampler at {points: n} with its collectives inside its
 graph, held to its eager body, and replaying the one card's recorded
 choices (``ranks_selections``); ``guided_sample_loop_dp`` on {data: n}
-(``ranks_dp``); the ring kNN, row minimum and Chamfers on {points: n}
+(``ranks_dp``); ``examples/verify_sharded_torch.py`` on {points: n},
+both gates met and the figures and cloud the same on every rank
+(``ranks_verify_sharded``); the ring kNN, row minimum and Chamfers on {points: n}
 and, at n = 4, on {data: 2, points: 2} (``ranks_ring``); at n = 4 the
 point-sharded train and eval steps on {data: 2, points: 2}
 (``ranks_point_sharded_step``; other n print a ``REFUSED`` line naming
@@ -3770,41 +3784,72 @@ def phase_proof(dev: torch.device, card: str, full: bool = False) -> dict:
 
 # The repo's profiling, probe and demo scripts on the port
 # (examples/*_torch.py) at Config() width
-TOOLS_BUDGET_S = 180  # phase_tools, after the build
+# phase_tools, after the build: its 15 scripts took 149.9 s alone and
+# 167.6 s in a default run on one NVIDIA H100 80GB HBM3 (700 W); 1.43
+# times that, as 180 s was for the nine scripts' 112-132 s before
+TOOLS_BUDGET_S = 240
 TOOLS = ("profile_sampler_step_torch", "profile_sampler_step_batched_torch",
          "profile_interp_stages_torch", "profile_style_encoder_torch",
          "profile_voxel_batch_torch", "profile_train_batch_scaling_torch",
          "profile_batched_sampler_torch", "probe_sampler_unsafe_torch",
-         "demo_synthetic_torch")
+         "demo_synthetic_torch", "verify_grid_torch",
+         "bench_knn_backends_torch", "microbench_primitives_torch",
+         "profile_grid_knn_torch", "profile_batched_interp_torch",
+         "probe_margin_binding_torch")
+# every backend of ops.distance.knn but the plain one, at the JAX
+# script's geometry, the refs fresh each call (as the sampler's are)
+KNN_BACKENDS = ("pallas", "pallas_f32packed", "grid", "pallas_pruned")
+TOOL_ARGV = {"bench_knn_backends_torch": ["90112", "30000", "3",
+                                          *KNN_BACKENDS]}
+TOOL_ENV = {"bench_knn_backends_torch": {"PCST_BENCH_FRESH_REFS": "1"}}
 
 
-def tool_run(name: str, argv: list) -> tuple[dict, float]:
+@contextlib.contextmanager
+def environment(values: dict):
+    """``os.environ`` with ``values`` set within the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def tool_run(name: str, argv: list, tag: str = "[tools]"
+             ) -> tuple[dict, float]:
     """``examples/<name>.py``'s ``main(argv)`` on the card, its standard
-    output printed again line by line under ``[tools] <name>:``: (its
+    output printed again line by line under ``<tag> <name>:``: (its
     result, its seconds)."""
     buf = io.StringIO()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), environment(
+                TOOL_ENV.get(name, {})):
             res = example(name).main([*argv, "--device", "cuda"])
     finally:
         for line in buf.getvalue().splitlines():
             if line.strip():
-                print(f"[tools] {name}: {line}")
+                print(f"{tag} {name}: {line}")
     seconds = time.perf_counter() - t0
-    print(f"[tools] {name}: {seconds:.1f} s")
+    print(f"{tag} {name}: {seconds:.1f} s")
     return res, seconds
 
 
 def phase_tools(dev: torch.device, card: str) -> dict:
-    """The nine scripts of ``TOOLS`` in turn through their ``main``, each
-    at its defaults (``Config()``: 120,000 / 30,000 points, bf16, the
-    grid), the demo in a directory of its own: the launch counts set to 0
-    just before and read just after; the sampler step's ``full`` body
-    held identical to ``samplers._guided_body`` on the card and each
-    variant's launches to what it stubs (the script's own checks, read
-    again here); every kernel of the scripts' paths launched; within
-    ``TOOLS_BUDGET_S``. Returns the readings and launches."""
+    """The scripts of ``TOOLS`` in turn through their ``main``, each at
+    its defaults (``Config()``: 120,000 / 30,000 points, bf16, the grid;
+    the kNN backends with ``TOOL_ARGV`` and ``TOOL_ENV``), the demo in a
+    directory of its own: the launch counts set to 0 just before and read
+    just after; the sampler step's ``full`` body held identical to
+    ``samplers._guided_body`` on the card and each variant's launches to
+    what it stubs (the script's own checks, read again here); every gate
+    of the grid's exactness check OK; no kNN backend failed; every kernel
+    of the scripts' paths launched; within ``TOOLS_BUDGET_S``. Returns the
+    readings and launches."""
     capture.release()  # the earlier phases' graphs
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -3812,7 +3857,7 @@ def phase_tools(dev: torch.device, card: str) -> dict:
     with tempfile.TemporaryDirectory() as work:
         for name in TOOLS:
             argv = ["--workdir", os.path.join(work, "demo")] \
-                if name == "demo_synthetic_torch" else []
+                if name == "demo_synthetic_torch" else TOOL_ARGV.get(name, [])
             res[name], by_script[name] = tool_run(name, argv)
     seconds = time.perf_counter() - t0
     counts = dict(LAUNCH_COUNTS)
@@ -3827,7 +3872,19 @@ def phase_tools(dev: torch.device, card: str) -> dict:
                  f"step != {step_tool.LAUNCHES[variant]}")
     if not res["demo_synthetic_torch"]["finite"]:
         fail("[tools] the demo's transferred cloud or metrics not finite")
-    used = ("grid_interp", "knn_topk", "fps", "ball_query", "rowmin")
+    verify = res["verify_grid_torch"]
+    if not verify["ok"]:
+        fail(f"[tools] verify_grid_torch: a gate FAILED: {verify['gates']}")
+    bench = res["bench_knn_backends_torch"]
+    if bench["failed"] or set(bench["backends"]) != set(KNN_BACKENDS):
+        fail(f"[tools] bench_knn_backends_torch: backends failed "
+             f"{bench['failed']}")
+    probe = res["probe_margin_binding_torch"]
+    if len(probe["counts"]) != probe["steps"]:
+        fail(f"[tools] probe_margin_binding_torch: {len(probe['counts'])} "
+             f"steps of counts, {probe['steps']} run")
+    used = ("grid_interp", "grid_topk", "knn_topk", "knn_f32packed",
+            "knn_pruned", "fps", "ball_query", "rowmin")
     if any(counts[name] == 0 for name in used):
         fail(f"[tools] a kernel of the scripts' paths never launched: "
              f"{counts}")
@@ -3844,6 +3901,24 @@ def phase_tools(dev: torch.device, card: str) -> dict:
                         res["profile_batched_sampler_torch"]["by_mode"]
                         .items()})
           + f"; unsafe rows a step {res['probe_sampler_unsafe_torch']['unsafe']}")
+    mb = res["microbench_primitives_torch"]["cases"]
+    gk = res["profile_grid_knn_torch"]
+    print(f"[tools] grid exactness at 90,112 x 30,000: "
+          + ", ".join(f"{g} {'skipped' if r.get('skipped') else 'OK'}"
+                      for g, r in verify["gates"].items())
+          + "; kNN backends ms a call (fresh refs) " + json.dumps(
+              {b: round(r["ms"], 4) for b, r in bench["backends"].items()})
+          + "; grid kNN stages ms a call " + json.dumps(
+              {n: round(r["ms"], 4) for n, r in gk["stages"].items()})
+          + f" ({gk['unsafe_rows']} unsafe rows); batched interp ms a cloud "
+          + json.dumps({B: {v: round(r[v]["ms_per_cloud"], 4)
+                            for v in ("flat", "percloud", "flat_nofb")}
+                        for B, r in res["profile_batched_interp_torch"]
+                        ["by_batch"].items()})
+          + "; margin binding totals "
+          + json.dumps(probe["totals"]) + "; primitives ms a round "
+          + json.dumps({n: round(r["ms"], 4) for n, r in mb.items()})
+          + f" ({card})")
     print(f"[tools] {len(TOOLS)} scripts in {seconds:.1f} s (budget "
           f"{TOOLS_BUDGET_S} s); launches {counts} ({card})")
     if seconds > TOOLS_BUDGET_S:
@@ -4464,6 +4539,20 @@ def phase_parallel(dev: torch.device, card: str) -> dict:
         one_rank, schedule, src, cond, run, points)
     if one_rank.problems:
         fail(f"[parallel] {one_rank.problems}")
+    (verify, seconds), _ = counted("verify_sharded", lambda: tool_run(
+        "verify_sharded_torch", [], "[parallel]"))
+    if not (verify["ok"] and verify["ranks"] == 1):
+        fail(f"[parallel] verify_sharded_torch at one rank: gate 1 "
+             f"{verify['gate1']}, gate 2 {verify['gate2']}")
+    print(f"[parallel] verify_sharded_torch on {{'points': 1}}, "
+          f"{verify['n']} points, {verify['steps']} steps, default backend "
+          f"{verify['default_backend']}: gate 1 max diff "
+          f"{verify['gate1']['max_diff']} (bar {verify['gate1']['bar']}), "
+          f"gate 2 Chamfer-L2 {verify['gate2']['chamfer']:.6g} (bar "
+          f"{verify['gate2']['bar']:.6g}, floor "
+          f"{verify['gate2']['floor']:.6g}); launches "
+          f"{launches['verify_sharded']}; {seconds:.1f} s ({card})")
+    del verify
     del model, net
     torch.cuda.empty_cache()
     phase_parallel_trainer(dev, card, rng, counted, launches)
@@ -5066,6 +5155,31 @@ def ranks_point_sharded_step(r: Ranks, mesh) -> None:
           f"every rank; launches a rank {launches} ({r.card})")
 
 
+def ranks_verify_sharded(r: Ranks) -> None:
+    """``examples/verify_sharded_torch.py`` on the group's {points: world}
+    mesh at its defaults (120,000 points, 10 steps, the default backend):
+    both gates met on every rank, and every rank's figures and sharded
+    cloud the same."""
+    reset_launch_counts()
+    res, seconds = tool_run("verify_sharded_torch", [], "[parallel ranks]")
+    launched = r.counts()
+    r.check(res["ranks"] == r.world and res["gate1"]["ok"]
+            and res["gate2"]["ok"], f"verify_sharded_torch on {r.world} "
+            f"ranks: gate 1 {res['gate1']}, gate 2 {res['gate2']}")
+    figures = torch.tensor([res["gate1"]["max_diff"], res["gate2"]["chamfer"],
+                            res["gate2"]["floor"]], dtype=torch.float64,
+                           device=r.dev)
+    r.same("verify_sharded_torch's figures", figures)
+    r.same("verify_sharded_torch's sharded cloud", res["sharded"])
+    print(f"[parallel ranks] verify_sharded_torch on {{'points': "
+          f"{r.world}}}, {res['n']} points, {res['steps']} steps, default "
+          f"backend {res['default_backend']}: gate 1 max diff "
+          f"{res['gate1']['max_diff']} (bar {res['gate1']['bar']}), gate 2 "
+          f"Chamfer-L2 {res['gate2']['chamfer']:.6g} (bar "
+          f"{res['gate2']['bar']:.6g}, floor {res['gate2']['floor']:.6g}); "
+          f"launches a rank {launched}; {seconds:.1f} s ({r.card})")
+
+
 def parallel_ranks(rank: int, world: int, port: int) -> None:
     """One of ``--ranks world`` processes, one a card, on an NCCL group of
     ``world`` ranks (``tcp://localhost:port``), each path checked against
@@ -5165,6 +5279,7 @@ def parallel_ranks(rank: int, world: int, port: int) -> None:
     dist.barrier()
     ranks_selections(r, schedule, src, cond, run, points)
     ranks_dp(r, model, schedule, data)
+    ranks_verify_sharded(r)
     del model
     torch.cuda.empty_cache()
 

@@ -16,6 +16,7 @@ body, which drops the graphs of the body before.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import statistics
 import sys
@@ -119,6 +120,26 @@ def patched(module, name: str, value):
         setattr(module, name, own)
 
 
+@contextlib.contextmanager
+def grid_bound(knobs: dict):
+    """The grid's entry points with ``knobs`` (``grid_knobs``) bound within
+    the block: ``grid_knn_interpolate``, ``grid_knn_interpolate_layout``,
+    ``grid_knn_interpolate_layout_batched`` (which takes no z halo) and
+    the ``grid_knn`` that ``knn(backend="grid")`` calls; the samplers reach
+    the grid through them."""
+    from pointcloud_style_transfer_torch.ops import distance
+    flat = {k: v for k, v in knobs.items() if k != "z_halo"}
+    with contextlib.ExitStack() as stack:
+        for module, name, kw in (
+                (grid_knn, "grid_knn_interpolate", knobs),
+                (grid_knn, "grid_knn_interpolate_layout", knobs),
+                (grid_knn, "grid_knn_interpolate_layout_batched", flat),
+                (distance, "grid_knn", knobs)):
+            stack.enter_context(patched(module, name, functools.partial(
+                getattr(module, name), **kw)))
+        yield
+
+
 class Owner:
     """What a body's graph reads in place, where no model is: the tensors
     its closure holds (the capture runner keeps a weak reference)."""
@@ -216,6 +237,23 @@ def measure(run: Callable[[], torch.Tensor], reps: int,
     launches = launches_of(lambda: last.append(run()))
     return {"first": first, "second": second, "last": last[0], "ms": ms,
             "launches": launches}
+
+
+def timed_body(key: tuple, body: Callable[[dict], object], inputs: dict,
+               owner, reps: int, device: torch.device, per: int = 1) -> dict:
+    """``body`` (``per`` rounds of the work timed, chained) measured as
+    ``measure`` measures it under ``key`` (``run_body``), every earlier
+    graph dropped first (``capture.release``). Returns ms a round (the
+    median of ``reps`` calls / ``per``), the least, the spread, the runs,
+    the launches a round and the first call's output."""
+    capture.release()
+    res = measure(lambda: run_body(key, body, inputs, owner, device), reps,
+                  device)
+    per_round = [ms / per for ms in res["ms"]]
+    return {"ms": statistics.median(per_round), "best_ms": min(per_round),
+            "spread": spread(per_round), "runs_ms": per_round,
+            "launches": {k: n / per for k, n in res["launches"].items()},
+            "first": res["first"]}
 
 
 def device_kernels(fn: Callable[[], object]) -> dict:

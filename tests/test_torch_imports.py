@@ -16,6 +16,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
              "pointcloud_style_transfer_tpu")
 # the port's example scripts (and the module they share)
 EXAMPLES = tuple(sorted(p.stem for p in (ROOT / "examples").glob("*_torch.py")))
+# every JAX example script has its counterpart, bench.py's harness aside
+LAST_SEVEN = ("microbench_primitives_torch", "profile_grid_knn_torch",
+              "profile_batched_interp_torch", "probe_margin_binding_torch",
+              "bench_knn_backends_torch", "verify_grid_torch",
+              "verify_sharded_torch")
 
 
 def port_modules():
@@ -25,7 +30,8 @@ def port_modules():
 
 def test_import_loads_no_jax():
     mods = port_modules()
-    assert len(EXAMPLES) >= 13 and "profile_sampler_step_torch" in EXAMPLES
+    assert len(EXAMPLES) >= 20 and "profile_sampler_step_torch" in EXAMPLES
+    assert set(LAST_SEVEN) <= set(EXAMPLES)
     for name in ("cli.inference", "ops.interpolate", "ops.pruned_knn",
                  "ops.kernels.knn_packed", "ops.kernels.knn_pruned"):
         assert f"pointcloud_style_transfer_torch.{name}" in mods
@@ -41,6 +47,14 @@ def test_import_loads_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_every_jax_example_has_a_counterpart():
+    jax_scripts = {p.stem for p in (ROOT / "examples").glob("*.py")
+                   if not p.stem.endswith("_torch")}
+    # the JAX checks' names end in _tpu; their counterparts in _torch
+    want = {n.removesuffix("_tpu") + "_torch" for n in jax_scripts}
+    assert want <= set(EXAMPLES), sorted(want - set(EXAMPLES))
 
 
 def test_sources_import_no_jax():

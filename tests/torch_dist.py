@@ -867,3 +867,44 @@ def _failed_capture(rank: int) -> dict:
             except RuntimeError as e:
                 errors.append(str(e))
     return {"fail.errors": errors, "fail.branches": list(log)}
+
+
+# -- examples/verify_sharded_torch.py (tests/test_torch_examples_verify.py)
+
+# 1,024 points, 256 coarse, tiny widths, 2 steps; the grid's knobs come
+# from the environment the parent sets
+VERIFY_ARGS = ["1024", "2", "--device", "cpu", "--config",
+               "global_points=256", "feature_dim=32", "time_embed_dim=16",
+               "use_amp=false"]
+
+
+def verify_sharded_ranks(rank: int, world: int, tmp: str) -> dict:
+    """``examples/verify_sharded_torch.py``'s ``main`` on the group's
+    {points: world} mesh, then again with ``_TEST_SHARD_OFFSET = 1`` (each
+    rank takes its neighbour's slice): each run's gate figures, and the
+    first run's step inputs and single-device assembly."""
+    import sys
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
+    import verify_sharded_torch
+    from pointcloud_style_transfer_torch.parallel import sharded_sampler
+
+    out = {}
+    res = verify_sharded_torch.main(VERIFY_ARGS)
+    shifted = None
+    sharded_sampler._TEST_SHARD_OFFSET = 1
+    try:
+        shifted = verify_sharded_torch.main(VERIFY_ARGS)
+    finally:
+        sharded_sampler._TEST_SHARD_OFFSET = 0
+    for name, r in (("run", res), ("offset", shifted)):
+        out.update({f"{name}.ranks": r["ranks"], f"{name}.ok": r["ok"],
+                    f"{name}.gate1_ok": r["gate1"]["ok"],
+                    f"{name}.gate1_diff": r["gate1"]["max_diff"],
+                    f"{name}.gate2_ok": r["gate2"]["ok"],
+                    f"{name}.chamfer": r["gate2"]["chamfer"],
+                    f"{name}.floor": r["gate2"]["floor"],
+                    f"{name}.sharded": r["sharded"]})
+    out.update({f"step.{k}": v for k, v in res["step_inputs"].items()})
+    out["fused"] = res["fused"]
+    out["backend_is_grid"] = res["default_backend"] == "grid"
+    return out
