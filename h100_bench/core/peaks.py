@@ -1,0 +1,7 @@
+"""Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at
+its 700 W limit): what every roofline and MFU share of this benchmark is
+taken against."""
+
+BF16_FLOPS = 989e12        # tensor cores, bf16 / fp16
+F32_FLOPS = 67e12          # float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12  # HBM3

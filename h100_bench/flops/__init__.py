@@ -1,0 +1,1 @@
+"""Found by name from the cell's files; see ``core/harness.py``."""
