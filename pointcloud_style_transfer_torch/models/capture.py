@@ -47,6 +47,16 @@ EMA), never evict one another.
 A capture or replay that fails raises; nothing falls back to the eager
 loop.
 
+Its host spans (``utils.profiling.annotate``), under each call's id:
+``capture.key`` (the key, ``key`` given as a function built inside it),
+``capture.agree``, ``capture.eager``, ``capture.capture``,
+``capture.copy_in``, ``capture.replay`` (around the graph's launch) and
+``capture.outputs`` (the counters' books and the clones). While spans are
+recorded (``profiling.recording_spans``) with the device's, a key is
+another key, so a recording graph is run eagerly, captured and replayed on
+its own, and holds the body's device spans as event nodes; a graph
+captured otherwise holds none.
+
 A body that runs collectives (the point-sharded sampler, the meshed train
 and eval steps: NCCL's all-gathers and all-reduces inside the graph, the
 counterparts of the collectives inside JAX's compiled programs) names
@@ -78,6 +88,8 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 from ..ops import grid_knn
 from ..ops.kernels import LAUNCH_COUNTS
+from ..utils import profiling
+from ..utils.profiling import annotate
 
 CACHE_SIZE = 4  # keys kept a cache (a captured one holds its own pool)
 # a key's branches, in the order its calls move through them
@@ -90,6 +102,7 @@ class _Graph(NamedTuple):
     output: Any              # a tensor or a tree of them, in the pool
     record: Optional[torch.Tensor]  # the replay's unsafe counts, in order
     launches: dict           # the kernel launches of a replay, by name
+    spans: Any = None        # its device spans' events, while recording
 
 
 class _Entry(NamedTuple):
@@ -122,8 +135,10 @@ def _eager(body: Callable[[dict], Any], inputs: dict) -> Any:
     own = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(own)
-    with torch.cuda.stream(side), grid_knn.recording_unsafe() as counts:
+    with torch.cuda.stream(side), grid_knn.recording_unsafe() as counts, \
+            profiling.body_spans() as spans:
         output = body(inputs)
+    profiling.ran(spans)
     own.wait_stream(side)
     for t in (*tree_leaves(output), *counts):
         t.record_stream(own)
@@ -140,7 +155,8 @@ def _capture(body: Callable[[dict], Any], inputs: dict) -> _Graph:
         # thread_local: a CUDA call of another thread (a process group's
         # watchdog querying its events) does not void the capture
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            with grid_knn.recording_unsafe() as counts:
+            with grid_knn.recording_unsafe() as counts, \
+                    profiling.body_spans() as spans:
                 output = body(static)
             record = torch.stack(counts) if counts else None
         torch.cuda.synchronize()
@@ -149,7 +165,7 @@ def _capture(body: Callable[[dict], Any], inputs: dict) -> _Graph:
                     for name, n in before.items() if LAUNCH_COUNTS[name] != n}
         LAUNCH_COUNTS.update(before)
     CAPTURES.append({"capture_s": time.perf_counter() - t0})
-    return _Graph(graph, static, output, record, launches)
+    return _Graph(graph, static, output, record, launches, spans)
 
 
 def agree(groups: Sequence, value: int) -> int:
@@ -183,46 +199,59 @@ def _capture_agreed(body: Callable[[dict], Any], inputs: dict,
     return graph
 
 
-def run_captured(key: tuple, body: Callable[[dict], Any], inputs: dict,
-                 owner, cache: str = "sampler", groups: Sequence = ()) -> Any:
-    """``body(inputs)``: eagerly at the first call under ``key``, from the
-    CUDA graph captured at the second and replayed since. ``inputs`` maps
-    names to CUDA tensors, of which the graph keeps static copies;
-    ``owner`` is the object whose tensors the graph reads in place (the
-    model's net, the trainer): a key whose owner is gone is seen anew, even
-    where a new one took its address. ``cache`` names the cache the key
-    is kept in. ``groups`` are the process groups whose collectives
-    ``body`` runs: their ranks agree on each call's branch and on each
-    capture (``agree``). Returns the eager output or a clone of each of
-    the graph's."""
-    key = (key, tuple((n, tuple(t.shape), t.dtype, t.device)
-                      for n, t in inputs.items()))
-    entries = _ENTRIES.setdefault(cache, collections.OrderedDict())
-    entry = entries.pop(key, None)
-    if entry is not None and entry.owner() is not owner:
-        entry = None
-    branch = (EAGER if entry is None else CAPTURE if entry.graph is None
-              else REPLAY)
+@profiling.one_call
+def run_captured(key: tuple | Callable[[], tuple],
+                 body: Callable[[dict], Any], inputs: dict, owner,
+                 cache: str = "sampler", groups: Sequence = ()) -> Any:
+    """``body(inputs)``: eagerly at the first call under ``key`` (or the
+    key ``key()`` builds), from the CUDA graph captured at the second and
+    replayed since. ``inputs`` maps names to CUDA tensors, of which the
+    graph keeps static copies; ``owner`` is the object whose tensors the
+    graph reads in place (the model's net, the trainer): a key whose owner
+    is gone is seen anew, even where a new one took its address. ``cache``
+    names the cache the key is kept in. ``groups`` are the process groups
+    whose collectives ``body`` runs: their ranks agree on each call's
+    branch and on each capture (``agree``). Returns the eager output or a
+    clone of each of the graph's."""
+    with annotate("capture.key"):
+        key = (key() if callable(key) else key,
+               tuple((n, tuple(t.shape), t.dtype, t.device)
+                     for n, t in inputs.items()), profiling.device_spans_on())
+        entries = _ENTRIES.setdefault(cache, collections.OrderedDict())
+        entry = entries.pop(key, None)
+        if entry is not None and entry.owner() is not owner:
+            entry = None
+        branch = (EAGER if entry is None else CAPTURE if entry.graph is None
+                  else REPLAY)
     if groups:
-        branch = agree(groups, branch)
+        with annotate("capture.agree"):
+            branch = agree(groups, branch)
     if branch == EAGER:
         entry = None  # a stale graph's pool goes before anything new
         _remember(entries, key, _Entry(weakref.ref(owner), None))
-        return _eager(body, inputs)
+        with annotate("capture.eager"):
+            return _eager(body, inputs)
     if branch == CAPTURE:
         entry = None  # as above, where this rank alone had a graph
-        graph = _capture_agreed(body, inputs, groups)
+        with annotate("capture.capture"):
+            graph = _capture_agreed(body, inputs, groups)
     else:
         graph = entry.graph
-        for name, t in inputs.items():
-            graph.inputs[name].copy_(t)
+        # its last replay's device spans, before this one times them anew
+        profiling.collect(graph.spans)
+        with annotate("capture.copy_in"):
+            for name, t in inputs.items():
+                graph.inputs[name].copy_(t)
     _remember(entries, key, _Entry(weakref.ref(owner), graph))
-    graph.graph.replay()
-    for name, n in graph.launches.items():
-        LAUNCH_COUNTS[name] += n
-    if graph.record is not None:
-        grid_knn.UNSAFE_COUNTS.extend(graph.record.clone().unbind(0))
-    return tree_map(torch.clone, graph.output)
+    with annotate("capture.replay"):
+        graph.graph.replay()
+        profiling.ran(graph.spans)
+    with annotate("capture.outputs"):
+        for name, n in graph.launches.items():
+            LAUNCH_COUNTS[name] += n
+        if graph.record is not None:
+            grid_knn.UNSAFE_COUNTS.extend(graph.record.clone().unbind(0))
+        return tree_map(torch.clone, graph.output)
 
 
 def release() -> None:

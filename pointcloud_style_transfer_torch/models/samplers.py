@@ -29,6 +29,7 @@ the style re-encoded every step through the model's full forward.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
@@ -43,6 +44,8 @@ from ..ops import (complement_indices, grid_knn, index_points, knn,
 from ..ops.interpolate import apply_interpolation, knn_interpolate_weights
 from ..ops.kernels.knn_packed import selected_sq_dist
 from ..ops.voxel import voxel_order
+from ..utils import profiling
+from ..utils.profiling import annotate, device_span
 from .capture import model_key, run_captured
 from .diffusion import DiffusionSchedule, ddim_step, ddim_timesteps
 from .model import PointCloudDiffusionModel
@@ -222,11 +225,13 @@ def _run(model: PointCloudDiffusionModel, key: tuple, body, inputs: dict,
     if eager or not _graphed(model.device):
         return body(inputs)
     return run_captured(
-        (key, None if split is None else split.key(), model_key(model)),
+        lambda: (key, None if split is None else split.key(),
+                 model_key(model)),
         body, inputs, model.net, groups=() if split is None else split.groups)
 
 
 @torch.no_grad()
+@profiling.one_call
 def guided_sample_loop(model: PointCloudDiffusionModel,
                        schedule: DiffusionSchedule,
                        source_points: torch.Tensor,
@@ -276,7 +281,15 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
     with ``selections`` (a dict read and written every step). With
     ``mesh`` the graph holds the all-gathers of the shares (the
     counterparts of JAX's inside its ``shard_map``), and the axis's ranks
-    agree on every call's branch (``models.capture``)."""
+    agree on every call's branch (``models.capture``).
+
+    Its spans (``utils.profiling``): ``sampler.draws`` on the host, and in
+    the body a device span ``sampler.step`` a step holding
+    ``sampler.partition`` (the voxel order and partition),
+    ``sampler.denoiser`` (``predict_noise``, with the row split's gather)
+    and ``sampler.upsample``; the CFG combine and the DDIM step are the
+    step's own time. The direct branch's steps hold ``sampler.denoiser``
+    alone."""
     cfg = model.config
     device = model.device
     schedule = schedule.to(device)
@@ -298,16 +311,17 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
             rows = split if M % split.n == 0 else None
     encoder = model.net.style_encoder.encoder
     rand = functools.partial(torch.rand, generator=generator, device=device)
-    cond_priority, fps_starts, x_init, step_priorities = _draws(
-        device,
-        (cond_priority, (lambda: rand((B, Nc))) if Nc > M else None),
-        (fps_starts, lambda: encoder.draw_fps_starts(min(Nc, M), B,
-                                                     generator, device)),
-        (x_init, lambda: torch.randn((B, N, 3), generator=generator,
-                                     device=device)),
-        (step_priorities, (lambda: torch.stack([
-            rand((B, N)) for _ in range(num_inference_steps)]))
-         if use_hierarchical else None))
+    with annotate("sampler.draws"):
+        cond_priority, fps_starts, x_init, step_priorities = _draws(
+            device,
+            (cond_priority, (lambda: rand((B, Nc))) if Nc > M else None),
+            (fps_starts, lambda: encoder.draw_fps_starts(min(Nc, M), B,
+                                                         generator, device)),
+            (x_init, lambda: torch.randn((B, N, 3), generator=generator,
+                                         device=device)),
+            (step_priorities, (lambda: torch.stack([
+                rand((B, N)) for _ in range(num_inference_steps)]))
+             if use_hierarchical else None))
     inputs = dict(source=source_points, condition=condition_points,
                   x_init=x_init, cond_priority=cond_priority,
                   fps_starts=fps_starts, step_priorities=step_priorities,
@@ -342,52 +356,68 @@ def _guided_body(model: PointCloudDiffusionModel, ins: dict, steps: int,
     ts, t_prev = _step_schedule(schedule.num_timesteps, steps)
 
     for s, (t, tp) in enumerate(zip(ts.tolist(), t_prev.tolist())):
-        if use_hierarchical:
-            t_in = torch.full((2 * B,), t, dtype=torch.int64, device=device)
-            key = f"step{s}.voxel"
-            _record_points(selections, key, points=x)
-            order = None if selections is None else selections.get(key)
-            if order is None:
-                order = voxel_order(x, M, priority=step_priorities[s])
-                if selections is not None:
-                    selections[key] = order
-            x_coarse, x_idx, x_unk, x_unk_xyz = voxel_downsample_partition(
-                x, M, order=order)
-            x2 = torch.cat([x_coarse, x_coarse], dim=0)
-            if rows is None:
-                noise_coarse = model.predict_noise(x2, t_in, style_in)
+        with device_span("sampler.step"):
+            if use_hierarchical:
+                t_in = torch.full((2 * B,), t, dtype=torch.int64,
+                                  device=device)
+                key = f"step{s}.voxel"
+                with device_span("sampler.partition"):
+                    _record_points(selections, key, points=x)
+                    order = None if selections is None else \
+                        selections.get(key)
+                    if order is None:
+                        order = voxel_order(x, M, priority=step_priorities[s])
+                        if selections is not None:
+                            selections[key] = order
+                    x_coarse, x_idx, x_unk, x_unk_xyz = \
+                        voxel_downsample_partition(x, M, order=order)
+                x2 = torch.cat([x_coarse, x_coarse], dim=0)
+                with device_span("sampler.denoiser"):
+                    if rows is None:
+                        noise_coarse = model.predict_noise(x2, t_in, style_in)
+                    else:
+                        noise_coarse = rows.gather(model.predict_noise(
+                            rows.local(x2), t_in, style_in))
+                # CFG combine at coarse resolution: interpolation is linear,
+                # so combine-then-upsample equals upsample-then-combine
+                guided_coarse = _cfg_combine(noise_coarse, guidance_scale)
+                with device_span("sampler.upsample"):
+                    final_noise = _upsample_unknown(
+                        x, x_idx, guided_coarse, knn_backend, unknown=x_unk,
+                        ref_xyz=x_coarse, unknown_xyz=x_unk_xyz,
+                        selections=selections, key=f"step{s}.knn",
+                        split=split)
             else:
-                noise_coarse = rows.gather(model.predict_noise(
-                    rows.local(x2), t_in, style_in))
-            nc_cond, nc_unc = noise_coarse.float().chunk(2)
-            # CFG combine at coarse resolution: interpolation is linear, so
-            # combine-then-upsample equals upsample-then-combine
-            guided_coarse = nc_unc + guidance_scale * (nc_cond - nc_unc)
-            final_noise = _upsample_unknown(x, x_idx, guided_coarse,
-                                            knn_backend, unknown=x_unk,
-                                            ref_xyz=x_coarse,
-                                            unknown_xyz=x_unk_xyz,
-                                            selections=selections,
-                                            key=f"step{s}.knn", split=split)
-        else:
-            final_noise = _guided_step(model, x, t, style_in, guidance_scale)
+                final_noise = _guided_step(model, x, t, style_in,
+                                           guidance_scale, spans=True)
 
-        x = ddim_step(schedule, x, final_noise, t, tp,
-                      source_points=source_points,
-                      content_anchor=cfg.content_anchor,
-                      target_range=cfg.target_range)
+            x = ddim_step(schedule, x, final_noise, t, tp,
+                          source_points=source_points,
+                          content_anchor=cfg.content_anchor,
+                          target_range=cfg.target_range)
     return x
 
 
-def _guided_step(model: PointCloudDiffusionModel, x: torch.Tensor, t: int,
-                 style_in: torch.Tensor, guidance_scale: float
-                 ) -> torch.Tensor:
-    """The CFG noise of one step at x's own resolution."""
-    B = x.shape[0]
-    t_in = torch.full((2 * B,), t, dtype=torch.int64, device=x.device)
-    pred = model.predict_noise(torch.cat([x, x], dim=0), t_in, style_in)
+def _cfg_combine(pred: torch.Tensor, guidance_scale: float) -> torch.Tensor:
+    """The classifier-free guided noise from the denoiser's prediction on
+    the [cond; uncond] batch."""
     nc, nu = pred.float().chunk(2)
     return nu + guidance_scale * (nc - nu)
+
+
+def _guided_step(model: PointCloudDiffusionModel, x: torch.Tensor, t: int,
+                 style_in: torch.Tensor, guidance_scale: float,
+                 spans: bool = False) -> torch.Tensor:
+    """The CFG noise of one step at x's own resolution; with ``spans`` the
+    denoiser's call is the device span ``sampler.denoiser``."""
+    B = x.shape[0]
+    t_in = torch.full((2 * B,), t, dtype=torch.int64, device=x.device)
+    x2 = torch.cat([x, x], dim=0)
+    span = device_span("sampler.denoiser") if spans else \
+        contextlib.nullcontext()
+    with span:
+        pred = model.predict_noise(x2, t_in, style_in)
+    return _cfg_combine(pred, guidance_scale)
 
 
 @torch.no_grad()

@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -72,8 +73,10 @@ from ..models.diffusion import DiffusionSchedule
 from ..models.losses import diffusion_loss
 from ..models.networks import KEEP_PROB
 from ..ops import index_points
+from ..utils import profiling
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logger import get_logger
+from ..utils.profiling import annotate, device_span
 from .ema import call_with_params, ema_init, ema_update
 from .lr_schedule import lr_for_epoch
 from .optimizer import MultiStepsAdamW
@@ -267,6 +270,7 @@ def nested_draws(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return draws
 
 
+@profiling.one_call
 def train_step(model: PointCloudDiffusionModel, schedule: DiffusionSchedule,
                optimizer: MultiStepsAdamW, ema_params: Dict[str, torch.Tensor],
                batch_sim: torch.Tensor, batch_real: torch.Tensor,
@@ -284,7 +288,12 @@ def train_step(model: PointCloudDiffusionModel, schedule: DiffusionSchedule,
     the batches are this rank's slices and ``draws`` the global batch's;
     the layout gathers the points, slices the draws, reduces BatchNorm's
     statistics and the gradients over the ranks and averages the loss
-    terms, so that the step is this one on the global batch."""
+    terms, so that the step is this one on the global batch.
+
+    Its device spans (``utils.profiling``): ``train.forward`` (the losses,
+    the Chamfer's included), ``train.backward`` (the gradients, and the
+    layout's mean over the ranks) and ``train.optimizer`` (the optimizer
+    and the EMA)."""
     cfg = model.config
     params = dict(model.net.named_parameters())
     predict_noise, stats = None, contextlib.nullcontext()
@@ -294,17 +303,20 @@ def train_step(model: PointCloudDiffusionModel, schedule: DiffusionSchedule,
         predict_noise, stats = (layout.predict_noise(model.net),
                                 layout.batch_stats(model.net))
     with stats:
-        loss, loss_dict = compute_losses(
-            model, schedule, batch_sim, batch_real, train=True,
-            cond_drop_prob=cfg.cond_drop_prob,
-            chamfer_weight=cfg.lambda_chamfer, draws=draws,
-            generator=generator, predict_noise=predict_noise)
-        grads = torch.autograd.grad(loss,
-                                    [params[k] for k in optimizer.names])
-    if layout is not None:
-        grads = layout.mean_grads(grads, optimizer.sizes)
-    emit = optimizer.step(params, grads, lr)
-    ema_update(ema_params, params, cfg.ema_decay, emit)
+        with device_span("train.forward"):
+            loss, loss_dict = compute_losses(
+                model, schedule, batch_sim, batch_real, train=True,
+                cond_drop_prob=cfg.cond_drop_prob,
+                chamfer_weight=cfg.lambda_chamfer, draws=draws,
+                generator=generator, predict_noise=predict_noise)
+        with device_span("train.backward"):
+            grads = torch.autograd.grad(loss,
+                                        [params[k] for k in optimizer.names])
+            if layout is not None:
+                grads = layout.mean_grads(grads, optimizer.sizes)
+    with device_span("train.optimizer"):
+        emit = optimizer.step(params, grads, lr)
+        ema_update(ema_params, params, cfg.ema_decay, emit)
     return _terms(loss_dict, layout), emit
 
 
@@ -521,6 +533,7 @@ class DiffusionTrainer:
                              for f in dataclasses.fields(self.schedule)}),
                 None if self.layout is None else self.layout.key())
 
+    @profiling.one_call
     def _captured(self, kind: str, body, sim: torch.Tensor,
                   real: torch.Tensor, draws: Optional[Dict[str, Any]],
                   **inputs: torch.Tensor):
@@ -530,7 +543,8 @@ class DiffusionTrainer:
         mesh the global batch's, for the B * d clouds and, point-sharded,
         the gathered points, as ``StepLayout.localize`` draws them, which
         the body then slices; the mesh's ranks agree on each call's
-        branch."""
+        branch. A training step's draws are the host span ``train.draws``
+        (``utils.profiling``)."""
         train = kind == "train"
         B, n_sim, n_real = sim.shape[0], sim.shape[1], real.shape[1]
         groups = ()
@@ -539,15 +553,16 @@ class DiffusionTrainer:
             B, n_sim, n_real = B * d, n_sim * p, n_real * p
             groups = self.layout.groups
         given = dict(draws or {})
-        given = {**step_draws(self.model, B, n_sim, n_real, train=train,
-                              cond_drop_prob=None if train else 0.0,
-                              generator=self.generator, device=self.device,
-                              given=given), **given}
+        with annotate("train.draws") if train else contextlib.nullcontext():
+            given = {**step_draws(self.model, B, n_sim, n_real, train=train,
+                                  cond_drop_prob=None if train else 0.0,
+                                  generator=self.generator,
+                                  device=self.device, given=given), **given}
         inputs = {"sim": sim, "real": real, **inputs,
                   **flat_draws(given)}
         inputs = {n: t.to(self.device) for n, t in inputs.items()}
-        return run_captured(self.step_key(kind), body, inputs, self,
-                            cache="step", groups=groups)
+        return run_captured(functools.partial(self.step_key, kind), body,
+                            inputs, self, cache="step", groups=groups)
 
     # -- epoch loops ---------------------------------------------------------
     def train_one_epoch(self, loader, epoch: int) -> float:

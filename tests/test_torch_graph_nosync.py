@@ -19,7 +19,9 @@ The bodies run at small sizes with a small grid ((2, 2, 2), slot_cap 256,
 tq 64): ``guided_sample_loop`` on the hierarchical branch at B = 1 (the
 one-cloud ladder) and B = 2 (the flat-batched ladder), ``--fast``
 (``guided_sample_loop_coarse``, the kNN ladder) and ``ddim_sample_loop``.
-A reintroduced host read of the unsafe count fails the guard.
+A reintroduced host read of the unsafe count fails the guard. The
+hierarchical body reads nothing back with its spans recorded either
+(``utils.profiling``).
 """
 
 import functools
@@ -33,6 +35,7 @@ from pointcloud_style_transfer_torch.models import (
     guided_sample_loop_coarse, make_schedule)
 from pointcloud_style_transfer_torch.ops import distance
 from pointcloud_style_transfer_torch.ops import grid_knn as P
+from pointcloud_style_transfer_torch.utils import profiling
 
 from torch_nosync import NoSyncGuard, SyncRefused, _mark, plain_kernels
 
@@ -93,6 +96,14 @@ def test_guided_body_reads_nothing_back(setup, B):
         fps_starts=ins["fps_starts"]))
     assert out.shape == (B, N, 3)
     assert len(P.UNSAFE_COUNTS) == STEPS * B  # one count a cloud and step
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_guided_body_reads_nothing_back_while_recording(setup, B):
+    with profiling.recording_spans():
+        test_guided_body_reads_nothing_back(setup, B)
+    steps = [s for s in profiling.spans() if s.name == "sampler.step"]
+    assert len(steps) == STEPS
 
 
 def test_coarse_body_reads_nothing_back(setup):
