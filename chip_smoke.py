@@ -47,7 +47,10 @@ Phases, each printing one line per result:
    ref tiles a query tile in each pass, the pairs its warps' chunk box
    test leaves to scan; each pass in device time, with the source's
    cluster size S);
-   ``grid_knn(exact=False)``; kernel, plain, library and bound times.
+   ``grid_knn(exact=False)``; the denoiser's residual block kernel at
+   15,000, 60,000 and 240,000 rows (a four-card rank, the hierarchical and
+   the direct CFG pair), its error from the float32 block within 1.1x the
+   plain version's; kernel, plain, library and bound times.
 3. reference — clouds through the sampler on the card (kernels) and on the
    CPU (plain versions) with the same draws, float32: 4,096 points with the
    brute-force kNN, and 24,576 points with ``knn_backend="auto"``, where
@@ -278,6 +281,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -295,10 +299,10 @@ from pointcloud_style_transfer_torch.data import (PointCloudPreprocessor,
 from pointcloud_style_transfer_torch.data.synthetic import lidar_scene_pair
 from pointcloud_style_transfer_torch.evaluation import metrics
 from pointcloud_style_transfer_torch.models import (
-    DiffusionNet, PointCloudDiffusionModel, capture, ddim_sample_loop,
-    ddim_step, ddim_timesteps, dtype_of, guided_sample_loop,
-    guided_sample_loop_coarse, make_schedule, networks, samplers,
-    time_embedding)
+    DiffusionNet, NoisePredictor, PointCloudDiffusionModel, capture,
+    ddim_sample_loop, ddim_step, ddim_timesteps, dtype_of,
+    guided_sample_loop, guided_sample_loop_coarse, make_schedule, networks,
+    samplers, time_embedding)
 from pointcloud_style_transfer_torch.ops import (
     brute_knn, chamfer_distance, farthest_point_sample, grid_knn,
     index_points, knn, min_sq_dist, pruned_knn, query_ball_point,
@@ -306,7 +310,8 @@ from pointcloud_style_transfer_torch.ops import (
 from pointcloud_style_transfer_torch.ops.voxel import (voxel_geometry,
                                                        voxel_order)
 from pointcloud_style_transfer_torch.ops.kernels import (
-    LAUNCH_COUNTS, ball_query_cuda, ball_query_plain, build_all, fps_cuda,
+    LAUNCH_COUNTS, ball_query_cuda, ball_query_plain, build_all,
+    denoiser_block_cuda, denoiser_block_plain, fps_cuda,
     fps_plain, grid_interp_cuda, grid_interp_plain, grid_topk_cuda,
     grid_topk_plain, knn_f32packed_keys_cuda, knn_f32packed_keys_plain,
     knn_intpacked_keys_cuda, knn_intpacked_keys_plain, knn_pruned_pass_cuda,
@@ -329,8 +334,10 @@ from pointcloud_style_transfer_torch.training import (DiffusionTrainer,
 from pointcloud_style_transfer_torch.utils.checkpoint import (
     save_checkpoint, split_state_dict)
 
-# H100 SXM published peaks (dense): float32 outside the tensor cores, HBM3.
+# H100 SXM published peaks (dense): float32 outside the tensor cores, bf16
+# on the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # float32 operations issued one at a time, no FMA (the distance kernels'
 # contract): 132 SMs x 128 FP32 lanes x 1.98 GHz
@@ -348,6 +355,10 @@ ROWMIN_Q = source_define("rowmin", "PCST_ROWMIN_Q")
 PRUNED_S = source_define("knn_pruned", "PCST_PRUNED_S")
 PRUNED_CHUNK = source_define("knn_pruned", "PCST_PRUNED_CHUNK")
 STEPS, GUIDANCE = 50, 7.5
+# csrc/denoiser_block.cu's launches a predict_noise call of a bf16 model at
+# Config() width in eval mode: one a residual block (none in train mode,
+# with pinned ReLU gates or in float32)
+DENOISER_BLOCKS = 6
 # the grid's defaults, which the sampler uses
 GRID_SHAPE, GRID_TQ, SLOT_CAP = grid_knn.GRID_SHAPE, 128, grid_knn.SLOT_CAP
 
@@ -641,7 +652,72 @@ def phase_kernels(rng: np.random.Generator, dev: torch.device) -> dict:
     for name, times in past_16.items():
         records[name]["k_past_16_ms"] = times
     phase_grid_inexact(query, ref)
+    records["denoiser_block"] = phase_denoiser_block(dev)
     return records
+
+
+# the rows the samplers give the denoiser: a rank of the four-card sampler,
+# the hierarchical CFG pair, the direct pair
+BLOCK_ROWS = (15_000, 2 * M_POINTS, 2 * N_POINTS)
+
+
+def phase_denoiser_block(dev: torch.device) -> dict:
+    """The residual block kernel at the samplers' row counts, against its
+    plain version on the same bf16 inputs (NoisePredictor's seeded init,
+    perturbed): its error from the float32 block within 1.1x the plain
+    version's, by max and by median, one launch a call; its device time
+    beside the bound (4 R 256 512 FLOP at 989 TFLOP/s), the plain version's
+    and the library's (PyTorch's fused operators: fc1 with its bias and ReLU
+    in cuBLASLt's epilogue, then fc2 with the residual added in its GEMM,
+    its bias in one add beforehand; timed here and never called by the
+    port)."""
+    torch.manual_seed(0)
+    fc1, fc2 = NoisePredictor(256, 128, compute_dtype=torch.bfloat16
+                              ).blocks[0]
+    gen = torch.Generator().manual_seed(1)
+    ws = [(w + 0.05 * torch.randn(w.shape, generator=gen)).detach().to(
+        dev, torch.bfloat16) for w in (fc1.weight, fc1.bias, fc2.weight,
+                                       fc2.bias)]
+
+    def library(x, w1, b1, w2, b2):
+        h = torch._addmm_activation(b1, x, w1.t())
+        return torch.addmm(b2 + x, h, w2.t())
+
+    rows_ms = {}
+    for rows in BLOCK_ROWS:
+        x = torch.randn((rows, 256), generator=gen).to(dev, torch.bfloat16)
+        got = one_launch("denoiser_block",
+                         lambda: denoiser_block_cuda(x, *ws))
+        plain = denoiser_block_plain(x, *ws)
+        exact = denoiser_block_plain(x.float(), *(w.float() for w in ws))
+        err_k, err_p = ((t.float() - exact).abs() for t in (got, plain))
+        if not (err_k.max() <= 1.1 * err_p.max()
+                and err_k.median() <= 1.1 * err_p.median()):
+            fail(f"denoiser_block {rows} rows: error max/median "
+                 f"{err_k.max():.4g}/{err_k.median():.4g} against the plain "
+                 f"version's {err_p.max():.4g}/{err_p.median():.4g}")
+        ms = device_ms(lambda: denoiser_block_cuda(x, *ws), "denoiser_block")
+        plain_ms = cuda_ms(lambda: denoiser_block_plain(x, *ws), reps=20)
+        lib_ms = cuda_ms(lambda: library(x, *ws), reps=20)
+        flops = 4.0 * rows * 256 * 512
+        b_ms = flops / PEAK_BF16_FLOPS * 1e3
+        rows_ms[rows] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, roofline_pct=100 * b_ms / ms,
+                             equal_share=(got == plain).float().mean().item())
+        print(f"[kernels] denoiser_block {rows} x 256 -> 512 -> 256: error "
+              f"max {err_k.max():.4g} (plain {err_p.max():.4g}), "
+              f"{100 * rows_ms[rows]['equal_share']:.2f}% of outputs equal "
+              f"to the plain version's, 1 launch; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library (addmm + ReLU epilogue, addmm) "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms (operations, bf16 "
+              f"tensor cores; {100 * b_ms / ms:.1f}% of it)")
+    big = rows_ms[BLOCK_ROWS[-1]]
+    return dict(name="denoiser_block", route="cuda",
+                source="pointcloud_style_transfer_torch/csrc/denoiser_block.cu",
+                replaces=None, shape=f"{BLOCK_ROWS[-1]}x256->512->256",
+                ms=big["ms"], plain_ms=big["plain_ms"],
+                library_ms=big["library_ms"], bound_ms=big["bound_ms"],
+                bound_by="operations", by_rows=rows_ms)
 
 
 def empty_kernel_ms(blocks: int) -> float:
@@ -2066,7 +2142,8 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
         # (the capture runner captures a key's second call): one counted
         # patch launch a step, whatever the unsafe count
         expected = expect_counts(knn_topk=STEPS, fps=2, ball_query=2,
-                                 grid_interp=STEPS)
+                                 grid_interp=STEPS,
+                                 denoiser_block=DENOISER_BLOCKS * STEPS)
         if len(unsafe) != STEPS or counts != expected:
             fail(f"launch counts {counts} != {expected} ({len(unsafe)} grid "
                  "passes recorded)")
@@ -2108,14 +2185,18 @@ def phase_main_path(rng: np.random.Generator, dev: torch.device,
         # kNN's too)
         for name, backend, fast, want in (
                 ("brute (pallas)", "pallas", False,
-                 expect_counts(knn_topk=STEPS, fps=2, ball_query=2)),
+                 expect_counts(knn_topk=STEPS, fps=2, ball_query=2,
+                               denoiser_block=DENOISER_BLOCKS * STEPS)),
                 ("f32-packed (pallas_f32packed)", "pallas_f32packed", False,
-                 expect_counts(knn_f32packed=STEPS, fps=2, ball_query=2)),
+                 expect_counts(knn_f32packed=STEPS, fps=2, ball_query=2,
+                               denoiser_block=DENOISER_BLOCKS * STEPS)),
                 ("pruned (pallas_pruned)", "pallas_pruned", False,
-                 expect_counts(knn_pruned=2 * STEPS, fps=2, ball_query=2)),
+                 expect_counts(knn_pruned=2 * STEPS, fps=2, ball_query=2,
+                               denoiser_block=DENOISER_BLOCKS * STEPS)),
                 ("fast (--fast, auto)", "auto", True,
                  expect_counts(grid_topk=1, knn_topk=1, fps=2,
-                               ball_query=2))):
+                               ball_query=2,
+                               denoiser_block=DENOISER_BLOCKS * STEPS))):
             path = save_checkpoint(os.path.join(tmp, f"{backend}.pt"),
                                    cfg.replace(knn_backend=backend), params,
                                    stats)
@@ -2211,7 +2292,8 @@ def phase_batch_and_ddim(rng: np.random.Generator, engine: DiffusionInference,
     # batch runs the loop eagerly, the second captures and replays it;
     # four unsafe counts a step, one a cloud
     want = n_calls(expect_counts(grid_interp=STEPS, fps=2, ball_query=2,
-                               knn_topk=STEPS), 2)
+                               knn_topk=STEPS,
+                               denoiser_block=DENOISER_BLOCKS * STEPS), 2)
     names = sorted(os.listdir(out_dir)) if rc == 0 else []
     outs = [np.load(os.path.join(out_dir, f)) for f in names]
     if rc != 0 or got != want or len(unsafe) != 4 * STEPS or names != [
@@ -2228,7 +2310,8 @@ def phase_batch_and_ddim(rng: np.random.Generator, engine: DiffusionInference,
     cond = torch.from_numpy(normalize_point_cloud(np.load(ref_path))[0])[None]
     shape_like = torch.zeros((1, N_POINTS, 3))
     gen = torch.Generator(device=engine.device).manual_seed(3)
-    want = expect_counts(grid_interp=5, fps=10, ball_query=10, knn_topk=5)
+    want = expect_counts(grid_interp=5, fps=10, ball_query=10, knn_topk=5,
+                         denoiser_block=DENOISER_BLOCKS * 5)
     secs = []
     for _ in range(3):  # eager, then captured and replayed, then replayed
         reset_launch_counts()
@@ -2485,7 +2568,8 @@ GRAPH_SEED = 40
 # launch (the fallback ladder on the device), the encoder's two FPS and two
 # ball queries; at B = 2 the same (the grid and the encoder take the batch)
 GRAPH_LAUNCHES = expect_counts(grid_interp=STEPS, knn_topk=STEPS, fps=2,
-                               ball_query=2)
+                               ball_query=2,
+                               denoiser_block=DENOISER_BLOCKS * STEPS)
 DDIM_STEPS = 5
 
 
@@ -2755,7 +2839,8 @@ def phase_graph(dev: torch.device, card: str) -> dict:
                 lambda: guided_sample_loop(
                     model, schedule, src, cond, STEPS, GUIDANCE,
                     knn_backend="pallas_pruned", **draws),
-                expect_counts(knn_pruned=2 * STEPS, fps=2, ball_query=2),
+                expect_counts(knn_pruned=2 * STEPS, fps=2, ball_query=2,
+                              denoiser_block=DENOISER_BLOCKS * STEPS),
                 card)
     src, cond = clouds(1), clouds(1)
     gen = torch.Generator(device=dev).manual_seed(GRAPH_SEED + 3)
@@ -2768,7 +2853,8 @@ def phase_graph(dev: torch.device, card: str) -> dict:
         "--fast (guided_sample_loop_coarse) B=1",
         lambda: guided_sample_loop_coarse(model, schedule, src, cond, STEPS,
                                           GUIDANCE, **draws),
-        expect_counts(grid_topk=1, knn_topk=1, fps=2, ball_query=2), card)
+        expect_counts(grid_topk=1, knn_topk=1, fps=2, ball_query=2,
+                      denoiser_block=DENOISER_BLOCKS * STEPS), card)
     draws = dict(
         x_init=torch.randn((1, N_POINTS, 3), generator=gen, device=dev),
         cond_priorities=torch.rand((DDIM_STEPS, 1, N_POINTS), generator=gen,
@@ -2782,7 +2868,8 @@ def phase_graph(dev: torch.device, card: str) -> dict:
         lambda: ddim_sample_loop(model, schedule, src, cond, DDIM_STEPS,
                                  **draws),
         expect_counts(grid_interp=DDIM_STEPS, knn_topk=DDIM_STEPS,
-                      fps=2 * DDIM_STEPS, ball_query=2 * DDIM_STEPS), card)
+                      fps=2 * DDIM_STEPS, ball_query=2 * DDIM_STEPS,
+                      denoiser_block=DENOISER_BLOCKS * DDIM_STEPS), card)
     return out
 
 
@@ -3143,7 +3230,8 @@ def phase_eval(dev: torch.device, card: str, work: str,
     counts = dict(LAUNCH_COUNTS)
     # a new engine: its loop runs eagerly in this call
     want = expect_counts(knn_topk=STEPS, fps=2, ball_query=2,
-                         grid_interp=STEPS)
+                         grid_interp=STEPS,
+                         denoiser_block=DENOISER_BLOCKS * STEPS)
     out = np.load(out_path) if rc == 0 else None
     if rc != 0 or counts != want or out.shape != (N_POINTS, 3) or \
             not np.isfinite(out).all():
@@ -3352,7 +3440,8 @@ def phase_test(rng: np.random.Generator, dev: torch.device, card: str,
     n_clouds = 2 * TEST_BATCH
     patch_launches(unsafe, [TEST_BATCH] * 2 * STEPS)  # a count a cloud
     want = n_calls(expect_counts(grid_interp=STEPS, fps=2, ball_query=2,
-                               knn_topk=STEPS), 2)
+                               knn_topk=STEPS,
+                               denoiser_block=DENOISER_BLOCKS * STEPS), 2)
     want.update(rowmin=14, knn_topk=want["knn_topk"] + 2)
     if counts != want or len(unsafe) != n_clouds * STEPS:
         fail(f"test CLI: launches {counts} != {want} ({len(unsafe)} grid "
@@ -3467,7 +3556,8 @@ def phase_progress(card: str, work: str) -> None:
     counts = dict(LAUNCH_COUNTS)
     # an engine a checkpoint, each running its loop eagerly in its one call
     want = expect_counts(grid_interp=2 * STEPS, fps=4, ball_query=4,
-                         knn_topk=2 * STEPS)
+                         knn_topk=2 * STEPS,
+                         denoiser_block=2 * DENOISER_BLOCKS * STEPS)
     outputs = [png] if HAVE_MATPLOTLIB else [
         os.path.join(work, f"progress_epoch_{ep:04d}.npy") for ep in (0, 1)]
     if rc != 0 or counts != want or not all(
@@ -3508,6 +3598,13 @@ def phase_benchmark(card: str, work: str) -> None:
     want = n_calls(expect_counts(grid_interp=passes, knn_topk=passes,
                                fps=2 * len(samples),
                                ball_query=2 * len(samples)), 4)
+    # the forward sweeps call the denoiser at many sizes: whole blocks, and
+    # at least the sampling calls' (50 steps, 4 calls a batch size)
+    blocks = counts["denoiser_block"]
+    if blocks % DENOISER_BLOCKS or blocks < 4 * len(samples) * \
+            DENOISER_BLOCKS * STEPS:
+        fail(f"benchmark CLI: {blocks} denoiser_block launches")
+    want["denoiser_block"] = blocks
     rows = res["forward"] + res["scaling"] + samples + [
         res["hierarchical_vs_direct"]]
     keys = {"device", "quick", "forward", "hierarchical_vs_direct", "scaling",
@@ -3867,9 +3964,10 @@ def phase_tools(dev: torch.device, card: str) -> dict:
         fail("[tools] the sampler step's full body differs from "
              "_guided_body")
     for variant, r in step["variants"].items():
-        if r["launches_per_step"] != step_tool.LAUNCHES[variant]:
+        want = step_tool.step_launches(variant, 1, DENOISER_BLOCKS)
+        if r["launches_per_step"] != want:
             fail(f"[tools] {variant} launched {r['launches_per_step']} a "
-                 f"step != {step_tool.LAUNCHES[variant]}")
+                 f"step != {want}")
     if not res["demo_synthetic_torch"]["finite"]:
         fail("[tools] the demo's transferred cloud or metrics not finite")
     verify = res["verify_grid_torch"]
@@ -3961,8 +4059,10 @@ def grad_gaps(got: dict, want: dict) -> dict:
 TRAIN_GRAPH_SEED = 50
 TRAIN_LR = 1e-4
 # an eval step's launches (no Chamfer: the style encoder's FPS and ball
-# query)
+# query), in float32 and in bf16 (the denoiser's blocks too)
 EVAL_STEP_LAUNCHES = expect_counts(fps=2, ball_query=2)
+EVAL_STEP_LAUNCHES_BF16 = expect_counts(fps=2, ball_query=2,
+                                        denoiser_block=DENOISER_BLOCKS)
 
 
 def eager_steps(trainer: DiffusionTrainer) -> DiffusionTrainer:
@@ -4193,7 +4293,7 @@ def phase_train_graph(dev: torch.device, card: str) -> dict:
                     torch.cuda.empty_cache()
                     reserved = torch.cuda.memory_reserved()
                 _, t_ms = step_call(lambda: t.eval_step(sim, real),
-                                    EVAL_STEP_LAUNCHES,
+                                    EVAL_STEP_LAUNCHES_BF16,
                                     f"bf16 {name} eval step {i + 1}")
                 eval_ms[name].append(t_ms)
                 if t is graphed and i == 1:
@@ -4843,8 +4943,11 @@ def ranks_selections(r: Ranks, schedule, src: torch.Tensor,
         r.same(f"the {dtype} replayed cloud", got)
         r.same(f"the {dtype} replay's Chamfer-L2 readings", torch.tensor(
             list(cd.values()), dtype=torch.float64, device=r.dev))
-        want = {k: v for k, v in expect_counts(fps=2, ball_query=2).items()
-                if v}
+        # the record pins no ReLU gate: a bf16 model's blocks take the
+        # kernel
+        blocks = DENOISER_BLOCKS * STEPS if use_amp else 0
+        want = {k: v for k, v in expect_counts(
+            fps=2, ball_query=2, denoiser_block=blocks).items() if v}
         r.check(counts == want, f"the {dtype} selections replay launched "
                 f"{counts} != {want}")
         if dtype == "float32":

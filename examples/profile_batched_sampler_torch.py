@@ -39,14 +39,16 @@ from pointcloud_style_transfer_torch.models import (  # noqa: E402
 from pointcloud_style_transfer_torch.ops import grid_knn  # noqa: E402
 
 
-def launches_want(mode: str, B: int, steps: int) -> dict:
+def launches_want(mode: str, B: int, steps: int, blocks: int = 0) -> dict:
     """A call's launches: each step's grid pass and its counted patch (one
     a group of up to ``grid_knn._BATCHED_MAX_GROUP`` clouds flat, one a
-    cloud cloud by cloud) and the style encoder's two FPS and ball
-    queries for the batch."""
+    cloud cloud by cloud), the style encoder's two FPS and ball queries for
+    the batch, and ``blocks`` denoiser-block launches a step
+    (``profile_common_torch.denoiser_launches``)."""
     groups = -(-B // grid_knn._BATCHED_MAX_GROUP) if mode == "flat" else B
-    return {"grid_interp": steps * groups, "knn_topk": steps * groups,
+    want = {"grid_interp": steps * groups, "knn_topk": steps * groups,
             "fps": 2, "ball_query": 2}
+    return want | ({"denoiser_block": steps * blocks} if blocks else {})
 
 
 def run_mode(model, schedule, B: int, steps: int, reps: int, mode: str,
@@ -87,7 +89,7 @@ def run_mode(model, schedule, B: int, steps: int, reps: int, mode: str,
     if tuple(out.shape) != (B, n, 3) or not torch.isfinite(out).all():
         raise RuntimeError(f"B={B} {mode}: output not finite or not "
                            f"[{B}, {n}, 3]")
-    want = launches_want(mode, B, steps)
+    want = launches_want(mode, B, steps, common.denoiser_launches(model))
     if device.type == "cuda" and launches != want:
         raise RuntimeError(f"B={B} {mode}: a call launched {launches} != "
                            f"{want}")

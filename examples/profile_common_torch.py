@@ -215,6 +215,15 @@ def marginal_note(m: dict) -> str:
             f" (unresolved: within the {m['noise_ms']:.4f} ms spread)"))
 
 
+def denoiser_launches(model) -> int:
+    """``csrc/denoiser_block.cu``'s launches a ``predict_noise`` call of
+    ``model``: one a residual block where its eval-mode blocks take the op
+    (``NoisePredictor.fused_blocks``) on the card, else none."""
+    net = model.net.noise_predictor
+    takes = model.device.type == "cuda" and net.fused_blocks
+    return len(net.blocks) if takes else 0
+
+
 def launches_of(fn: Callable[[], object]) -> dict:
     """The port's kernel launches of one call of ``fn`` (``LAUNCH_COUNTS``
     before and after; a replay adds its graph's kernel nodes), by name,

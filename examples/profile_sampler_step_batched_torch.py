@@ -72,7 +72,8 @@ def main(argv=None) -> dict:
         by_variant = readings[B] = {}
         for variant in variants:
             step_tool.check_variant(variant, res[variant], args.steps,
-                                    (B, N, 3), device)
+                                    (B, N, 3), device,
+                                    common.denoiser_launches(model))
             r = by_variant[variant] = step_tool.readings_of(res[variant],
                                                             args.steps)
             r["ms_per_cloud_step"] = r["ms_per_step"] / B

@@ -111,6 +111,15 @@ def components(variant: str, B: int = 1) -> set:
     return parts
 
 
+def step_launches(variant: str, B: int, blocks: int) -> dict:
+    """The port's kernel launches of a step of ``variant`` at ``B`` clouds:
+    ``LAUNCHES``, and ``blocks`` denoiser-block launches where it runs the
+    denoiser (``profile_common_torch.denoiser_launches``)."""
+    extra = {"denoiser_block": blocks} \
+        if blocks and "denoise" in components(variant, B) else {}
+    return LAUNCHES[variant] | extra
+
+
 def sampler_inputs(model, B: int, steps: int,
                    generator: torch.Generator) -> dict:
     """Seeded draws for ``B`` clouds of ``Config()``'s N points: the
@@ -284,12 +293,12 @@ def run_variants(model, variants, steps: int, reps: int, inputs: dict,
 
 
 def check_variant(variant: str, res: dict, steps: int, shape,
-                  device: torch.device) -> None:
+                  device: torch.device, blocks: int = 0) -> None:
     """The variant's outputs finite, of ``shape`` ([B, N, 3]) and identical
     across its calls; its body run by Python at its first two calls only
     on the card (eager, capture: no graph of another body replayed) and at
     every call on the CPU; the components it ran and, on the card, its
-    launches."""
+    launches (``step_launches`` with ``blocks``)."""
     first = res["first"]
     if tuple(first.shape) != tuple(shape) or not torch.isfinite(first).all():
         raise RuntimeError(f"{variant}: output {tuple(first.shape)} not "
@@ -305,7 +314,8 @@ def check_variant(variant: str, res: dict, steps: int, shape,
     if trace["runs"] != runs or got != want:
         raise RuntimeError(f"{variant}: the body ran {trace['runs']} times "
                            f"(want {runs}), components {got} != {want}")
-    want_launches = {k: v * steps for k, v in LAUNCHES[variant].items()}
+    want_launches = {k: v * steps for k, v in
+                     step_launches(variant, shape[0], blocks).items()}
     if device.type == "cuda" and res["launches"] != want_launches:
         raise RuntimeError(f"{variant}: a call launched {res['launches']} != "
                            f"{want_launches}")
@@ -395,7 +405,8 @@ def main(argv=None) -> dict:
                     f"{(res['full']['first'] - want).abs().max().item()}")
     readings = {}
     for variant in args.variants:
-        check_variant(variant, res[variant], args.steps, (1, N, 3), device)
+        check_variant(variant, res[variant], args.steps, (1, N, 3), device,
+                      common.denoiser_launches(model))
         r = readings[variant] = readings_of(res[variant], args.steps)
         note = ("" if r["marginal"] is None else "  (component ~"
                 + common.marginal_note(r["marginal"]) + ")")

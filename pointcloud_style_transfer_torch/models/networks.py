@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import farthest_point_sample, index_points, query_ball_point
+from ..ops.kernels import denoiser_block, takes_kernel
 
 
 @functools.lru_cache(maxsize=None)
@@ -307,6 +308,8 @@ class NoisePredictor(nn.Module):
             nn.ModuleList([Dense(F_, 2 * F_, compute_dtype),
                            Dense(2 * F_, F_, compute_dtype)])
             for _ in range(num_blocks))
+        # eval-mode blocks as one op each (one kernel launch on the card)
+        self.fused_blocks = takes_kernel(compute_dtype, F_, 2 * F_)
         self.output_mlp = nn.ModuleList([
             Dense(F_, 256, compute_dtype), Dense(256, 128, compute_dtype),
             Dense(128, 3, compute_dtype)])
@@ -318,7 +321,14 @@ class NoisePredictor(nn.Module):
                 selections: Optional[dict] = None) -> torch.Tensor:
         """``dropout_masks``: one [B, N, feature_dim] keep mask per residual
         block in train mode (drawn from ``generator`` when not given);
-        ``selections``: the pinned ReLU gates (``gated_relu``)."""
+        ``selections``: the pinned ReLU gates (``gated_relu``).
+
+        A bf16 model at 256 -> 512 -> 256 (``fused_blocks``) in eval mode
+        without ``selections`` (whatever the grad mode) makes each residual
+        block one ``ops.kernels.denoiser_block`` call: one kernel launch on
+        the card, the same ops as the layers on the CPU. Train mode (dropout
+        between fc2 and the residual, h kept for backward), pinned gates,
+        float32 models and other widths keep the block's layers."""
         masks = dropout_masks or [None] * len(self.blocks)
         sel = selections
         pe0, pe1, pe2 = self.point_encoder
@@ -327,9 +337,16 @@ class NoisePredictor(nn.Module):
         t_feat = self.time_proj(time_embedding(t, self.time_embed_dim))
         s_feat = self.style_proj(style_feat)
         x = x + t_feat[:, None, :] + s_feat[:, None, :]
-        for i, ((fc1, fc2), keep) in enumerate(zip(self.blocks, masks)):
-            h = gated_relu(fc1(x), sel, f"block{i}.relu")
-            x = dropout(fc2(h), train, keep, generator) + x
+        if train or sel is not None or not self.fused_blocks:
+            for i, ((fc1, fc2), keep) in enumerate(zip(self.blocks, masks)):
+                h = gated_relu(fc1(x), sel, f"block{i}.relu")
+                x = dropout(fc2(h), train, keep, generator) + x
+        else:
+            for fc1, fc2 in self.blocks:
+                dt = fc1.compute_dtype
+                x = denoiser_block(x.to(dt), fc1.weight.to(dt),
+                                   fc1.bias.to(dt), fc2.weight.to(dt),
+                                   fc2.bias.to(dt))
         o0, o1, o2 = self.output_mlp
         x = gated_relu(o0(x), sel, "out0.relu")
         return o2(gated_relu(o1(x), sel, "out1.relu"))

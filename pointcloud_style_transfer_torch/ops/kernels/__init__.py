@@ -5,6 +5,8 @@ import."""
 
 from ._common import LAUNCH_COUNTS, build_all, reset_launch_counts
 from .ball_query import ball_query_cuda, ball_query_kernel, ball_query_plain
+from .denoiser import (denoiser_block, denoiser_block_cuda,
+                       denoiser_block_plain, takes_kernel)
 from .fps import farthest_point_sample_kernel, fps_cuda, fps_plain
 from .grid import (grid_interp, grid_interp_cuda, grid_interp_plain,
                    grid_topk, grid_topk_cuda, grid_topk_plain)
@@ -20,6 +22,8 @@ from .rowmin import rowmin_cuda, rowmin_kernel, rowmin_plain
 __all__ = [
     "LAUNCH_COUNTS", "build_all", "reset_launch_counts",
     "ball_query_cuda", "ball_query_kernel", "ball_query_plain",
+    "denoiser_block", "denoiser_block_cuda", "denoiser_block_plain",
+    "takes_kernel",
     "farthest_point_sample_kernel", "fps_cuda", "fps_plain",
     "grid_interp", "grid_interp_cuda", "grid_interp_plain",
     "grid_topk", "grid_topk_cuda", "grid_topk_plain",

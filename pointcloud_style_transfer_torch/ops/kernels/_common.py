@@ -63,6 +63,8 @@ SIGNATURES = {
     "knn_pruned": {"pcst_knn_pruned_pass": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                             _INT, _INT, _INT, _INT, _INT,
                                             _VP]},
+    "denoiser_block": {"pcst_denoiser_block": [_VP, _VP, _VP, _VP, _VP, _VP,
+                                               _INT, _VP]},
 }
 KERNEL_SOURCES = tuple(SIGNATURES)
 # kernel (its LAUNCH_COUNTS key) -> (source, C entry point)
@@ -76,6 +78,7 @@ KERNELS = {
     "knn_f32packed": ("knn_packed", "pcst_knn_f32packed"),
     "knn_packed": ("knn_packed", "pcst_knn_packed"),
     "knn_pruned": ("knn_pruned", "pcst_knn_pruned_pass"),
+    "denoiser_block": ("denoiser_block", "pcst_denoiser_block"),
 }
 
 LAUNCH_COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -28,7 +28,9 @@ and 90,000 rows x 30,000 refs for k = 1, 3, 9 and 16, and so are the
 int-packed kernel's launched with every S. No kernel of the kNN family
 takes a NaN distance, whatever its sign bit. The kNN, packed-key, grid and
 pruned kernels past k = 16 and FPS past 65,536 points (their global-memory
-variants) are identical to the plain versions too.
+variants) are identical to the plain versions too. The denoiser's residual
+block kernel is held to its plain version by its error from the float32
+block: at most 1.1x the plain version's, by max and by median.
 """
 
 import numpy as np
@@ -1294,3 +1296,105 @@ def test_sharded_sampler_captured_matches_eager(cuda, points_mesh,
     eager = run(mesh=mesh)
     assert all(torch.equal(o, eager) for o in outs)
     assert torch.equal(eager, single)
+
+
+# the denoiser's residual block (csrc/denoiser_block.cu)
+
+BLOCK_ROWS = [1, 63, 64, 127, 128, 15_000, 60_000, 240_000]
+
+
+def block_inputs(cuda, rows, perturbed, seed=0):
+    """x [rows, 256] ~ N(0, 1) and fc1's and fc2's bf16 weights and biases
+    from ``NoisePredictor``'s seeded init (zero biases), or that init with
+    every weight and bias moved by 0.05 N(0, 1)."""
+    from pointcloud_style_transfer_torch.models import NoisePredictor
+    torch.manual_seed(seed)
+    net = NoisePredictor(256, 128, compute_dtype=torch.bfloat16)
+    fc1, fc2 = net.blocks[0]
+    ws = [fc1.weight, fc1.bias, fc2.weight, fc2.bias]
+    gen = torch.Generator().manual_seed(seed + 1)
+    if perturbed:
+        ws = [w + 0.05 * torch.randn(w.shape, generator=gen) for w in ws]
+    x = torch.randn((rows, 256), generator=gen)
+    return [t.detach().to(cuda, torch.bfloat16) for t in (x, *ws)]
+
+
+@pytest.mark.parametrize("perturbed", [False, True])
+@pytest.mark.parametrize("rows", BLOCK_ROWS)
+def test_denoiser_block_kernel_against_plain(cuda, rows, perturbed):
+    """Against the block in float32 on the same bf16 inputs, the kernel's
+    error is at most 1.1x the bf16 plain version's, by max and by median:
+    both round at the same points, and only the products' summation order
+    differs (a bf16 rounding of a pre-activation, rarely a ReLU sign at
+    |pre-activation| under an ulp). One launch."""
+    from pointcloud_style_transfer_torch.ops.kernels import (
+        denoiser_block_cuda, denoiser_block_plain)
+    ins = block_inputs(cuda, rows, perturbed)
+    before = LAUNCH_COUNTS["denoiser_block"]
+    got = denoiser_block_cuda(*ins)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["denoiser_block"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == ins[0].shape
+    plain = denoiser_block_plain(*ins)
+    exact = denoiser_block_plain(*(t.float() for t in ins))
+    err_k = (got.float() - exact).abs()
+    err_p = (plain.float() - exact).abs()
+    assert torch.isfinite(got).all()
+    assert err_k.max() <= 1.1 * err_p.max()
+    assert err_k.median() <= 1.1 * err_p.median()
+
+
+def test_denoiser_block_backward_and_counts(cuda):
+    """The autograd op's gradients are the plain version's (its backward
+    differentiates the plain block); ``NoisePredictor`` in eval mode, with
+    or without grad, launches the kernel once a block, 6 a call, and its
+    output stays within bf16 rounding of the layers' path."""
+    from pointcloud_style_transfer_torch.models import NoisePredictor
+    from pointcloud_style_transfer_torch.ops.kernels import (
+        denoiser_block, denoiser_block_plain)
+    ins = block_inputs(cuda, 3000, True)
+    g = torch.randn(ins[0].shape, device=cuda).to(torch.bfloat16)
+    a = [t.clone().requires_grad_(True) for t in ins]
+    b = [t.clone().requires_grad_(True) for t in ins]
+    before = LAUNCH_COUNTS["denoiser_block"]
+    out = denoiser_block(*a)
+    assert LAUNCH_COUNTS["denoiser_block"] == before + 1
+    for ga, gb in zip(torch.autograd.grad(out, a, g),
+                      torch.autograd.grad(denoiser_block_plain(*b), b, g)):
+        assert torch.equal(ga, gb)
+
+    torch.manual_seed(0)
+    net = NoisePredictor(256, 128, compute_dtype=torch.bfloat16).to(cuda)
+    x = torch.randn((2, 5000, 3), device=cuda)
+    t = torch.tensor([5, 500], device=cuda)
+    style = torch.randn((2, 256), device=cuda)
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad):
+            before = LAUNCH_COUNTS["denoiser_block"]
+            got = net(x, t, style)
+            assert LAUNCH_COUNTS["denoiser_block"] == before + 6
+    with torch.no_grad():
+        layers = net(x, t, style, selections={})  # the layers' path
+    assert LAUNCH_COUNTS["denoiser_block"] == before + 6
+    scale = layers.float().abs().max()
+    assert (got.float() - layers.float()).abs().max() <= 0.05 * scale
+    # a float32 model keeps the layers: no launch
+    net32 = NoisePredictor(256, 128).to(cuda)
+    with torch.no_grad():
+        net32(x, t, style)
+    assert LAUNCH_COUNTS["denoiser_block"] == before + 6
+
+
+def test_denoiser_block_rejects_bad_inputs(cuda):
+    """The kernel, and the wrapper for a CUDA tensor, raise for inputs the
+    kernel does not compute (a float32 block among them): no fallback."""
+    from pointcloud_style_transfer_torch.ops.kernels import (
+        denoiser_block, denoiser_block_cuda)
+    x, w1, b1, w2, b2 = block_inputs(cuda, 64, False)
+    for bad in ([x.float(), w1, b1, w2, b2], [x[:, :128], w1, b1, w2, b2],
+                [x, w1.t(), b1, w2, b2], [x, w1, b1[:256], w2, b2],
+                [x.t().contiguous().t(), w1, b1, w2, b2]):
+        with pytest.raises(ValueError):
+            denoiser_block_cuda(*bad)
+    with pytest.raises(ValueError):
+        denoiser_block(*(t.float() for t in (x, w1, b1, w2, b2)))
