@@ -1,9 +1,13 @@
 """Train CLI (counterpart of ``pointcloud_style_transfer_tpu/cli/train.py``):
 ``Config()`` with the flags given, the processed dataset's train/val
 batchers, and ``DiffusionTrainer`` on ``--device`` (default ``cuda``).
+``--denoiser`` picks the noise predictor: ``mlp`` (the residual MLP, the
+default) or one of Point-E's transformer presets (``point-e-base40M``,
+``point-e-base300M``, ``point-e-base1B``); its checkpoints hold the choice.
 
     python -m pointcloud_style_transfer_torch.cli.train \\
-        --data_dir datasets/processed --num_epochs 2 [--device cpu]
+        --data_dir datasets/processed --num_epochs 2 [--device cpu] \\
+        [--denoiser point-e-base40M]
 """
 
 from __future__ import annotations
@@ -13,9 +17,19 @@ import argparse
 from ..config import Config
 from ..data import create_dataloaders
 from ..device import resolve_device
+from ..models.transformer import PRESETS
 from ..training import DiffusionTrainer
 from ..utils.cache import enable_compilation_cache
 from ._common import add_config_overrides, apply_overrides
+
+
+DENOISERS = ("mlp", *(f"point-e-{name}" for name in PRESETS))
+
+
+def denoiser_of(name: str):
+    """The ``--denoiser`` choice's spec: None for ``mlp``, else the Point-E
+    preset it names."""
+    return None if name == "mlp" else PRESETS[name[len("point-e-"):]]
 
 
 def main(argv=None) -> int:
@@ -28,6 +42,9 @@ def main(argv=None) -> int:
     parser.add_argument("--use_hierarchical", type=int, default=None,
                         choices=(0, 1))
     parser.add_argument("--val_interval", type=int, default=None)
+    parser.add_argument("--denoiser", default="mlp", choices=DENOISERS,
+                        help="the noise predictor: the residual MLP or a "
+                        "Point-E transformer preset")
     args = parser.parse_args(argv)
     enable_compilation_cache()
 
@@ -42,7 +59,8 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     train_loader, val_loader = create_dataloaders(config)
     trainer = DiffusionTrainer(config, resume=not args.no_resume,
-                               device=device)
+                               device=device,
+                               denoiser=denoiser_of(args.denoiser))
     trainer.train(train_loader, val_loader)
     return 0
 

@@ -4,6 +4,7 @@ from .diffusion import (DiffusionSchedule, ddim_step, ddim_timesteps,
 from .model import PointCloudDiffusionModel, dtype_of
 from .networks import (DiffusionNet, NoisePredictor, PointNet2Encoder,
                        SetAbstraction, StyleEncoder, time_embedding)
+from .transformer import PRESETS, PointETransformer, TransformerSpec
 from .samplers import (ddim_sample_loop, guided_sample_loop,
                        guided_sample_loop_coarse,
                        resolve_sampler_knn_backend)
@@ -14,5 +15,6 @@ __all__ = [
     "PointCloudDiffusionModel", "dtype_of", "DiffusionNet", "NoisePredictor",
     "PointNet2Encoder", "SetAbstraction", "StyleEncoder", "time_embedding",
     "guided_sample_loop", "guided_sample_loop_coarse", "ddim_sample_loop",
-    "resolve_sampler_knn_backend",
+    "resolve_sampler_knn_backend", "PointETransformer", "TransformerSpec",
+    "PRESETS",
 ]

@@ -23,16 +23,21 @@ class PointCloudDiffusionModel:
     """Bundles the config and its DiffusionNet (eval mode) on ``device``
     (default ``cuda``; raises without a card unless ``device="cpu"``).
     ``Config.use_pallas`` decides whether FPS and ball query run their CUDA
-    kernels or their plain versions."""
+    kernels or their plain versions. ``denoiser`` (a
+    ``transformer.TransformerSpec``) builds Point-E's transformer as the
+    noise predictor in place of the residual MLP; ``Config`` does not hold
+    it (``self.denoiser``, and a checkpoint, hold it beside the config)."""
 
     def __init__(self, config: Config, device: str | torch.device | None = None,
-                 net: Optional[DiffusionNet] = None):
+                 net: Optional[DiffusionNet] = None, denoiser=None):
         self.config = config
         self.device = resolve_device(device)
         if net is None:
             net = DiffusionNet(config.feature_dim, config.time_embed_dim,
                                compute_dtype=dtype_of(config),
-                               use_kernels=config.use_pallas)
+                               use_kernels=config.use_pallas,
+                               denoiser=denoiser)
+        self.denoiser = net.denoiser
         self.net = net.to(self.device).eval()
 
     @torch.no_grad()

@@ -293,6 +293,8 @@ class NoisePredictor(nn.Module):
     """Per-point residual MLP denoiser conditioned on time + style (no
     cross-point mixing)."""
 
+    mixes_points = False  # each point's noise from that point alone
+
     def __init__(self, feature_dim: int = 256, time_embed_dim: int = 128,
                  num_blocks: int = 6,
                  compute_dtype: torch.dtype = torch.float32):
@@ -353,16 +355,28 @@ class NoisePredictor(nn.Module):
 
 
 class DiffusionNet(nn.Module):
-    """StyleEncoder + NoisePredictor: the learned parts of the model."""
+    """StyleEncoder + a noise predictor: the learned parts of the model.
+    The noise predictor is ``NoisePredictor`` or, given ``denoiser`` (a
+    ``transformer.TransformerSpec``), ``transformer.PointETransformer``;
+    both take the same call."""
 
     def __init__(self, feature_dim: int = 256, time_embed_dim: int = 128,
                  compute_dtype: torch.dtype = torch.float32,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, denoiser=None):
         super().__init__()
         self.style_encoder = StyleEncoder(feature_dim, compute_dtype,
                                           use_kernels)
-        self.noise_predictor = NoisePredictor(feature_dim, time_embed_dim,
-                                              compute_dtype=compute_dtype)
+        if denoiser is None:
+            self.noise_predictor = NoisePredictor(
+                feature_dim, time_embed_dim, compute_dtype=compute_dtype)
+        else:
+            from .transformer import PointETransformer
+            if denoiser.style_width != feature_dim:
+                raise ValueError(f"the denoiser's style width "
+                                 f"{denoiser.style_width} is not the style "
+                                 f"encoder's {feature_dim}")
+            self.noise_predictor = PointETransformer(denoiser, compute_dtype)
+        self.denoiser = denoiser
 
     def encode_style(self, cond_points: torch.Tensor,
                      fps_starts: Optional[torch.Tensor] = None,

@@ -271,7 +271,8 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
     and, when they divide M, the denoiser runs on its share of the coarse
     rows; the shares are all-gathered. Every rank passes the same inputs
     and draws (or an identically seeded generator) and returns the same
-    cloud.
+    cloud. A denoiser that mixes points (``PointETransformer``) needs every
+    row at once, so a ``mesh`` call with it raises.
 
     On the card the whole call after the draws (condition downsample, style
     encoder, every step) is one CUDA graph (``models.capture``), captured
@@ -304,6 +305,11 @@ def guided_sample_loop(model: PointCloudDiffusionModel,
         knn_backend = resolve_sampler_knn_backend(cfg)
     split = rows = None
     if mesh is not None:
+        if model.net.noise_predictor.mixes_points:
+            raise ValueError(
+                "the point-sharded sampler runs the denoiser on one rank's "
+                "rows, which is wrong for a denoiser that mixes points "
+                f"({type(model.net.noise_predictor).__name__})")
         from ..parallel.sharded_sampler import RowSplit
         split = RowSplit(mesh, axis_name, device.type)
         if use_hierarchical:

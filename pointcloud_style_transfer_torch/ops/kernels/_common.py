@@ -15,7 +15,8 @@ A source's plan constants are ``#define PCST_...`` lines, read by
 builds a source once per set of overrides, for the plan sweeps and tests).
 
 Every wrapper adds one to its kernel's entry of ``LAUNCH_COUNTS`` after each
-launch, so a run can show that a path really went through the kernels.
+launch, so a run can show that a path really went through the kernels;
+``COUNTED_CALLS`` are calls into PyTorch's kernels counted the same way.
 """
 
 from __future__ import annotations
@@ -81,7 +82,11 @@ KERNELS = {
     "denoiser_block": ("denoiser_block", "pcst_denoiser_block"),
 }
 
-LAUNCH_COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}
+# kernels that are not built here, counted all the same: "attention", one a
+# fused attention call of ``models/transformer.py`` (PyTorch's own kernels)
+COUNTED_CALLS = ("attention",)
+LAUNCH_COUNTS: Dict[str, int] = {name: 0 for name in (*KERNELS,
+                                                     *COUNTED_CALLS)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

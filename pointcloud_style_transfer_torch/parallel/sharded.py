@@ -114,6 +114,11 @@ class StepLayout:
         p does not divide the rows."""
         if self.p == 1:
             return None
+        if net.noise_predictor.mixes_points:
+            raise ValueError(
+                "a point-sharded step runs the denoiser on one rank's rows, "
+                "which is wrong for a denoiser that mixes points "
+                f"({type(net.noise_predictor).__name__})")
 
         def predict(x, t, style, train, masks, generator, selections):
             M = x.shape[1]

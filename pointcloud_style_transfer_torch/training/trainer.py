@@ -166,7 +166,8 @@ def step_draws(model: PointCloudDiffusionModel, batch: int, n_sim: int,
     ``t``, ``noise``, ``cond_priority``, ``fps_starts``,
     ``style_dropout_mask`` (train), ``drop_u`` (when ``cond_drop_prob``,
     by default the config's in train mode and 0 in eval, is positive),
-    ``noisy_priority``, ``noise_dropout_masks`` (train). A key of ``given``
+    ``noisy_priority``, ``noise_dropout_masks`` (train, for the residual
+    MLP; Point-E's transformer has no dropout). A key of ``given``
     is not drawn. ``compute_losses`` takes its draws here; the
     data-parallel step takes the global batch's and slices them
     (``slice_draws``)."""
@@ -220,10 +221,11 @@ def step_draws(model: PointCloudDiffusionModel, batch: int, n_sim: int,
         n_noisy = M
         if "noisy_priority" not in given:
             d["noisy_priority"] = rand(B, n_sim)
-    if train and "noise_dropout_masks" not in given:
+    predictor = model.net.noise_predictor
+    if train and "noise_dropout_masks" not in given and \
+            not predictor.mixes_points:  # the per-point MLP's dropout
         d["noise_dropout_masks"] = [rand(B, n_noisy, cfg.feature_dim)
-                                    < KEEP_PROB for _ in
-                                    model.net.noise_predictor.blocks]
+                                    < KEEP_PROB for _ in predictor.blocks]
     return d
 
 
@@ -349,8 +351,13 @@ def _terms(loss_dict: LossDict, layout) -> LossDict:
 
 
 class DiffusionTrainer:
+    """The training loop of one model. ``denoiser`` (a
+    ``models.transformer.TransformerSpec``) trains Point-E's transformer as
+    the noise predictor in place of the residual MLP; its checkpoints hold
+    the spec."""
+
     def __init__(self, config: Config, resume: bool = True,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, denoiser=None):
         from ..utils.cache import enable_compilation_cache
         enable_compilation_cache()
         self.config = config
@@ -369,7 +376,8 @@ class DiffusionTrainer:
             torch.manual_seed(config.seed)
             net = DiffusionNet(config.feature_dim, config.time_embed_dim,
                                compute_dtype=dtype_of(config),
-                               use_kernels=config.use_pallas)
+                               use_kernels=config.use_pallas,
+                               denoiser=denoiser)
         self.model = PointCloudDiffusionModel(config, self.device, net=net)
         self.schedule = make_schedule(config).to(self.device)
         self.params = dict(self.model.net.named_parameters())
@@ -652,7 +660,8 @@ class DiffusionTrainer:
                 if self.is_main:
                     self.checkpoint_manager.save(
                         self.state(), epoch, cfg, is_best=is_best,
-                        best_val_loss=self.best_val_loss)
+                        best_val_loss=self.best_val_loss,
+                        denoiser=self.model.denoiser)
                 if self.patience_counter >= self.max_patience:
                     self.logger.info("Early stop: no improvement for %d "
                                      "validations", self.patience_counter)

@@ -6,11 +6,16 @@ Two forms, both read by ``load_for_inference``:
   package's directory contract with a ``.pt`` payload:
   ``{checkpoint_dir}/{experiment_name}/ckpt_epoch_{epoch:04d}/`` holding
   ``state.pt`` (``params``, ``batch_stats``, ``opt_state``, ``ema_params``)
-  and ``meta.json`` (``epoch``, ``config``, ``best_val_loss``), plus a
-  ``best_model/`` copy updated on improvement; ``load_latest`` finds the
-  newest epoch and returns the next one to run;
+  and ``meta.json`` (``epoch``, ``config``, ``best_val_loss``,
+  ``denoiser``), plus a ``best_model/`` copy updated on improvement;
+  ``load_latest`` finds the newest epoch and returns the next one to run;
 * **a single ``.pt`` file** (``save_checkpoint``): ``config``, ``params``,
-  ``batch_stats`` and optional ``ema_params``.
+  ``batch_stats``, optional ``ema_params`` and ``denoiser``.
+
+``denoiser`` is the noise predictor's spec beside the config
+(``models.transformer.TransformerSpec.to_dict()``, or None for the residual
+MLP; a checkpoint without the entry is the MLP's), so that
+``load_for_inference`` rebuilds the network it holds.
 
 Tensors are stored on the CPU by state-dict name and read with
 ``weights_only=True``. ``convert.py`` turns JAX variables and train states
@@ -58,12 +63,20 @@ def to_cpu(tree: Any) -> Any:
     return tree
 
 
+def _spec_dict(denoiser) -> Optional[dict]:
+    return None if denoiser is None else denoiser.to_dict()
+
+
 def save_checkpoint(path: str, config: Config, params: StateDict,
                     batch_stats: StateDict,
-                    ema_params: Optional[StateDict] = None) -> str:
+                    ema_params: Optional[StateDict] = None,
+                    denoiser=None) -> str:
+    """``denoiser``: the noise predictor's ``TransformerSpec``, or None for
+    the residual MLP."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save({"config": config.to_dict(), "params": params,
-                "batch_stats": batch_stats, "ema_params": ema_params}, path)
+                "batch_stats": batch_stats, "ema_params": ema_params,
+                "denoiser": _spec_dict(denoiser)}, path)
     return path
 
 
@@ -97,17 +110,19 @@ class CheckpointManager:
         return sorted(out)
 
     def save(self, state: Dict[str, Any], epoch: int, config: Config,
-             is_best: bool = False, best_val_loss: float = float("inf")
-             ) -> str:
+             is_best: bool = False, best_val_loss: float = float("inf"),
+             denoiser=None) -> str:
         """``state``: nested dicts of tensors (params, batch_stats,
-        opt_state, ema_params); written to the CPU."""
+        opt_state, ema_params); written to the CPU. ``denoiser`` as for
+        ``save_checkpoint``, into ``meta.json``."""
         path = self.epoch_dir(epoch)
         if os.path.exists(path):
             shutil.rmtree(path)
         os.makedirs(path)
         torch.save(to_cpu(state), os.path.join(path, STATE_FILE))
         meta = {"epoch": epoch, "config": config.to_dict(),
-                "best_val_loss": best_val_loss}
+                "best_val_loss": best_val_loss,
+                "denoiser": _spec_dict(denoiser)}
         with open(os.path.join(path, META_FILE), "w") as f:
             json.dump(meta, f, indent=2)
         if is_best:
@@ -167,18 +182,20 @@ def load_checkpoint_config(path: str) -> Config:
 
 def load_for_inference(path: str, device: str | torch.device | None = None):
     """Rebuild (config, model) on ``device`` (default ``cuda``) from a
-    training checkpoint directory or a single ``.pt`` file. EMA weights are
-    preferred, falling back to the raw params."""
+    training checkpoint directory or a single ``.pt`` file, with the noise
+    predictor its ``denoiser`` entry names. EMA weights are preferred,
+    falling back to the raw params."""
     from ..models import PointCloudDiffusionModel
+    from ..models.transformer import denoiser_spec
 
     device = resolve_device(device)
     if os.path.isdir(path):
         ckpt, meta = CheckpointManager.restore(path)
-        config = Config.from_dict(meta["config"])
     else:
-        ckpt = load_checkpoint(path)
-        config = Config.from_dict(ckpt["config"])
-    model = PointCloudDiffusionModel(config, device)
+        ckpt = meta = load_checkpoint(path)
+    config = Config.from_dict(meta["config"])
+    model = PointCloudDiffusionModel(config, device, denoiser=denoiser_spec(
+        meta.get("denoiser")))
     weights = ckpt.get("ema_params") or ckpt["params"]
     model.net.load_state_dict({**weights, **ckpt["batch_stats"]})
     return config, model
